@@ -7,11 +7,14 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
 - ``gf``, ``matrices`` — GF(2^w) arithmetic and the jerasure / ISA-L
   generator matrices (numpy).
 - ``ops`` — the numpy ground truth (``regionops``), the plain torch tier
-  (``torch_ops``), the hand-written CUDA kernel and its wrappers
-  (``gf_kernels``, ``csrc/``), and the cuda -> torch -> numpy tier policy
+  (``torch_ops``), the hand-written CUDA kernels and their wrappers
+  (``gf_kernels``, ``csrc/``), the bitmatrix XOR scheduler
+  (``xor_schedule``), and the cuda -> torch -> numpy tier policy
   (``fallback``).
-- ``codes`` — the erasure-code plugin framework: registry, jerasure
-  (reed_sol_van, reed_sol_r6_op), isa (reed_sol_van, cauchy), example.
+- ``codes`` — the erasure-code plugin framework: registry, jerasure (all
+  seven techniques: reed_sol_van and reed_sol_r6_op at w=8/16/32, and
+  the bitmatrix techniques cauchy_orig, cauchy_good, liberation,
+  blaum_roth, liber8tion), isa (reed_sol_van, cauchy), example.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).

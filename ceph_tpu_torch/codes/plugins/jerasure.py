@@ -1,4 +1,4 @@
-"""jerasure-equivalent plugin: the GF(2^w) matrix techniques.
+"""jerasure-equivalent plugin: all seven techniques.
 
 Mirrors src/erasure-code/jerasure/ErasureCodeJerasure.{h,cc} +
 ErasureCodePluginJerasure.cc, as ``ceph_tpu.codes.plugins.jerasure``
@@ -6,28 +6,38 @@ does:
 - class ErasureCodeJerasure               -> ErasureCodeJerasure
 - ...ReedSolomonVandermonde (reed_sol_van) — GF(2^w) matrix technique
 - ...ReedSolomonRAID6 (reed_sol_r6_op)     — P/Q matrix technique
+- ...CauchyOrig / ...CauchyGood            — bitmatrix techniques
+- ...Liberation / ...BlaumRoth / ...Liber8tion — minimal-density bitmatrix
 - ErasureCodePluginJerasure::factory       -> ErasureCodePluginJerasure
 
-The bitmatrix techniques (cauchy_orig, cauchy_good, liberation,
-blaum_roth, liber8tion) need the packet-layout bitmatrix kernel, which
-is not ported yet (ROADMAP.md Queue B item 3): asking for one raises
-NotImplementedError.
-
 Profile parameters (ErasureCodeJerasure::parse): k, m, w, technique,
-jerasure-per-chunk-alignment. Defaults k=2 m=1 w=8
-technique=reed_sol_van (DEFAULT_* constants).
+packetsize, jerasure-per-chunk-alignment. Defaults k=2 m=1 w=8
+technique=reed_sol_van packetsize=2048 (DEFAULT_* constants).
+
+Compute: the matrix techniques through ``MatrixCodeMixin`` (GF(2^w)
+matrix kernels, w in 8, 16, 32), the bitmatrix techniques through
+``BitmatrixCodeMixin`` (the packet-layout kernels), on the code's
+device; byte-identical to the reference on every path.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
+from ...gf.bitmatrix import matrix_to_bitmatrix
 from ...matrices.jerasure import (
+    blaum_roth_coding_bitmatrix,
+    cauchy_good_general_coding_matrix,
+    cauchy_original_coding_matrix,
+    liber8tion_coding_bitmatrix,
+    liberation_coding_bitmatrix,
     reed_sol_r6_coding_matrix,
     reed_sol_vandermonde_coding_matrix,
 )
 from ..base import ErasureCode
-from ..techniques import MatrixCodeMixin
+from ..techniques import BitmatrixCodeMixin, MatrixCodeMixin
 from ..registry import ERASURE_CODE_VERSION, ErasureCodePlugin
 
 __erasure_code_version__ = ERASURE_CODE_VERSION
@@ -35,8 +45,10 @@ __erasure_code_version__ = ERASURE_CODE_VERSION
 LARGEST_VECTOR_WORDSIZE = 16  # ErasureCodeJerasure.cc
 SIZEOF_INT = 4
 
-BITMATRIX_TECHNIQUES = ("cauchy_orig", "cauchy_good", "liberation",
-                        "blaum_roth", "liber8tion")
+
+def _is_prime(n: int) -> bool:
+    """ErasureCodeJerasure.cc -> is_prime (table up to 257 upstream)."""
+    return n >= 2 and all(n % p for p in range(2, math.isqrt(n) + 1))
 
 
 class ErasureCodeJerasure(ErasureCode):
@@ -96,6 +108,38 @@ class _MatrixTechnique(MatrixCodeMixin, ErasureCodeJerasure):
         return alignment
 
 
+class _BitmatrixTechnique(BitmatrixCodeMixin, ErasureCodeJerasure):
+    """Bitmatrix techniques in jerasure packet layout (cauchy/liberation...)."""
+
+    DEFAULT_PACKETSIZE = "2048"
+
+    def __init__(self, device=None) -> None:
+        super().__init__(device)
+        self.packetsize = 2048
+
+    def parse(self, profile) -> None:
+        super().parse(profile)
+        self.packetsize = self.to_int("packetsize", profile,
+                                      self.DEFAULT_PACKETSIZE)
+        if self.packetsize < 1:
+            raise ValueError(f"packetsize={self.packetsize} must be >= 1")
+
+    def get_alignment(self) -> int:
+        """ErasureCodeJerasureCauchy/Liberation::get_alignment."""
+        if self.per_chunk_alignment:
+            alignment = self.w * self.packetsize
+            if alignment % LARGEST_VECTOR_WORDSIZE:
+                # keep the result a multiple of w*packetsize (the packet
+                # layout requires it), like the non-per-chunk branch below
+                alignment *= LARGEST_VECTOR_WORDSIZE
+            return alignment
+        alignment = self.k * self.w * self.packetsize * SIZEOF_INT
+        if (self.w * self.packetsize * SIZEOF_INT) % LARGEST_VECTOR_WORDSIZE:
+            alignment = (self.k * self.w * self.packetsize
+                         * LARGEST_VECTOR_WORDSIZE)
+        return alignment
+
+
 class ErasureCodeJerasureReedSolomonVandermonde(_MatrixTechnique):
     """technique=reed_sol_van (jerasure reed_sol_vandermonde_coding_matrix)."""
 
@@ -132,11 +176,95 @@ class ErasureCodeJerasureReedSolomonRAID6(_MatrixTechnique):
         return reed_sol_r6_coding_matrix(self.k, self.w)
 
 
+class ErasureCodeJerasureCauchyOrig(_BitmatrixTechnique):
+    """technique=cauchy_orig (cauchy_original_coding_matrix -> bitmatrix)."""
+
+    technique = "cauchy_orig"
+
+    def build_bitmatrix(self) -> np.ndarray:
+        mat = cauchy_original_coding_matrix(self.k, self.m, self.w)
+        return matrix_to_bitmatrix(self.k, self.m, self.w, mat)
+
+
+class ErasureCodeJerasureCauchyGood(_BitmatrixTechnique):
+    """technique=cauchy_good (cauchy_good_general_coding_matrix -> bitmatrix)."""
+
+    technique = "cauchy_good"
+
+    def build_bitmatrix(self) -> np.ndarray:
+        mat = cauchy_good_general_coding_matrix(self.k, self.m, self.w)
+        return matrix_to_bitmatrix(self.k, self.m, self.w, mat)
+
+
+class ErasureCodeJerasureLiberation(_BitmatrixTechnique):
+    """technique=liberation (w prime, k <= w, m = 2)."""
+
+    technique = "liberation"
+    DEFAULT_M = "2"
+    DEFAULT_W = "7"
+    DEFAULT_PACKETSIZE = "8"
+
+    def parse(self, profile) -> None:
+        super().parse(profile)
+        self.m = 2
+
+    def check_technique(self) -> None:
+        # ErasureCodeJerasureLiberation::check_kw + check_w
+        if self.k > self.w:
+            raise ValueError(f"liberation: k={self.k} must be <= w={self.w}")
+        if not _is_prime(self.w) or self.w <= 2:
+            raise ValueError(f"liberation: w={self.w} must be an odd prime")
+
+    def build_bitmatrix(self) -> np.ndarray:
+        return liberation_coding_bitmatrix(self.k, self.w)
+
+
+class ErasureCodeJerasureBlaumRoth(ErasureCodeJerasureLiberation):
+    """technique=blaum_roth (w + 1 prime, k <= w, m = 2)."""
+
+    technique = "blaum_roth"
+
+    def check_technique(self) -> None:
+        if self.k > self.w:
+            raise ValueError(f"blaum_roth: k={self.k} must be <= w={self.w}")
+        if not _is_prime(self.w + 1):
+            raise ValueError(f"blaum_roth: w+1={self.w + 1} must be prime")
+
+    def build_bitmatrix(self) -> np.ndarray:
+        return blaum_roth_coding_bitmatrix(self.k, self.w)
+
+
+class ErasureCodeJerasureLiber8tion(ErasureCodeJerasureLiberation):
+    """technique=liber8tion (w = 8, m = 2, k <= 8)."""
+
+    technique = "liber8tion"
+    DEFAULT_K = "2"
+    DEFAULT_W = "8"
+
+    def parse(self, profile) -> None:
+        # ErasureCodeJerasureLiber8tion::parse: w and m are not profile-tunable
+        super().parse(profile)
+        self.m = 2
+        self.w = 8
+
+    def check_technique(self) -> None:
+        if self.k > 8:
+            raise ValueError(f"liber8tion: k={self.k} must be <= 8")
+
+    def build_bitmatrix(self) -> np.ndarray:
+        return liber8tion_coding_bitmatrix(self.k)
+
+
 TECHNIQUES = {
     cls.technique: cls
     for cls in (
         ErasureCodeJerasureReedSolomonVandermonde,
         ErasureCodeJerasureReedSolomonRAID6,
+        ErasureCodeJerasureCauchyOrig,
+        ErasureCodeJerasureCauchyGood,
+        ErasureCodeJerasureLiberation,
+        ErasureCodeJerasureBlaumRoth,
+        ErasureCodeJerasureLiber8tion,
     )
 }
 
@@ -146,16 +274,12 @@ class ErasureCodePluginJerasure(ErasureCodePlugin):
 
     def factory(self, profile, directory=None, device=None):
         technique = profile.get("technique", "reed_sol_van")
-        if technique in BITMATRIX_TECHNIQUES:
-            raise NotImplementedError(
-                f"technique={technique} is a bitmatrix technique, not "
-                f"ported yet (ROADMAP.md Queue B item 3)")
         cls = TECHNIQUES.get(technique)
         if cls is None:
-            names = sorted(TECHNIQUES) + sorted(BITMATRIX_TECHNIQUES)
             raise ValueError(
                 f"technique={technique} is not a valid coding technique. "
-                f"Choose one of the following: {', '.join(sorted(names))}")
+                f"Choose one of the following: "
+                f"{', '.join(sorted(TECHNIQUES))}")
         interface = cls(device)
         interface.init(profile)
         return interface

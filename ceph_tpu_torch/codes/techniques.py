@@ -1,26 +1,36 @@
-"""Shared compute machinery for GF(2^w)-element matrix erasure codes.
+"""Shared compute machinery for matrix / bitmatrix erasure codes.
 
-Counterpart of ``ceph_tpu/codes/techniques.py`` (its MatrixCodeMixin;
-the bitmatrix mixin is not ported yet).  Used by the jerasure
-reed_sol_van / reed_sol_r6_op and isa reed_sol_van / cauchy plugins:
-encode and decode are a word-wise GF(2^w) matrix apply
-(jerasure_matrix_encode/decode semantics).
+Counterpart of ``ceph_tpu/codes/techniques.py``:
 
-Surfaces:
+- ``MatrixCodeMixin`` — GF(2^w)-element matrix codes (jerasure
+  reed_sol_van / reed_sol_r6_op, isa reed_sol_van / cauchy): encode and
+  decode are a word-wise GF(2^w) matrix apply
+  (jerasure_matrix_encode/decode semantics), through
+  ``ops.gf_kernels.apply_matrix_best``.
+- ``BitmatrixCodeMixin`` — GF(2) bitmatrix codes in jerasure packet
+  layout (cauchy_orig, cauchy_good, liberation, blaum_roth,
+  liber8tion), through ``ops.gf_kernels.apply_bitmatrix_best``: the CSE
+  schedule when it pays, the plain packet product otherwise.
+
+Surfaces of both:
 
 - ``encode_chunks_batch`` / ``decode_chunks_batch``: numpy in, numpy
   out.  Below ``min_xla_bytes`` (the reference's host rule, kept under
   its name) the numpy ground truth runs on the host; above it the
-  chunks go to the code's device and through
-  ``ops.gf_kernels.apply_matrix_best``.  Both paths are counted in the
-  perf counters (``ec_host_*`` / ``ec_device_*``).
+  chunks go to the code's device and through the dispatch.  Both paths
+  are counted in the perf counters (``ec_host_*`` / ``ec_device_*``).
 - ``encode_chunks_torch`` / ``decode_chunks_torch``: a tensor on the
   code's device in, a tensor on that device out (the counterparts of
   ``*_jax``).
-- ``encode_chunks_packed_torch`` / ``decode_chunks_packed_torch``: the
-  packed (..., R, 128) uint32 layout, w=8 only.
+- ``encode_chunks_packed_torch`` / ``decode_chunks_packed_torch``
+  (matrix codes): the packed (..., R, 128) uint32 layout, w=8 only.
 
-The decode-matrix cache is per instance (reset by prepare()).
+The decode caches are per instance (reset by prepare()); a bitmatrix
+code's entry also holds the pattern's schedule, so the greedy CSE runs
+once per pattern.  Not ported yet: the process-wide
+``engine.PatternCache`` behind them and the ragged paged surfaces
+(``page_unit``, ``encode/decode_chunks_ragged_*``; ROADMAP Queue A
+items 4 and 9).
 """
 
 from __future__ import annotations
@@ -30,13 +40,24 @@ import torch
 
 from ..ops import regionops
 from ..ops.fallback import global_policy
-from ..ops.gf_kernels import apply_matrix_best, apply_matrix_packed_best
-from ..ops.torch_ops import matrix_to_static, torch_bytes_view, \
-    torch_words_view
+from ..ops.gf_kernels import apply_bitmatrix_best, apply_matrix_best, \
+    apply_matrix_packed_best
+from ..ops.torch_ops import bitmatrix_to_static, matrix_to_static, \
+    torch_bytes_view, torch_words_view
+from ..ops.xor_schedule import probe_bitmatrix_schedule
 from ..utils.perf import global_perf
 
 
-class MatrixCodeMixin:
+class _DeviceCode:
+    """A code whose tensors live on ``self.device``."""
+
+    def _check_device(self, x: torch.Tensor) -> None:
+        if x.device.type != self.device.type:
+            raise ValueError(f"tensor on {x.device}, but this code runs "
+                             f"on {self.device}")
+
+
+class MatrixCodeMixin(_DeviceCode):
     """Compute paths for GF(2^w)-element matrix codes.
 
     Requires: self.k, self.m, self.w, self.device, and build_matrix() ->
@@ -98,11 +119,6 @@ class MatrixCodeMixin:
 
     # -- device-resident paths (tensor in, tensor out; no host copy) ----
 
-    def _check_device(self, x: torch.Tensor) -> None:
-        if x.device.type != self.device.type:
-            raise ValueError(f"tensor on {x.device}, but this code runs "
-                             f"on {self.device}")
-
     def encode_chunks_torch(self, data: torch.Tensor) -> torch.Tensor:
         """(batch, k, C) uint8 tensor -> (batch, m, C) parity, on the
         code's device."""
@@ -145,6 +161,91 @@ class MatrixCodeMixin:
         _, dm_static, ns = self._decode_matrix(tuple(available),
                                                tuple(erased))
         return apply_matrix_packed_best(words[..., :ns, :, :], dm_static)
+
+
+class BitmatrixCodeMixin(_DeviceCode):
+    """Compute paths for GF(2) bitmatrix codes in jerasure packet layout.
+
+    Requires: self.k, self.m, self.w, self.packetsize, self.device, and
+    build_bitmatrix() -> (m*w, k*w) 0/1 matrix.
+    """
+
+    min_xla_bytes = 1 << 20
+
+    def build_bitmatrix(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def prepare(self) -> None:
+        self.bitmatrix = self.build_bitmatrix()
+        self._bitmatrix_static = bitmatrix_to_static(self.bitmatrix)
+        self._encode_sched = probe_bitmatrix_schedule(
+            self._bitmatrix_static, self.w)
+        self._decode_cache: dict = {}
+
+    def _apply(self, chunks: np.ndarray, bitmatrix: np.ndarray,
+               bitmatrix_static, sched) -> np.ndarray:
+        perf = global_perf()
+        chunks = np.ascontiguousarray(chunks)
+        if (chunks.nbytes < self.min_xla_bytes
+                or global_policy().engine(self.device) == "numpy"):
+            perf.inc("ec_host_calls")
+            perf.inc("ec_host_bytes", chunks.nbytes)
+            return regionops.bitmatrix_encode(chunks, bitmatrix, self.w,
+                                              self.packetsize)
+        perf.inc("ec_device_calls")
+        perf.inc("ec_device_bytes", chunks.nbytes)
+        with perf.timed("ec_device_time"):
+            out = apply_bitmatrix_best(
+                torch.from_numpy(chunks).to(self.device), bitmatrix_static,
+                self.w, self.packetsize, sched)
+            return out.cpu().numpy()
+
+    def encode_chunks_batch(self, data: np.ndarray) -> np.ndarray:
+        return self._apply(data, self.bitmatrix, self._bitmatrix_static,
+                           self._encode_sched)
+
+    def _decode_bitmatrix(self, available: tuple, erased: tuple):
+        """(decode bitmatrix, its row masks, survivors used, schedule or
+        None) of one erasure pattern, cached per instance."""
+        key = (available, erased)
+        hit = self._decode_cache.get(key)
+        if hit is None:
+            survivors = list(available[:self.k])
+            dm = regionops.bitmatrix_decode_matrix(
+                self.bitmatrix, self.k, self.w, survivors, list(erased))
+            dm_static = bitmatrix_to_static(dm)
+            hit = (dm, dm_static, len(survivors),
+                   probe_bitmatrix_schedule(dm_static, self.w))
+            self._decode_cache[key] = hit
+        return hit
+
+    def decode_chunks_batch(self, chunks: np.ndarray, available: tuple,
+                            erased: tuple) -> np.ndarray:
+        if len(available) < self.k:
+            raise IOError(f"need {self.k} chunks, have {len(available)}")
+        dm, dm_static, ns, sched = self._decode_bitmatrix(tuple(available),
+                                                          tuple(erased))
+        return self._apply(chunks[..., :ns, :], dm, dm_static, sched)
+
+    # -- device-resident paths (tensor in, tensor out; no host copy) ----
+
+    def encode_chunks_torch(self, data: torch.Tensor) -> torch.Tensor:
+        """(batch, k, C) uint8 tensor -> (batch, m, C) parity, on the
+        code's device."""
+        self._check_device(data)
+        return apply_bitmatrix_best(data, self._bitmatrix_static, self.w,
+                                    self.packetsize, self._encode_sched)
+
+    def decode_chunks_torch(self, chunks: torch.Tensor, available: tuple,
+                            erased: tuple) -> torch.Tensor:
+        """(batch, len(available), C) tensor -> (batch, len(erased), C)."""
+        if len(available) < self.k:
+            raise IOError(f"need {self.k} chunks, have {len(available)}")
+        self._check_device(chunks)
+        _, dm_static, ns, sched = self._decode_bitmatrix(tuple(available),
+                                                         tuple(erased))
+        return apply_bitmatrix_best(chunks[..., :ns, :], dm_static, self.w,
+                                    self.packetsize, sched)
 
 
 def load_reference_matrix(ec, matrix: np.ndarray, pattern=None) -> None:

@@ -1,55 +1,70 @@
-// GF(2^8) matrix apply for Hopper (sm_90a): out[i] = XOR_j M[i][j] * in[j]
-// over byte regions, poly 0x11D.
+// GF(2^w) matrix apply for Hopper (sm_90a): out[i] = XOR_j M[i][j] * in[j]
+// over regions of w-bit field elements, w in {8, 16, 32} (polys 0x11D,
+// 0x1100B, 0x100400007, as jerasure / gf-complete).
 //
-// Replaces two TPU kernels of the JAX package, which share one body
-// (ceph_tpu/ops/pallas_gf.py::_matrix_kernel):
-//   - apply_matrix_pallas         (bytes layout, (..., s, C) uint8)
-//   - apply_matrix_pallas_packed  (packed layout, (..., s, R, 128) uint32)
+// Replaces three TPU kernels of the JAX package (ceph_tpu/ops/pallas_gf.py):
+//   - apply_matrix_pallas         (w=8, bytes layout, (..., s, C) uint8)
+//   - apply_matrix_pallas_packed  (w=8, packed layout, (..., s, R, 128) u32)
+//     (both share the body _matrix_kernel)
+//   - apply_matrix_pallas_words   (w=16/32, (..., s, Ce) uint16/uint32 word
+//     views; body _gfw_matrix_kernel)
 // On the TPU the bytes kernel repacks u8 tiles into u32 words in registers.
 // Here a uint8 buffer read as little-endian uint32 already IS the packed
-// layout, and GF(2^8) region math is byte-local, so one kernel over 32-bit
-// SWAR words (4 field bytes per word) computes both; the two Python
-// wrappers in ops/gf_kernels.py only describe the buffers differently.
+// layout, and GF(2^w) region math is local to each w-bit element, so one
+// kernel over 32-bit SWAR words (4 field bytes, 2 halfwords or 1 word per
+// u32) computes all three; the field width is a template parameter, and the
+// Python wrappers in ops/gf_kernels.py only describe the buffers.
 //
 // Design:
 //   - The coefficients are data, not code: the (r, s) matrix travels as a
-//     by-value __grid_constant__ struct, so one binary serves every matrix
-//     (encode, and every one of the C(k+m, m) decode patterns).  Pallas
-//     specialises a program per static matrix; on CUDA a per-matrix build
-//     would cost seconds.  Each column's bits are walked up to its highest
-//     set bit (uniform across the warp: no divergence).
+//     by-value __grid_constant__ struct (uint8 coefficients for w=8, uint32
+//     for w=16/32), so one binary serves every matrix (encode, and every one
+//     of the C(k+m, m) decode patterns).  Pallas specialises a program per
+//     static matrix; on CUDA a per-matrix build would cost seconds.  Each
+//     column's bits are walked up to its highest set bit (uniform across the
+//     warp: no divergence).
 //   - Each thread owns one 16-byte vector (4 SWAR words) of the region.  It
 //     reads the s input chunks in turn, runs the xtime doubling chain on
 //     each, and folds plane t into the accumulators of the rows whose
 //     coefficient has bit t set (a predicated AND/XOR pair, one LOP3).
-//     Output rows go in groups of at most GF8_ROW_GROUP held in registers;
+//     Output rows go in groups of at most GF_ROW_GROUP held in registers;
 //     a further group re-reads the inputs, so any r is correct.
 //   - Grid: x spans the 16-byte vectors of a chunk, y the stripe batch
 //     (grid-stride).  Batch and chunk strides are arguments, so the decode's
 //     survivor slice chunks[..., :ns, :] needs no copy.  Vector loads need
 //     16-byte aligned pointers and strides; otherwise, and for a tail that is
-//     not a whole vector, the thread loads and stores bytes (masked).
+//     not a whole vector, the thread loads and stores bytes (masked).  A
+//     w-bit element never straddles a vector (16 % (w/8) == 0), so a
+//     zero-padded tail element maps to zero and is never stored.
 //
 // What bounds it (H100 SXM, 64 stripes x (8 in + 3 out) x 128 KiB, RS k=8
-// m=3): 92.3 MB moved is ~27.5 us at 3.35 TB/s.  The integer work is at
+// m=3, w=8): 92.3 MB moved is ~27.5 us at 3.35 TB/s.  The integer work is at
 // least 273 instructions per word position (5 per xtime, see xtime_swar8,
 // and each output row's planes folded three at a time by LOP3) x 2.1e6
 // word positions = 5.7e8, ~34.2 us at 132 SMs x 64 INT32 lanes x 1.98
 // GHz.  So the ALU, a little ahead of memory, is the bound; this kernel
 // spends more than the least (a predicated AND/XOR per row per plane).
-// wgmma/TMA and split-nibble tables are left for later work.
+// For w=16/32 the doubling chains run up to 15 / 31 xtimes per column, so
+// the ALU bounds those by a wider margin.  wgmma/TMA and split-nibble
+// tables are left for later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define GF8_MAX_COEF 2048
-#define GF8_ROW_GROUP 8
+#define GFW_MAX_COEF 512
+#define GF_ROW_GROUP 8
 
-struct Gf8Matrix {
+// by-value kernel argument: the (r, s) matrix, row-major; under 4 KB of
+// kernel parameters for every width
+template <typename C, int MAX>
+struct GfMatrix {
   int r;
   int s;
-  unsigned char coef[GF8_MAX_COEF];  // row-major (r, s)
+  C coef[MAX];
 };
+using Gf8Matrix = GfMatrix<unsigned char, GF8_MAX_COEF>;
+using GfwMatrix = GfMatrix<uint32_t, GFW_MAX_COEF>;
 
 // Multiply 4 packed field bytes by x: AND, SHR, IMAD, SHL and one LOP3.
 // (The high word of hi * (0x1D << 25) gives the same reduction term in
@@ -58,6 +73,25 @@ struct Gf8Matrix {
 __device__ __forceinline__ uint32_t xtime_swar8(uint32_t v) {
   const uint32_t hi = v & 0x80808080u;
   return ((v ^ hi) << 1) ^ ((hi >> 7) * 0x1du);
+}
+
+// 2 little-endian GF(2^16) halfwords per word, feedback 0x100b
+__device__ __forceinline__ uint32_t xtime_swar16(uint32_t v) {
+  const uint32_t hi = v & 0x80008000u;
+  return ((v ^ hi) << 1) ^ ((hi >> 15) * 0x100bu);
+}
+
+// one GF(2^32) element per word, feedback 0x400007
+__device__ __forceinline__ uint32_t xtime_swar32(uint32_t v) {
+  const uint32_t hi = v & 0x80000000u;
+  return ((v ^ hi) << 1) ^ ((hi >> 31) * 0x400007u);
+}
+
+template <int W>
+__device__ __forceinline__ uint32_t xtime_swar(uint32_t v) {
+  if constexpr (W == 8) return xtime_swar8(v);
+  else if constexpr (W == 16) return xtime_swar16(v);
+  else return xtime_swar32(v);
 }
 
 __device__ __forceinline__ void load16(const unsigned char* p, bool vec,
@@ -95,14 +129,14 @@ __device__ __forceinline__ void store16(unsigned char* p, bool vec,
   }
 }
 
-template <int RG>
+template <int W, int RG, typename M>
 __global__ void __launch_bounds__(256)
-gf8_matrix_kernel(const unsigned char* __restrict__ in,
-                  unsigned char* __restrict__ out, long long batch,
-                  long long nbytes, long long in_bstride,
-                  long long in_cstride, long long out_bstride,
-                  long long out_cstride, int aligned, int row0,
-                  const __grid_constant__ Gf8Matrix m) {
+gf_matrix_kernel(const unsigned char* __restrict__ in,
+                 unsigned char* __restrict__ out, long long batch,
+                 long long nbytes, long long in_bstride,
+                 long long in_cstride, long long out_bstride,
+                 long long out_cstride, int aligned, int row0,
+                 const __grid_constant__ M m) {
   const long long nvec = (nbytes + 15) / 16;
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -111,7 +145,7 @@ gf8_matrix_kernel(const unsigned char* __restrict__ in,
   const long long avail = nbytes - off;  // bytes of this vector in range
   const bool vec = aligned && avail >= 16;
   const int s = m.s;
-  const unsigned char* rows = m.coef + row0 * s;
+  const auto* rows = m.coef + row0 * s;
 
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
     const unsigned char* src = in + b * in_bstride + off;
@@ -143,7 +177,7 @@ gf8_matrix_kernel(const unsigned char* __restrict__ in,
         any >>= 1;
         if (!any) break;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) x[q] = xtime_swar8(x[q]);
+        for (int q = 0; q < 4; ++q) x[q] = xtime_swar<W>(x[q]);
       }
     }
     unsigned char* dst = out + b * out_bstride + off;
@@ -153,28 +187,28 @@ gf8_matrix_kernel(const unsigned char* __restrict__ in,
   }
 }
 
-template <int RG>
+template <int W, int RG, typename M>
 static void launch(dim3 grid, cudaStream_t stream, const unsigned char* in,
                    unsigned char* out, long long batch, long long nbytes,
                    long long in_bstride, long long in_cstride,
                    long long out_bstride, long long out_cstride, int aligned,
-                   int row0, const Gf8Matrix& m) {
-  gf8_matrix_kernel<RG><<<grid, 256, 0, stream>>>(
+                   int row0, const M& m) {
+  gf_matrix_kernel<W, RG, M><<<grid, 256, 0, stream>>>(
       in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
       out_cstride, aligned, row0, m);
 }
 
-// Launches ceil(r / GF8_ROW_GROUP) kernels on `stream` on the current
+// Launches ceil(r / GF_ROW_GROUP) kernels on `stream` on the current
 // device and returns the first CUDA error.
+template <int W, typename M, typename C>
 static cudaError_t apply_on_current(const void* in, void* out,
                                     long long batch, long long nbytes,
                                     long long in_bstride,
                                     long long in_cstride,
                                     long long out_bstride,
                                     long long out_cstride, int r, int s,
-                                    const unsigned char* coef,
-                                    void* stream) {
-  Gf8Matrix m;
+                                    const C* coef, void* stream) {
+  M m;
   m.r = r;
   m.s = s;
   for (int i = 0; i < r * s; ++i) m.coef[i] = coef[i];
@@ -188,19 +222,19 @@ static cudaError_t apply_on_current(const void* in, void* out,
   dim3 grid(static_cast<unsigned>((nvec + 255) / 256),
             static_cast<unsigned>(batch < 65535 ? batch : 65535));
   auto st = static_cast<cudaStream_t>(stream);
-  for (int row0 = 0; row0 < r; row0 += GF8_ROW_GROUP) {
-    const int rg = (r - row0 < GF8_ROW_GROUP) ? r - row0 : GF8_ROW_GROUP;
+  for (int row0 = 0; row0 < r; row0 += GF_ROW_GROUP) {
+    const int rg = (r - row0 < GF_ROW_GROUP) ? r - row0 : GF_ROW_GROUP;
     const unsigned char* s_in = src;
     unsigned char* d_out = dst + row0 * out_cstride;
     switch (rg) {
-      case 1: launch<1>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 2: launch<2>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 3: launch<3>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 4: launch<4>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 5: launch<5>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 6: launch<6>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 7: launch<7>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      default: launch<8>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 1: launch<W, 1>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 2: launch<W, 2>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 3: launch<W, 3>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 4: launch<W, 4>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 5: launch<W, 5>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 6: launch<W, 6>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 7: launch<W, 7>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      default: launch<W, 8>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -208,22 +242,44 @@ static cudaError_t apply_on_current(const void* in, void* out,
   return cudaSuccess;
 }
 
+// Run `body` with `device` current, restoring the caller's current device
+// afterwards; returns the first CUDA error.
+template <typename F>
+static int on_device(int device, F body) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = body();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
 extern "C" {
 
 int gf8_max_coef(void) { return GF8_MAX_COEF; }
 
-int gf8_row_group(void) { return GF8_ROW_GROUP; }
+int gfw_max_coef(void) { return GFW_MAX_COEF; }
+
+int gf8_row_group(void) { return GF_ROW_GROUP; }
 
 const char* gf8_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Apply the (r, s) matrix `coef` (host memory, row-major) to `batch`
-// stripes of s input chunks of `nbytes` bytes each; strides are in bytes.
-// Output row i of stripe b lands at out + b * out_bstride + i * out_cstride.
-// Launches ceil(r / GF8_ROW_GROUP) kernels on `stream`, which belongs to
-// `device`, and returns the first CUDA error (0 when every launch was
-// accepted).  The caller's current device is restored before returning.
+// Apply the (r, s) GF(2^8) matrix `coef` (host memory, row-major) to
+// `batch` stripes of s input chunks of `nbytes` bytes each; strides are in
+// bytes.  Output row i of stripe b lands at out + b * out_bstride + i *
+// out_cstride.  Launches ceil(r / GF_ROW_GROUP) kernels on `stream`, which
+// belongs to `device`, and returns the first CUDA error (0 when every
+// launch was accepted).  The caller's current device is restored before
+// returning.
 int gf8_matrix_apply(const void* in, void* out, long long batch,
                      long long nbytes, long long in_bstride,
                      long long in_cstride, long long out_bstride,
@@ -233,20 +289,38 @@ int gf8_matrix_apply(const void* in, void* out, long long batch,
       batch < 1 || nbytes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  return on_device(device, [&] {
+    return apply_on_current<8, Gf8Matrix>(in, out, batch, nbytes,
+                                          in_bstride, in_cstride,
+                                          out_bstride, out_cstride, r, s,
+                                          coef, stream);
+  });
+}
+
+// The same for w = 16 or 32: `coef` holds uint32 coefficients below 2^w,
+// `nbytes` is a whole number of w-bit elements.
+int gfw_matrix_apply(const void* in, void* out, long long batch,
+                     long long nbytes, long long in_bstride,
+                     long long in_cstride, long long out_bstride,
+                     long long out_cstride, int r, int s, int w,
+                     const uint32_t* coef, int device, void* stream) {
+  if (r < 1 || s < 1 || static_cast<long long>(r) * s > GFW_MAX_COEF ||
+      batch < 1 || nbytes < 1 || (w != 16 && w != 32) ||
+      nbytes % (w / 8) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = apply_on_current(in, out, batch, nbytes, in_bstride, in_cstride,
-                         out_bstride, out_cstride, r, s, coef, stream);
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
+  return on_device(device, [&] {
+    if (w == 16) {
+      return apply_on_current<16, GfwMatrix>(in, out, batch, nbytes,
+                                             in_bstride, in_cstride,
+                                             out_bstride, out_cstride, r,
+                                             s, coef, stream);
+    }
+    return apply_on_current<32, GfwMatrix>(in, out, batch, nbytes,
+                                           in_bstride, in_cstride,
+                                           out_bstride, out_cstride, r, s,
+                                           coef, stream);
+  });
 }
 
 }  // extern "C"

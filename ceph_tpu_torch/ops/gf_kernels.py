@@ -1,29 +1,48 @@
-"""GF(2^8) matrix apply on the card: the kernel wrappers and the
-engine-selection table.
+"""GF(2^w) matrix and GF(2) bitmatrix applies on the card: the kernel
+wrappers and the engine-selection table.
 
-Counterpart of the dense part of ``ceph_tpu/ops/pallas_gf.py``.  One
-hand-written CUDA kernel (``csrc/gf8_matrix.cu``) stands in for both
-TPU kernels of the main path, behind two wrappers:
+Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py``.  Two
+hand-written CUDA sources stand in for five TPU kernels, behind five
+wrappers:
 
-- :func:`apply_matrix_cuda` — bytes layout, (..., s, C) uint8 ->
-  (..., r, C); any C (a tail that is not a whole 16-byte vector is
-  masked).  Replaces ``apply_matrix_pallas``.
-- :func:`apply_matrix_cuda_packed` — packed layout, (..., s, R, 128)
-  uint32 -> (..., r, R, 128), the public resident-word shape of the
-  reference.  Replaces ``apply_matrix_pallas_packed``.
+- ``csrc/gf8_matrix.cu`` (GF(2^w) matrix, field width a template
+  parameter):
+
+  - :func:`apply_matrix_cuda` — w=8 bytes layout, (..., s, C) uint8 ->
+    (..., r, C); any C (a tail that is not a whole 16-byte vector is
+    masked).  Replaces ``apply_matrix_pallas``.
+  - :func:`apply_matrix_cuda_packed` — w=8 packed layout, (..., s, R,
+    128) uint32 -> (..., r, R, 128), the public resident-word shape of
+    the reference.  Replaces ``apply_matrix_pallas_packed``.
+  - :func:`apply_matrix_cuda_words` — w=16/32, (..., s, Ce)
+    uint16/uint32 word views -> (..., r, Ce).  Replaces
+    ``apply_matrix_pallas_words``.
+
+- ``csrc/gf2_bitmatrix.cu`` (jerasure packet layout, any packetsize; one
+  kernel that runs "rows", each the XOR of a list of slots):
+
+  - :func:`apply_bitmatrix_cuda` — the plain product, one row per output
+    packet.  Replaces ``apply_bitmatrix_pallas``.
+  - :func:`apply_bitmatrix_xor_cuda` — the product through a CSE
+    schedule (``ops/xor_schedule.py``): one row per node the schedule
+    must make, shared temps XORed once.  Replaces
+    ``apply_bitmatrix_xor_pallas``.
 
 A uint8 buffer read as little-endian uint32 is already the packed
-layout, so both wrappers hand the kernel the same bytes and differ only
-in how they describe them.  On a CPU tensor a wrapper runs the plain
-torch version (``torch_ops.apply_matrix_torch``), because that is where
-the caller put the tensor; on a CUDA tensor it launches the kernel or
-raises.  Each wrapper counts its kernel launches in ``.launches``.
+layout (and a uint16/uint32 word view is the same bytes), so the matrix
+wrappers hand one kernel the same bytes and differ only in how they
+describe them; the two bitmatrix wrappers hand one kernel different
+rows.  The matrix or schedule is kernel data, never code: one build
+serves every matrix.  On a CPU tensor a wrapper runs the plain
+torch version (``ops/torch_ops.py``), because that is where the caller
+put the tensor; on a CUDA tensor it launches the kernel or raises.
+Each wrapper counts its kernel launches in ``.launches``.
 
 :func:`select_matrix_engine` keeps the reference's table reduced to the
-rows this package has (cuda / torch / numpy); :func:`apply_matrix_best`
-and :func:`apply_matrix_packed_best` dispatch through it.  A forced
-torch or numpy tier applies to CPU tensors only and raises for CUDA
-tensors (``ops/fallback.py``).
+rows this package has (cuda / torch / numpy); :func:`apply_matrix_best`,
+:func:`apply_matrix_packed_best` and :func:`apply_bitmatrix_best`
+dispatch through it.  A forced torch or numpy tier applies to CPU
+tensors only and raises for CUDA tensors (``ops/fallback.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +57,10 @@ import torch
 from . import regionops
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
-from .torch_ops import apply_matrix_torch
+from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
+    apply_bitmatrix_xor_torch, apply_matrix_torch
+from .xor_schedule import XorSchedule, probe_bitmatrix_schedule, \
+    row_program
 from ..utils.errors import KernelLaunchError
 
 LANE = 128             # words per row of the packed layout
@@ -83,10 +105,40 @@ def sm90_op_count(matrix_t) -> int:
     return cost
 
 
-# -- the kernel -------------------------------------------------------------
+def bitmatrix_op_count(bitmatrix_rows) -> int:
+    """INT32 instructions per 32-bit word position that the plain packet
+    product needs at least on sm_90: each output row's n ones fold in
+    ceil((n - 1) / 2) three-input XORs (LOP3)."""
+    return sum(int(m).bit_count() // 2 for m in bitmatrix_rows)
 
-# (library, max coefficients, output rows per launch), set on first use;
-# the per-call path reads it without a lock
+
+def schedule_op_count(sched_static) -> int:
+    """The same count for a pure-XOR schedule: a node that is an output
+    or is read twice must exist; each such node folds the inputs and
+    existing nodes under it (through nodes read once) in
+    ceil((leaves - 1) / 2) LOP3s."""
+    _, n_in, _, ops, outputs = sched_static
+    reads = [0] * (n_in + len(ops))
+    for _, a, b in ops:
+        reads[a] += 1
+        reads[b] += 1
+    kept = set(o for o in outputs if o >= n_in)
+    kept.update(n for n in range(n_in, len(reads)) if reads[n] >= 2)
+    leaves = [1] * (n_in + len(ops))
+    cost = 0
+    for i, (_, a, b) in enumerate(ops):
+        node = n_in + i
+        leaves[node] = sum(1 if x < n_in or x in kept else leaves[x]
+                           for x in (a, b))
+        if node in kept:
+            cost += leaves[node] // 2
+    return cost
+
+
+# -- the GF(2^w) matrix kernel -----------------------------------------------
+
+# (library, max w=8 coefficients, max w=16/32 coefficients, output rows
+# per launch), set on first use; the per-call path reads it without a lock
 _lib_state = None
 
 
@@ -94,33 +146,42 @@ def _lib():
     global _lib_state
     if _lib_state is None:
         lib = load("gf8_matrix")
-        ll, vp = ctypes.c_longlong, ctypes.c_void_p
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         lib.gf8_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int, vp]
-        lib.gf8_matrix_apply.restype = ctypes.c_int
-        lib.gf8_max_coef.restype = ctypes.c_int
-        lib.gf8_row_group.restype = ctypes.c_int
-        lib.gf8_error_string.argtypes = [ctypes.c_int]
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, i, vp]
+        lib.gf8_matrix_apply.restype = i
+        lib.gfw_matrix_apply.argtypes = [
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, ctypes.c_char_p, i,
+            vp]
+        lib.gfw_matrix_apply.restype = i
+        lib.gf8_max_coef.restype = i
+        lib.gfw_max_coef.restype = i
+        lib.gf8_row_group.restype = i
+        lib.gf8_error_string.argtypes = [i]
         lib.gf8_error_string.restype = ctypes.c_char_p
-        _lib_state = (lib, lib.gf8_max_coef(), lib.gf8_row_group())
+        _lib_state = (lib, lib.gf8_max_coef(), lib.gfw_max_coef(),
+                      lib.gf8_row_group())
     return _lib_state
 
 
 @functools.lru_cache(maxsize=512)
-def _matrix_info(matrix_t) -> tuple[int, int, bytes]:
-    """(r, s, row-major coefficient bytes) of a GF(2^8) coefficient
-    table; raises on a ragged or empty table or a coefficient outside
-    [0, 255].  Cached: a code applies the same few matrices on every
+def _matrix_info(matrix_t, w: int = 8) -> tuple[int, int, bytes]:
+    """(r, s, row-major coefficient bytes) of a GF(2^w) coefficient
+    table: one byte per coefficient for w=8, little-endian uint32 for
+    w=16/32; raises on a ragged or empty table or a coefficient outside
+    [0, 2^w).  Cached: a code applies the same few matrices on every
     call (its encode matrix and one decode matrix per pattern)."""
     r = len(matrix_t)
     s = len(matrix_t[0]) if r else 0
     if r == 0 or s == 0 or any(len(row) != s for row in matrix_t):
         raise ValueError("matrix must be a non-empty (r, s) table")
     flat = [int(x) for row in matrix_t for x in row]
-    if any(not 0 <= x <= 255 for x in flat):
-        raise ValueError("GF(2^8) coefficients must lie in [0, 255]")
-    return r, s, bytes(flat)
+    if any(not 0 <= x < (1 << w) for x in flat):
+        raise ValueError(f"GF(2^{w}) coefficients must lie in "
+                         f"[0, {(1 << w) - 1}]")
+    if w == 8:
+        return r, s, bytes(flat)
+    return r, s, np.asarray(flat, dtype="<u4").tobytes()
 
 
 def _merged_batch(x: torch.Tensor, nlead: int, elem: int
@@ -140,24 +201,32 @@ def _merged_batch(x: torch.Tensor, nlead: int, elem: int
     return batch, (dims[-1][1] * elem if dims else 0)
 
 
+def _device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+
+
 def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
             in_strides: tuple[int, int], out_strides: tuple[int, int],
-            r: int, s: int, coef: bytes) -> int:
-    """Launch the kernel on the current stream; return how many launches
-    it took (one per group of output rows)."""
-    lib, max_coef, row_group = _lib()
+            r: int, s: int, coef: bytes, w: int = 8) -> int:
+    """Launch the GF(2^w) matrix kernel on the current stream; return how
+    many launches it took (one per group of output rows)."""
+    lib, max8, maxw, row_group = _lib()
+    max_coef = max8 if w == 8 else maxw
     if r * s > max_coef:
         raise ValueError(f"({r}, {s}) matrix exceeds the kernel's "
-                         f"{max_coef} coefficients")
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    err = lib.gf8_matrix_apply(
-        x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
-        in_strides[1], out_strides[0], out_strides[1], r, s, coef, dev,
-        torch.cuda.current_stream(x.device).cuda_stream)
+                         f"{max_coef} coefficients for w={w}")
+    args = (x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
+            in_strides[1], out_strides[0], out_strides[1], r, s)
+    tail = (coef, _device_index(x),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if w == 8:
+        err = lib.gf8_matrix_apply(*args, *tail)
+    else:
+        err = lib.gfw_matrix_apply(*args, w, *tail)
     if err:
         raise KernelLaunchError(
-            f"gf8_matrix_apply failed: CUDA error {err} "
+            f"GF(2^{w}) matrix kernel failed: CUDA error {err} "
             f"({lib.gf8_error_string(err).decode()})")
     return -(-r // row_group)
 
@@ -228,7 +297,201 @@ def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
 
 apply_matrix_cuda_packed.launches = 0
 
-WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed)
+
+def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
+                            ) -> torch.Tensor:
+    """GF(2^16) / GF(2^32) apply on word views: (..., s, Ce) uint16 or
+    uint32 -> (..., r, Ce), each element a little-endian field word.
+    The chunk dimension may be strided as long as each chunk's words
+    are contiguous."""
+    if w not in (16, 32):
+        raise ValueError(f"the word kernel takes w=16 or w=32, got w={w}")
+    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)), w)
+    if words.dtype != WORD_DTYPE[w] or words.dim() < 2 \
+            or words.shape[-2] != s:
+        raise ValueError(f"need (..., {s}, Ce) {WORD_DTYPE[w]} words, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if words.device.type == "cpu":
+        return apply_matrix_torch(words, matrix_t, w)
+    _check_cuda(words)
+    if words.stride(-1) != 1:
+        raise ValueError("chunk words must be contiguous (stride 1)")
+    lead, ce = tuple(words.shape[:-2]), words.shape[-1]
+    out = torch.empty(lead + (r, ce), dtype=words.dtype, device=words.device)
+    if out.numel() == 0:
+        return out
+    el = w // 8
+    batch, bstride = _merged_batch(words, words.dim() - 2, el)
+    apply_matrix_cuda_words.launches += _launch(
+        words, out, batch, ce * el, (bstride, words.stride(-2) * el),
+        (r * ce * el, ce * el), r, s, coef, w)
+    return out
+
+
+apply_matrix_cuda_words.launches = 0
+
+
+# -- the GF(2) bitmatrix kernel -----------------------------------------------
+
+ROW_GROUP = 4          # leaves a row step of the packet kernel reads at once
+NO_STORE = 0xFFFF      # a row that stores no output packet
+
+_bitlib_state = None
+
+
+def _bitlib():
+    global _bitlib_state
+    if _bitlib_state is None:
+        lib = load("gf2_bitmatrix")
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.gf2_rows_apply.argtypes = [
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, i, vp, i, i, i, i, i, vp]
+        lib.gf2_rows_apply.restype = i
+        lib.gf2_error_string.argtypes = [i]
+        lib.gf2_error_string.restype = ctypes.c_char_p
+        lib.gf2_row_group.restype = i
+        lib.gf2_no_store.restype = i
+        if (lib.gf2_row_group(), lib.gf2_no_store()) != (ROW_GROUP, NO_STORE):
+            raise KernelLaunchError(
+                f"the packet kernel reads rows of {lib.gf2_row_group()} "
+                f"leaves and marks stores with {lib.gf2_no_store()}; the "
+                f"wrapper packs {ROW_GROUP} and {NO_STORE}")
+        _bitlib_state = lib
+    return _bitlib_state
+
+
+def pack_rows(rows, n_slots: int) -> np.ndarray:
+    """The packet kernel's data: one (groups, dst, chunk, packet) uint16
+    header per row, then each row's leaves padded to whole groups of
+    ROW_GROUP with the zero slot (``n_slots - 2``), then a pad group, in
+    whole 16-byte words.  A row is ``(leaves, dst, store)`` as
+    ``xor_schedule.row_program`` makes them: dst None keeps no result
+    (the trash slot, ``n_slots - 1``), store None writes no output."""
+    zero, trash = n_slots - 2, n_slots - 1
+    heads, leaves = [], []
+    for lv, dst, store in rows:
+        lv = list(lv) + [zero] * (-len(lv) % ROW_GROUP)
+        chunk, packet = store if store is not None else (NO_STORE, 0)
+        heads += [len(lv) // ROW_GROUP, trash if dst is None else dst,
+                  chunk, packet]
+        leaves += lv
+    flat = heads + leaves + [zero] * ROW_GROUP
+    flat += [0] * (-len(flat) % 8)
+    return np.asarray(flat, dtype=np.uint16)
+
+
+def _plain_rows(bitmatrix_rows: tuple, n_cols: int, w: int):
+    """(slots, rows) of the plain product: output packet o is the row of
+    its mask's input packets, stored to packet o % w of chunk o // w."""
+    rows = tuple((tuple(c for c in range(n_cols) if (int(m) >> c) & 1),
+                  None, divmod(o, w))
+                 for o, m in enumerate(bitmatrix_rows))
+    return n_cols + 2, rows
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_rows(kind: str, key: tuple, n_in: int, w: int,
+                 device: torch.device) -> tuple[int, int, torch.Tensor]:
+    """(slots, rows, data on ``device``) of the plain product of row
+    masks ``key`` (kind "plain") or of the schedule ``key`` (kind
+    "schedule"): built once per matrix, then kernel data."""
+    if kind == "plain":
+        n_slots, rows = _plain_rows(key, n_in, w)
+    else:
+        n_slots, rows = row_program(key, w)
+    data = pack_rows(rows, n_slots).view(np.int16)
+    return n_slots, len(rows), torch.from_numpy(data).to(device)
+
+
+def _check_packets(chunks: torch.Tensor, rw: int, w: int, packetsize: int
+                   ) -> int:
+    """Validate (..., s, C) uint8 chunks in packet layout for rw output
+    packets per block; returns r = rw / w."""
+    c = chunks.shape[-1] if chunks.dim() else 0
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 or c == 0 \
+            or w < 1 or packetsize < 1 or c % (w * packetsize):
+        raise ValueError(f"need (..., s, C) uint8 chunks with C a positive "
+                         f"multiple of w*packetsize = {w * packetsize}, "
+                         f"got {tuple(chunks.shape)} {chunks.dtype}")
+    if rw == 0 or rw % w:
+        raise ValueError(f"{rw} output packets are not a multiple of w={w}")
+    return rw // w
+
+
+def _launch_rows(fn, chunks: torch.Tensor, r: int, w: int, packetsize: int,
+                 kind: str, key: tuple, n_in: int) -> torch.Tensor:
+    """Run the packet kernel on (..., s, C) chunks -> (..., r, C): the
+    rows of ``kind`` / ``key`` (see _device_rows), counted on ``fn``."""
+    if chunks.stride(-1) != 1:
+        raise ValueError("chunk bytes must be contiguous (stride 1)")
+    lib = _bitlib()
+    n_slots, n_rows, data = _device_rows(kind, key, n_in, w, chunks.device)
+    lead, c = tuple(chunks.shape[:-2]), chunks.shape[-1]
+    out = torch.empty(lead + (r, c), dtype=torch.uint8, device=chunks.device)
+    if out.numel() == 0:
+        return out
+    batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
+    err = lib.gf2_rows_apply(
+        chunks.data_ptr(), out.data_ptr(), batch, c, bstride,
+        chunks.stride(-2), r * c, c, chunks.shape[-2], r * w, w, packetsize,
+        data.data_ptr(), data.numel() // 8, n_rows, n_in, n_slots,
+        _device_index(chunks),
+        torch.cuda.current_stream(chunks.device).cuda_stream)
+    if err:
+        raise KernelLaunchError(
+            f"{fn.__name__} failed: CUDA error {err} "
+            f"({lib.gf2_error_string(err).decode()})")
+    fn.launches += 1
+    return out
+
+
+def apply_bitmatrix_cuda(chunks: torch.Tensor, bitmatrix_rows, w: int,
+                         packetsize: int) -> torch.Tensor:
+    """Packet-layout GF(2) bitmatrix apply: (..., s, C) uint8 -> (..., r,
+    C), C a multiple of w * packetsize; bit (j*w + lb) of row mask
+    (i*w + l) set means output packet (i, l) XORs input packet (j, lb).
+    The chunk dimension may be strided (a survivor slice)."""
+    rows = tuple(int(m) for m in bitmatrix_rows)
+    r = _check_packets(chunks, len(rows), w, packetsize)
+    s = chunks.shape[-2]
+    if any(m < 0 or m >> (s * w) for m in rows):
+        raise ValueError(f"bitmatrix rows reach past {s} input chunks")
+    if chunks.device.type == "cpu":
+        return apply_bitmatrix_torch(chunks, rows, w, packetsize)
+    _check_cuda(chunks)
+    return _launch_rows(apply_bitmatrix_cuda, chunks, r, w, packetsize,
+                        "plain", rows, s * w)
+
+
+apply_bitmatrix_cuda.launches = 0
+
+
+def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
+                             packetsize: int) -> torch.Tensor:
+    """The same product through a pure-XOR schedule
+    (``xor_schedule.probe_bitmatrix_schedule(rows, w).static``): CSE
+    temps shared between output packets."""
+    if not (isinstance(sched_static, tuple) and len(sched_static) == 5
+            and sched_static[0] == "xorsched"):
+        raise ValueError("need a schedule's static tuple")
+    _, n_in, rw, _, _ = sched_static
+    r = _check_packets(chunks, rw, w, packetsize)
+    if n_in % w or n_in > chunks.shape[-2] * w:
+        raise ValueError(f"schedule reads {n_in} packets, the chunks hold "
+                         f"{chunks.shape[-2]} x {w}")
+    if chunks.device.type == "cpu":
+        return apply_bitmatrix_xor_torch(chunks, sched_static, w,
+                                         packetsize)
+    _check_cuda(chunks)
+    return _launch_rows(apply_bitmatrix_xor_cuda, chunks, r, w, packetsize,
+                        "schedule", sched_static, n_in)
+
+
+apply_bitmatrix_xor_cuda.launches = 0
+
+WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed,
+            apply_matrix_cuda_words, apply_bitmatrix_cuda,
+            apply_bitmatrix_xor_cuda)
 
 
 def launch_counts() -> dict:
@@ -279,34 +542,41 @@ def apply_matrix_numpy(chunks: torch.Tensor, matrix_t, w: int = 8
 
 def select_matrix_engine(w: int = 8, device=None,
                          engine: str | None = None) -> str:
-    """THE engine-selection table for GF(2^w) matrix applies, reduced to
-    the rows the port has.  Returns one of:
+    """THE engine-selection table for GF(2^w) matrix applies (w in
+    {8, 16, 32}) and GF(2) bitmatrix applies (``w`` then names the
+    packet count of a block), reduced to the rows the port has.
+    Returns one of:
 
-    - "cuda":  the hand-written kernel (w=8, bytes or packed layout);
-    - "torch": the plain torch tier — CPU tensors, a forced torch tier
-               on CPU tensors, and the w=16/32 word paths, which have no
-               kernel yet;
+    - "cuda":  a hand-written kernel — every CUDA tensor: the w=8 bytes
+               or packed kernel, the w=16/32 word kernel, or a bitmatrix
+               kernel;
+    - "torch": the plain torch tier — CPU tensors, and a forced torch
+               tier on CPU tensors;
     - "numpy": the host ground truth, only when forced on CPU tensors.
 
     ``engine`` forces a tier for this call in place of the process
     policy; like the policy's, a forced torch or numpy tier raises for
-    a CUDA ``device``.  The reference's mesh, xor, mxu and tuned-pin rows
-    are not ported yet.
+    a CUDA ``device``, so a card tensor never leaves the kernels.  The
+    reference's mesh, xor, mxu and tuned-pin rows are not ported yet.
     """
+    if w < 1:
+        raise ValueError(f"w={w} must be positive")
     policy = global_policy() if engine is None else FallbackPolicy(engine)
-    engine = policy.engine(device)
-    if engine == "cuda" and w != 8:
-        return "torch"
-    return engine
+    return policy.engine(device)
 
 
 def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
                       ) -> torch.Tensor:
     """Bytes/words-layout dispatch through select_matrix_engine;
     byte-identical in every branch."""
+    if w not in WORD_DTYPE:
+        raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
+                         f"got w={w}")
     eng = select_matrix_engine(w, chunks.device)
     if eng == "cuda":
-        return apply_matrix_cuda(chunks, matrix_t)
+        if w == 8:
+            return apply_matrix_cuda(chunks, matrix_t)
+        return apply_matrix_cuda_words(chunks, matrix_t, w)
     if eng == "torch":
         return apply_matrix_torch(chunks, matrix_t, w)
     return apply_matrix_numpy(chunks, matrix_t, w)
@@ -324,10 +594,63 @@ def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
     return pack_chunks(apply_matrix_numpy(byts, matrix_t, 8))
 
 
+def apply_bitmatrix_numpy(chunks: torch.Tensor, bitmatrix_rows, w: int,
+                          packetsize: int) -> torch.Tensor:
+    """The host ground truth (``regionops.bitmatrix_encode``) on a CPU
+    tensor's bytes."""
+    if chunks.device.type != "cpu":
+        raise ValueError(f"tensor on {chunks.device}: the numpy tier "
+                         f"takes CPU tensors")
+    sw = chunks.shape[-2] * w
+    bits = np.array([[(int(m) >> c) & 1 for c in range(sw)]
+                     for m in bitmatrix_rows], dtype=np.uint8)
+    return torch.from_numpy(regionops.bitmatrix_encode(
+        chunks.detach().numpy(), bits, w, packetsize))
+
+
+# what a caller passes when it holds no schedule of its own: probe
+PROBE = "probe"
+
+
+def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
+                         packetsize: int,
+                         sched: XorSchedule | None | str = PROBE
+                         ) -> torch.Tensor:
+    """Dispatch for packet-layout bitmatrix codes: the CSE-scheduled
+    product when the greedy sharing pays (``probe_bitmatrix_schedule``,
+    jerasure's smart scheduling), the plain packet product otherwise;
+    the kernels on the card, the torch tier on the CPU.  ``sched`` is
+    the rows' schedule (or None: no schedule pays) when the caller
+    caches it; by default it is probed.  Byte-identical in every
+    branch.  Any packetsize the techniques allow is taken: the
+    reference's ``packetsize % 512`` gate is a fact of the TPU's tiling,
+    not of the math."""
+    rows = tuple(int(m) for m in bitmatrix_rows)
+    if isinstance(sched, str):
+        if sched != PROBE:
+            raise ValueError(f"sched must be a schedule, None or {PROBE!r}")
+        sched = probe_bitmatrix_schedule(rows, w)
+    eng = select_matrix_engine(w, chunks.device)
+    if eng == "cuda":
+        if sched is not None:
+            return apply_bitmatrix_xor_cuda(chunks, sched.static, w,
+                                            packetsize)
+        return apply_bitmatrix_cuda(chunks, rows, w, packetsize)
+    if eng == "torch":
+        if sched is not None:
+            return apply_bitmatrix_xor_torch(chunks, sched.static, w,
+                                             packetsize)
+        return apply_bitmatrix_torch(chunks, rows, w, packetsize)
+    return apply_bitmatrix_numpy(chunks, rows, w, packetsize)
+
+
 __all__ = [
-    "apply_matrix_best", "apply_matrix_cuda",
-    "apply_matrix_cuda_packed", "apply_matrix_numpy",
-    "apply_matrix_packed_best", "dense_op_count", "launch_counts",
-    "pack_chunks", "reset_launch_counts", "select_matrix_engine",
-    "sm90_op_count", "unpack_chunks",
+    "PROBE", "WRAPPERS", "apply_bitmatrix_best", "apply_bitmatrix_cuda",
+    "apply_bitmatrix_numpy", "apply_bitmatrix_xor_cuda",
+    "apply_matrix_best", "apply_matrix_cuda", "apply_matrix_cuda_packed",
+    "apply_matrix_cuda_words", "apply_matrix_numpy",
+    "apply_matrix_packed_best", "bitmatrix_op_count", "dense_op_count",
+    "launch_counts", "pack_chunks", "pack_rows", "reset_launch_counts",
+    "schedule_op_count", "select_matrix_engine", "sm90_op_count",
+    "unpack_chunks",
 ]

@@ -1,9 +1,18 @@
-"""The torch tier: GF(2^w) matrix apply written in plain torch ops.
+"""The torch tier: GF(2^w) matrix and GF(2) bitmatrix applies written
+in plain torch ops.
 
-Counterpart of ``ceph_tpu/ops/xla_ops.py`` (``apply_matrix_xla`` and
-its SWAR helpers).  It is the plain version that stands beside the
-hand-written CUDA kernel (``ops/gf_kernels.py``): the CPU tests run
-it, and ``chip_smoke.py`` holds the kernel against it on the card.
+Counterpart of ``ceph_tpu/ops/xla_ops.py`` (``apply_matrix_xla``, its
+SWAR helpers, ``apply_bitmatrix_xla``) and of
+``ceph_tpu/ops/pallas_gf.py::apply_bitmatrix_xor_xla``.  These are the
+plain versions that stand beside the hand-written CUDA kernels
+(``ops/gf_kernels.py``): the CPU tests run them, and ``chip_smoke.py``
+holds each kernel against its plain version on the card.
+
+- :func:`apply_matrix_torch` — GF(2^w) matrix, w in {8, 16, 32};
+- :func:`apply_bitmatrix_torch` — jerasure packet-layout GF(2)
+  bitmatrix, one XOR chain per output packet (the row-mask walk);
+- :func:`apply_bitmatrix_xor_torch` — the same product through a CSE
+  schedule (``ops/xor_schedule.py``) over packet views.
 
 The math is the reference's SWAR walk: four GF(2^8) field bytes (or
 two GF(2^16) halfwords, or one GF(2^32) word) packed in a 32-bit
@@ -33,6 +42,14 @@ def matrix_to_static(matrix) -> tuple[tuple[int, ...], ...]:
     """Numpy (r, k) matrix -> hashable tuple-of-tuples (cache keys, and
     the coefficient list the kernel wrappers take)."""
     return tuple(tuple(int(x) for x in row) for row in np.asarray(matrix))
+
+
+def bitmatrix_to_static(bitmatrix) -> tuple[int, ...]:
+    """Numpy (rw, kw) 0/1 matrix -> tuple of per-row column bitmasks
+    (bit c of row i set when bitmatrix[i, c] is 1)."""
+    bm = np.asarray(bitmatrix)
+    return tuple(int("".join(str(int(b)) for b in row[::-1]), 2)
+                 for row in bm)
 
 
 def _s32(x: int) -> int:
@@ -151,3 +168,79 @@ def apply_matrix_torch(chunks: torch.Tensor, matrix_t, w: int = 8
     out = torch.stack([zero if a is None else a for a in accs], dim=-2)
     out = out.view(torch.uint8)[..., :c]
     return out.contiguous().view(chunks.dtype)
+
+
+def _packet_view(chunks: torch.Tensor, w: int, packetsize: int
+                 ) -> torch.Tensor:
+    """(..., s, C) uint8 -> (..., s, nb, w, packetsize) packet view."""
+    c = chunks.shape[-1]
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 or c == 0 \
+            or c % (w * packetsize):
+        raise ValueError(f"need (..., s, C) uint8 chunks with C a "
+                         f"multiple of w*packetsize = {w * packetsize}, "
+                         f"got {tuple(chunks.shape)} {chunks.dtype}")
+    return chunks.reshape(chunks.shape[:-1] + (c // (w * packetsize), w,
+                                               packetsize))
+
+
+def _from_packet_rows(rows: list, lead: tuple, r: int, w: int, c: int
+                      ) -> torch.Tensor:
+    """r*w (..., nb, packetsize) output packets -> (..., r, C)."""
+    out = torch.stack(rows, dim=-3)                  # (..., rw, nb, p)
+    out = out.reshape(lead + (r, w) + out.shape[-2:])
+    return out.transpose(-3, -2).reshape(lead + (r, c))
+
+
+def apply_bitmatrix_torch(chunks: torch.Tensor, bitmatrix_rows, w: int,
+                          packetsize: int) -> torch.Tensor:
+    """Apply a GF(2) bitmatrix in jerasure packet layout: (..., s, C)
+    uint8 -> (..., r, C), C a multiple of w * packetsize.  Bit
+    (j*w + lb) of row mask (i*w + l) set means output packet (i, l)
+    XORs input packet (j, lb).  The same contract as
+    ``ceph_tpu.ops.xla_ops.apply_bitmatrix_xla``."""
+    rw = len(bitmatrix_rows)
+    if rw == 0 or rw % w:
+        raise ValueError(f"{rw} bitmatrix rows are not a multiple of w={w}")
+    dv = _packet_view(chunks, w, packetsize)
+    s = chunks.shape[-2]
+    if any(int(m) >> (s * w) for m in bitmatrix_rows):
+        raise ValueError(f"bitmatrix rows reach past {s} input chunks")
+    rows = []
+    for mask in bitmatrix_rows:
+        mask = int(mask)
+        acc = None
+        col = 0
+        while mask:
+            if mask & 1:
+                j, lb = divmod(col, w)
+                p = dv[..., j, :, lb, :]
+                acc = p if acc is None else acc ^ p
+            mask >>= 1
+            col += 1
+        rows.append(torch.zeros_like(dv[..., 0, :, 0, :]) if acc is None
+                    else acc)
+    return _from_packet_rows(rows, tuple(chunks.shape[:-2]), rw // w, w,
+                             chunks.shape[-1])
+
+
+def apply_bitmatrix_xor_torch(chunks: torch.Tensor, sched_static, w: int,
+                              packetsize: int) -> torch.Tensor:
+    """The packet-layout bitmatrix product through a pure-XOR schedule
+    (``xor_schedule.probe_bitmatrix_schedule(...).static``): inputs are
+    the s*w packets of each block, CSE temps are shared, outputs are the
+    r*w parity packets.  The same contract as
+    ``ceph_tpu.ops.pallas_gf.apply_bitmatrix_xor_xla``."""
+    from .xor_schedule import eval_schedule_u8
+    _, n_in, rw, _, _ = sched_static
+    if rw % w or n_in % w:
+        raise ValueError(f"schedule ({n_in} in, {rw} out) does not fit "
+                         f"w={w}")
+    dv = _packet_view(chunks, w, packetsize)
+    if chunks.shape[-2] * w < n_in:
+        raise ValueError(f"schedule reads {n_in // w} chunks, got "
+                         f"{chunks.shape[-2]}")
+    ins = [dv[..., idx // w, :, idx % w, :] for idx in range(n_in)]
+    outs = eval_schedule_u8(sched_static, ins,
+                            lambda: torch.zeros_like(ins[0]))
+    return _from_packet_rows(outs, tuple(chunks.shape[:-2]), rw // w, w,
+                             chunks.shape[-1])

@@ -1,9 +1,10 @@
 """Port parity, the slice as a whole: registry -> jerasure / isa matrix
-codes -> MatrixCodeMixin -> engine table -> torch tier, against
-ceph_tpu's plugins on the same seeded inputs.  Exact byte equality
-(GF math is integer).  Chunks are small (4 KiB) so the CPU run stays
-short; ``min_xla_bytes = 0`` on the port sends even these through the
-device path (the torch tier on the CPU)."""
+codes (MatrixCodeMixin) and jerasure bitmatrix codes
+(BitmatrixCodeMixin) -> engine table -> torch tier, against ceph_tpu's
+plugins on the same seeded inputs.  Exact byte equality (GF math is
+integer).  Chunks are small (4 KiB, or a few packet blocks) so the CPU
+run stays short; ``min_xla_bytes = 0`` on the port sends even these
+through the device path (the torch tier on the CPU)."""
 
 import itertools
 import json
@@ -36,6 +37,14 @@ PROFILES = [
     ("isa", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
     ("isa", {"technique": "reed_sol_van", "k": "4", "m": "2"}),
     ("isa", {"technique": "cauchy", "k": "6", "m": "3"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "8", "m": "3",
+                  "packetsize": "32"}),
+    ("jerasure", {"technique": "cauchy_orig", "k": "4", "m": "2",
+                  "packetsize": "64"}),
+    ("jerasure", {"technique": "liberation", "k": "7", "w": "7"}),
+    ("jerasure", {"technique": "blaum_roth", "k": "6", "w": "6",
+                  "packetsize": "32"}),
+    ("jerasure", {"technique": "liber8tion", "k": "8", "packetsize": "16"}),
 ]
 
 
@@ -52,13 +61,22 @@ def _data(seed, k, c=4096, batch=2):
                                                 dtype=np.uint8)
 
 
+def _chunk(ec):
+    """4 KiB for matrix codes; four packet blocks for bitmatrix codes."""
+    return ec.w * ec.packetsize * 4 if hasattr(ec, "packetsize") else 4096
+
+
+def _coding(ec):
+    return ec.bitmatrix if hasattr(ec, "bitmatrix") else ec.matrix
+
+
 @pytest.mark.parametrize("plugin,profile", PROFILES,
                          ids=[f"{p}-{d['technique']}-k{d['k']}-"
                               f"w{d.get('w', 8)}" for p, d in PROFILES])
 def test_encode_matches_reference(plugin, profile):
     ours, ref = _pair(plugin, profile)
-    assert np.array_equal(ours.matrix, ref.matrix)
-    data = _data(ours.k, ours.k)
+    assert np.array_equal(_coding(ours), _coding(ref))
+    data = _data(ours.k, ours.k, c=_chunk(ours))
     want = ref.encode_chunks_batch(data)
     assert np.array_equal(ours.encode_chunks_batch(data), want)
     assert np.array_equal(
@@ -105,6 +123,77 @@ def test_every_k8_m3_erasure_pattern_decodes_like_reference():
         assert np.array_equal(got.numpy(), want)
         count += 1
     assert count == 11 + 55 + 165
+
+
+def test_every_cauchy_good_k8_m3_erasure_pattern_decodes_like_reference():
+    """cauchy_good k=8 m=3 (packetsize 32): all 231 1/2/3-erasure
+    patterns, through decode_chunks_batch and decode_chunks_torch (the
+    plain packet product for the 9 single data erasures, a CSE schedule
+    for the rest), byte-identical to the reference."""
+    ours, ref = _pair(*PROFILES[8])
+    k, n = 8, 11
+    data = _data(84, k, c=8 * 32 * 2)
+    full = np.concatenate([data, ref.encode_chunks_batch(data)], axis=1)
+    tfull = torch.from_numpy(full)
+    count = 0
+    for erased in _patterns(n, 3):
+        avail = tuple(i for i in range(n) if i not in erased)
+        chunks = full[:, list(avail)]
+        want = ref.decode_chunks_batch(chunks, avail, erased)
+        assert np.array_equal(want, full[:, list(erased)])
+        assert np.array_equal(ours.decode_chunks_batch(chunks, avail,
+                                                       erased), want)
+        got = ours.decode_chunks_torch(tfull[:, list(avail)], avail, erased)
+        assert np.array_equal(got.numpy(), want)
+        count += 1
+    assert count == 231
+    assert len(ours._decode_cache) == 231     # each pattern's CSE ran once
+
+
+def test_bitmatrix_dict_api_round_trips():
+    ours, ref = _pair("jerasure", {"technique": "cauchy_good", "k": "4",
+                                   "m": "2", "packetsize": "32"})
+    payload = bytes(np.random.default_rng(10).integers(
+        0, 256, 10_001, dtype=np.uint8))
+    enc = ours.encode(set(range(6)), payload)
+    assert enc == ref.encode(set(range(6)), payload)
+    assert ours.get_chunk_size(len(payload)) == ref.get_chunk_size(
+        len(payload))
+    for avail in ({0, 2, 4, 5}, {2, 3, 4, 5}):
+        need = ours.minimum_to_decode({0, 1, 2, 3}, avail)
+        assert need == ref.minimum_to_decode({0, 1, 2, 3}, avail)
+        dec = ours.decode({0, 1, 2, 3}, {i: enc[i] for i in need},
+                          len(enc[0]))
+        assert b"".join(dec[i] for i in range(4))[:len(payload)] == payload
+
+
+@pytest.mark.parametrize("profile,want", [
+    ({"technique": "cauchy_good", "k": "4", "m": "2"}, (4, 2, 8, 2048)),
+    ({"technique": "liberation", "k": "5"}, (5, 2, 7, 8)),
+    ({"technique": "liber8tion", "k": "6", "m": "4", "w": "16"},
+     (6, 2, 8, 8)),
+    ({"technique": "blaum_roth", "k": "4", "w": "4", "packetsize": "8"},
+     (4, 2, 4, 8))])
+def test_bitmatrix_profiles_parse_like_reference(profile, want):
+    ours, ref = _pair("jerasure", profile)
+    got = (ours.k, ours.m, ours.w, ours.packetsize)
+    assert got == want == (ref.k, ref.m, ref.w, ref.packetsize)
+    assert ours.get_alignment() == ref.get_alignment()
+    for width in (1, 4096, 123_457):
+        assert ours.get_chunk_size(width) == ref.get_chunk_size(width)
+
+
+@pytest.mark.parametrize("profile", [
+    {"technique": "liberation", "k": "7", "w": "6"},
+    {"technique": "liberation", "k": "8", "w": "7"},
+    {"technique": "blaum_roth", "k": "4", "w": "7"},
+    {"technique": "liber8tion", "k": "9"}])
+def test_bitmatrix_profiles_refused_like_reference(profile):
+    with pytest.raises(ValueError):
+        RefRegistry.instance().factory("jerasure", dict(profile))
+    with pytest.raises(ValueError):
+        ErasureCodePluginRegistry.instance().factory(
+            "jerasure", dict(profile), device="cpu")
 
 
 def test_packed_entries_match_reference():
@@ -174,8 +263,11 @@ def test_example_plugin_and_registry_errors():
     assert (dec[0] + dec[1])[:len(payload)] == payload
     with pytest.raises(IOError):
         reg.factory("no_such_plugin", {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        reg.factory("jerasure", {"technique": "cauchy_good"}, device="cpu")
+    # a plugin of the reference that the port does not carry yet
+    with pytest.raises(IOError):
+        reg.factory("shec", {"k": "4", "m": "3", "c": "2"}, device="cpu")
+    assert reg.factory("jerasure", {"technique": "cauchy_good"},
+                       device="cpu").technique == "cauchy_good"
     with pytest.raises(ValueError):
         reg.factory("jerasure", {"technique": "bogus"}, device="cpu")
     with pytest.raises(ValueError):
@@ -219,7 +311,9 @@ def test_forced_numpy_tier_runs_host_ground_truth():
 # -- the committed non-regression corpus ---------------------------------------
 
 CORPUS = Path(__file__).resolve().parent / "corpus"
-PORTED_TECHNIQUES = {"jerasure": {"reed_sol_van", "reed_sol_r6_op"},
+PORTED_TECHNIQUES = {"jerasure": {"reed_sol_van", "reed_sol_r6_op",
+                                  "cauchy_orig", "cauchy_good",
+                                  "liberation", "blaum_roth", "liber8tion"},
                      "isa": {"reed_sol_van", "cauchy"}, "example": None}
 
 
@@ -244,9 +338,9 @@ def _ported_corpus_dirs():
 @pytest.mark.parametrize("min_bytes", [0, 1 << 20],
                          ids=["torch-tier", "host-rule"])
 def test_corpus_profile_reencodes_and_decodes(name, min_bytes):
-    """Every matrix profile the committed corpus pins re-encodes to the
-    stored bytes through the port, and its stored chunks decode under
-    every single and double erasure."""
+    """Every matrix and bitmatrix profile the committed corpus pins
+    re-encodes to the stored bytes through the port, and its stored
+    chunks decode under every single and double erasure."""
     d = CORPUS / name
     meta = json.loads((d / "manifest.json").read_text())
     ec = ErasureCodePluginRegistry.instance().factory(

@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernel against its plain torch version, on the
-card.  Every test here is marked ``cuda`` and skips (with a reason)
-where no CUDA device is present: a CUDA kernel has no CPU mode.
+"""The hand-written CUDA kernels against their plain torch versions, on
+the card: the GF(2^8) matrix kernel (bytes and packed wrappers), the
+w=16/32 word kernel, and the two packet-layout bitmatrix kernels (plain
+and scheduled).  Every test here is marked ``cuda`` and skips (with a
+reason) where no CUDA device is present: a CUDA kernel has no CPU mode.
 
 The file imports neither jax nor ceph_tpu (the machine with the card
 need not have them); the numpy ground truth is the port's own copy.
@@ -8,8 +10,11 @@ On that machine:
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
-Comparisons are exact (``torch.equal``): GF(2^8) math is integer.
+Comparisons are exact (``torch.equal``): GF(2^w) and GF(2) math is
+integer.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -18,10 +23,13 @@ import torch
 from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
 from ceph_tpu_torch.ops import fallback, regionops
 from ceph_tpu_torch.ops.gf_kernels import (
-    apply_matrix_best, apply_matrix_cuda, apply_matrix_cuda_packed,
-    pack_chunks, unpack_chunks)
-from ceph_tpu_torch.ops.torch_ops import apply_matrix_torch, \
-    matrix_to_static
+    apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda, apply_matrix_best,
+    apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
+    pack_chunks, select_matrix_engine, unpack_chunks)
+from ceph_tpu_torch.ops.torch_ops import (
+    WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
+    apply_matrix_torch, bitmatrix_to_static, matrix_to_static)
+from ceph_tpu_torch.ops.xor_schedule import probe_bitmatrix_schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +128,121 @@ def test_launch_keeps_the_current_device(cuda_device):
     cur = torch.cuda.current_device()
     apply_matrix_cuda(x, ((1, 2, 3),))
     assert torch.cuda.current_device() == cur
+
+
+# -- the w=16/32 word kernel ----------------------------------------------------
+
+@pytest.mark.parametrize("w", [16, 32])
+@pytest.mark.parametrize("s,r,nbytes,lead", [(8, 3, 65536, (4,)),
+                                             (5, 9, 4096 + 4, (2,)),
+                                             (3, 2, 1028, ())])
+def test_word_kernel_matches_plain_on_card(cuda_device, w, s, r, nbytes,
+                                           lead):
+    rng = np.random.default_rng(w + s + r)
+    mat = rng.integers(0, 1 << w, (r, s), dtype=np.uint64)
+    mat[0, 0] = 0
+    ms = matrix_to_static(mat)
+    data = rng.integers(0, 256, lead + (s + 1, nbytes), dtype=np.uint8)
+    x = torch.from_numpy(data).to(cuda_device).view(WORD_DTYPE[w])
+    view = x[..., :s, :]                          # a strided survivor slice
+    before = apply_matrix_cuda_words.launches
+    got = apply_matrix_cuda_words(view, ms, w)
+    torch.cuda.synchronize()
+    assert apply_matrix_cuda_words.launches > before
+    assert got.dtype == WORD_DTYPE[w]
+    assert torch.equal(got, apply_matrix_torch(view.contiguous(), ms, w))
+    words = regionops.words_view(data[..., :s, :], w)
+    assert np.array_equal(got.cpu().numpy(),
+                          regionops.matrix_encode(words, mat, w))
+    assert select_matrix_engine(w, cuda_device) == "cuda"
+    assert torch.equal(apply_matrix_best(view, ms, w), got)
+
+
+# -- the packet-layout bitmatrix kernels ----------------------------------------
+
+def _bitmatrix(rng, r, s, w):
+    bm = (rng.random((r * w, s * w)) < 0.4).astype(np.uint8)
+    bm[0] = 0
+    return bm
+
+
+@pytest.mark.parametrize("w", [6, 7, 8])
+@pytest.mark.parametrize("ps", [8, 32, 2048, 12])
+@pytest.mark.parametrize("lead", [(3,), ()])
+def test_bitmatrix_kernel_matches_plain_on_card(cuda_device, w, ps, lead):
+    rng = np.random.default_rng(w * 7 + ps)
+    s, r = 5, 2
+    bm = _bitmatrix(rng, r, s, w)
+    rows = bitmatrix_to_static(bm)
+    data = rng.integers(0, 256, lead + (s + 2, 2 * w * ps), dtype=np.uint8)
+    x = torch.from_numpy(data).to(cuda_device)
+    view = x[..., :s, :]
+    before = apply_bitmatrix_cuda.launches
+    got = apply_bitmatrix_cuda(view, rows, w, ps)
+    torch.cuda.synchronize()
+    assert apply_bitmatrix_cuda.launches == before + 1
+    assert torch.equal(got, apply_bitmatrix_torch(view, rows, w, ps))
+    assert np.array_equal(got.cpu().numpy(), regionops.bitmatrix_encode(
+        data[..., :s, :], bm, w, ps))
+
+
+def _code(profile):
+    return ErasureCodePluginRegistry.instance().factory("jerasure",
+                                                        dict(profile))
+
+
+@pytest.mark.parametrize("profile,ps", [
+    ({"technique": "cauchy_good", "k": "8", "m": "3"}, 2048),
+    ({"technique": "cauchy_good", "k": "8", "m": "3"}, 32),
+    ({"technique": "cauchy_orig", "k": "4", "m": "2"}, 8),
+    ({"technique": "blaum_roth", "k": "6", "w": "6"}, 12),
+    ({"technique": "liber8tion", "k": "8"}, 32)])
+def test_schedule_kernel_matches_plain_on_card(cuda_device, profile, ps):
+    ec = _code(profile)
+    k, n, w = ec.k, ec.k + ec.m, ec.w
+    rng = np.random.default_rng(k + ps)
+    data = rng.integers(0, 256, (3, n, 2 * w * ps), dtype=np.uint8)
+    x = torch.from_numpy(data).to(cuda_device)
+    mats = [ec.bitmatrix]
+    for erased in ((0, n - 1), tuple(range(ec.m))):
+        avail = [i for i in range(n) if i not in erased][:k]
+        mats.append(regionops.bitmatrix_decode_matrix(
+            ec.bitmatrix, k, w, avail, list(erased)))
+    for bm in mats:
+        sched = probe_bitmatrix_schedule(bitmatrix_to_static(bm), w)
+        assert sched is not None
+        view = x[:, :k, :]
+        before = apply_bitmatrix_xor_cuda.launches
+        got = apply_bitmatrix_xor_cuda(view, sched.static, w, ps)
+        torch.cuda.synchronize()
+        assert apply_bitmatrix_xor_cuda.launches == before + 1
+        assert torch.equal(got, apply_bitmatrix_xor_torch(
+            view, sched.static, w, ps))
+        assert np.array_equal(got.cpu().numpy(), regionops.bitmatrix_encode(
+            data[:, :k], bm, w, ps))
+
+
+@pytest.mark.parametrize("profile", [
+    {"technique": "cauchy_good", "k": "8", "m": "3", "packetsize": "2048"},
+    {"technique": "liberation", "k": "7", "w": "7"},
+    {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "16"},
+    {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "32"}])
+def test_bitmatrix_and_word_codes_round_trip_on_card(cuda_device, profile):
+    ec = _code(profile)
+    assert ec.device.type == "cuda"
+    k, n = ec.k, ec.k + ec.m
+    c = ec.get_chunk_size(k * 65536)
+    data = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 256, (2, k, c), dtype=np.uint8)).to(cuda_device)
+    parity = ec.encode_chunks_torch(data)
+    assert parity.device.type == "cuda" and parity.shape == (2, ec.m, c)
+    host = data.cpu().numpy()
+    assert np.array_equal(parity.cpu().numpy(),
+                          ec.encode_chunks_batch(host))
+    full = torch.cat([data, parity], dim=1)
+    for e in range(1, ec.m + 1):
+        for erased in itertools.islice(itertools.combinations(range(n), e),
+                                       4):
+            avail = tuple(i for i in range(n) if i not in erased)
+            rec = ec.decode_chunks_torch(full[:, list(avail)], avail, erased)
+            assert torch.equal(rec, full[:, list(erased)]), erased

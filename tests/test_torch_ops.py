@@ -13,13 +13,13 @@ from ceph_tpu.ops import regionops as ref_regionops
 from ceph_tpu.ops import xla_ops as ref_xla
 from ceph_tpu.ops import xor_schedule as ref_xor
 from ceph_tpu.ops.pallas_gf import apply_matrix_pallas, \
-    apply_matrix_pallas_packed
+    apply_matrix_pallas_packed, apply_matrix_pallas_words
 from ceph_tpu.ops.pallas_gf import pack_chunks as ref_pack_chunks
 from ceph_tpu_torch.ops import _build, fallback, gf_kernels, torch_ops
 from ceph_tpu_torch.ops.gf_kernels import (
     apply_matrix_best, apply_matrix_cuda, apply_matrix_cuda_packed,
-    apply_matrix_packed_best, pack_chunks, select_matrix_engine,
-    unpack_chunks)
+    apply_matrix_cuda_words, apply_matrix_packed_best, pack_chunks,
+    select_matrix_engine, unpack_chunks)
 from ceph_tpu_torch.ops.torch_ops import apply_matrix_torch, \
     matrix_to_static
 from ceph_tpu_torch.utils.errors import KernelBuildError, NoDeviceError
@@ -98,10 +98,48 @@ def test_word_widths_match(w):
     assert np.array_equal(got, ref)
     assert np.array_equal(got, np.asarray(ref_xla.apply_matrix_xla(
         jnp.asarray(words), ref_xla.matrix_to_static(mat), w)))
-    # the dispatcher keeps the word paths on the torch tier
-    assert select_matrix_engine(w, engine="cuda") == "torch"
+    # the dispatcher sends the word paths to the word kernel on the card,
+    # and its wrapper runs the plain version on a CPU tensor
+    assert select_matrix_engine(w, torch.device("cuda")) == "cuda"
+    assert select_matrix_engine(w, torch.device("cpu")) == "torch"
     assert np.array_equal(
         apply_matrix_best(_t(words), matrix_to_static(mat), w).numpy(), ref)
+    got = apply_matrix_cuda_words(_t(words), matrix_to_static(mat), w)
+    assert got.dtype == torch_ops.WORD_DTYPE[w]
+    assert np.array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("w", [16, 32])
+@pytest.mark.parametrize("lead", [(2,), ()])
+def test_word_path_matches_pallas_words_interpret(w, lead):
+    """The word kernel's plain version (and its wrapper's CPU path)
+    against apply_matrix_pallas_words in interpret mode, byte for byte."""
+    rng = np.random.default_rng(w + len(lead))
+    mat = rng.integers(0, 1 << w, (3, 4), dtype=np.uint64)
+    mat[2, 1] = 0
+    data = rng.integers(0, 256, lead + (4, 8192), dtype=np.uint8)
+    words = ref_regionops.words_view(data, w)
+    want = np.asarray(apply_matrix_pallas_words(
+        words, ref_xla.matrix_to_static(mat), w, True))
+    assert np.array_equal(want, ref_regionops.matrix_encode(words, mat, w))
+    ms = matrix_to_static(mat)
+    assert np.array_equal(apply_matrix_torch(_t(words), ms, w).numpy(), want)
+    assert np.array_equal(apply_matrix_cuda_words(_t(words), ms, w).numpy(),
+                          want)
+
+
+def test_word_wrapper_rejects_what_the_kernel_does_not_take():
+    ms = ((1, 2),)
+    with pytest.raises(ValueError):
+        apply_matrix_cuda_words(torch.zeros(2, 32, dtype=torch.uint16), ms, 8)
+    with pytest.raises(ValueError):
+        apply_matrix_cuda_words(torch.zeros(2, 32, dtype=torch.uint32), ms,
+                                16)
+    with pytest.raises(ValueError):
+        apply_matrix_cuda_words(torch.zeros(2, 32, dtype=torch.uint16),
+                                ((1, 1 << 16),), 16)
+    with pytest.raises(ValueError):
+        apply_matrix_best(torch.zeros(2, 32, dtype=torch.uint8), ms, 7)
 
 
 @pytest.mark.parametrize("w", [8, 16, 32])
@@ -141,8 +179,16 @@ def test_wrappers_on_cpu_take_plain_version_and_count_nothing():
     got = apply_matrix_cuda(_t(data), matrix_to_static(mat)).numpy()
     assert np.array_equal(got, ref_regionops.matrix_encode(data, mat, 8))
     apply_matrix_cuda_packed(pack_chunks(_t(data)), matrix_to_static(mat))
-    assert gf_kernels.launch_counts() == {"apply_matrix_cuda": 0,
-                                          "apply_matrix_cuda_packed": 0}
+    apply_matrix_cuda_words(_t(data).view(torch.uint16),
+                            matrix_to_static(mat), 16)
+    gf_kernels.apply_bitmatrix_cuda(_t(data[:, :1]), (0b11, 0b10), 2, 64)
+    gf_kernels.apply_bitmatrix_xor_cuda(
+        _t(data[:, :1]), ("xorsched", 2, 2, (("xor", 0, 1),), (2, 1)), 2,
+        64)
+    assert gf_kernels.launch_counts() == {
+        "apply_matrix_cuda": 0, "apply_matrix_cuda_packed": 0,
+        "apply_matrix_cuda_words": 0, "apply_bitmatrix_cuda": 0,
+        "apply_bitmatrix_xor_cuda": 0}
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
@@ -233,6 +279,22 @@ def test_dense_op_count_matches_reference_model():
         ms = matrix_to_static(mat)
         assert gf_kernels.dense_op_count(ms) == ref_xor.dense_vpu_cost(ms)
     assert gf_kernels.dense_op_count(matrix_to_static(mats[0])) == 306
+
+
+def test_sm90_op_count_counts_wide_fields():
+    """w=16/32: the same count with that width's longer doubling chains
+    (an xtime is 5 instructions at every width)."""
+    from ceph_tpu_torch.matrices.jerasure import \
+        reed_sol_vandermonde_coding_matrix
+    for w in (16, 32):
+        mat = reed_sol_vandermonde_coding_matrix(8, 3, w)
+        ms = matrix_to_static(mat)
+        xt = sum(5 * (max(int(v).bit_length() for v in col) - 1)
+                 for col in mat.T
+                 if max(int(v).bit_length() for v in col) > 1)
+        fold = sum(sum(int(v).bit_count() for v in row) // 2 for row in mat)
+        assert gf_kernels.sm90_op_count(ms) == xt + fold
+    assert gf_kernels.sm90_op_count(((1 << 31, 1),)) == 5 * 31 + 1
 
 
 def test_sm90_op_count_folds_xors_and_xtimes():
