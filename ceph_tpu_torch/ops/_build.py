@@ -5,8 +5,9 @@ shared library with a plain C interface, ``build/lib<name>-<hash>.so``
 beside this file, and loaded with ``ctypes``.  No PyTorch header is
 included, so a build takes seconds rather than minutes.  The build
 runs on first CUDA use (never at import), one ``nvcc`` per source, all
-started together; the hash of the source and the flags names the
-library, so an edited source is rebuilt and a built one is reused.
+started together; the hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags names the library, so an edited source
+or header is rebuilt and a built one is reused.
 The build directory is listed in ``.gitignore``.
 
 A failed build raises :class:`KernelBuildError`; nothing falls back to
@@ -54,6 +55,9 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -65,6 +65,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "on_device.cuh"
+
 #define GF2_MAX_THREADS 128
 #define GF2_MIN_THREADS 32
 #define GF2_SMEM_BUDGET (100 * 1024)
@@ -256,9 +258,9 @@ static int block_threads(int n_slots, int unit, int least, long long extra) {
   return 0;
 }
 
-// The unit of one thread: the widest (16, 8 or 4 bytes) that the packet
-// size and every pointer and stride allow and whose slots still fit a
-// block of two warps; else single bytes.
+// The unit of one thread: 8 or 4 bytes, the wider that the packet size
+// and every pointer and stride allow and whose slots still fit a block of
+// two warps; else 1 byte.
 static int unit_bytes(const void* in, const void* out,
                       const PacketGeometry& g, int n_slots,
                       long long extra) {
@@ -294,25 +296,6 @@ static cudaError_t launch_units(K kernel, const PacketGeometry& g,
   const long long blocks = (total + nt - 1) / nt;
   kernel<<<static_cast<unsigned>(blocks), nt, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-// Run `body` with `device` current, restoring the caller's current device
-// afterwards; returns the first CUDA error.
-template <typename F>
-static int on_device(int device, F body) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = body();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
 }
 
 static bool geometry(PacketGeometry* g, long long batch, long long nbytes,

@@ -39,17 +39,20 @@
 //
 // What bounds it (H100 SXM, 64 stripes x (8 in + 3 out) x 128 KiB, RS k=8
 // m=3, w=8): 92.3 MB moved is ~27.5 us at 3.35 TB/s.  The integer work is at
-// least 273 instructions per word position (5 per xtime, see xtime_swar8,
+// least 225 instructions per word position (4 per xtime, see xtime_swar8,
 // and each output row's planes folded three at a time by LOP3) x 2.1e6
-// word positions = 5.7e8, ~34.2 us at 132 SMs x 64 INT32 lanes x 1.98
-// GHz.  So the ALU, a little ahead of memory, is the bound; this kernel
-// spends more than the least (a predicated AND/XOR per row per plane).
-// For w=16/32 the doubling chains run up to 15 / 31 xtimes per column, so
-// the ALU bounds those by a wider margin.  wgmma/TMA and split-nibble
-// tables are left for later work.
+// word positions = 4.7e8, ~28.2 us at 132 SMs x 64 INT32 lanes x 1.98
+// GHz (ops/gf_kernels.py::sm90_op_count).  So the ALU, just ahead of
+// memory, is the bound; this kernel spends more than the least (5
+// instructions per xtime, a predicated AND/XOR per row per plane).  For
+// w=16/32 the doubling chains run up to 15 / 31 xtimes per column, so the
+// ALU bounds those by a wider margin.  wgmma/TMA and split-nibble tables
+// are left for later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "on_device.cuh"
 
 #define GF8_MAX_COEF 2048
 #define GFW_MAX_COEF 512
@@ -68,8 +71,8 @@ using GfwMatrix = GfMatrix<uint32_t, GFW_MAX_COEF>;
 
 // Multiply 4 packed field bytes by x: AND, SHR, IMAD, SHL and one LOP3.
 // (The high word of hi * (0x1D << 25) gives the same reduction term in
-// one IMUL.HI, but measured slower on an H100: the high multiply issues
-// at a lower rate.)
+// one IMAD.HI, 4 instructions in all, which is what the bound counts; it
+// measured slower on an H100.)
 __device__ __forceinline__ uint32_t xtime_swar8(uint32_t v) {
   const uint32_t hi = v & 0x80808080u;
   return ((v ^ hi) << 1) ^ ((hi >> 7) * 0x1du);
@@ -240,25 +243,6 @@ static cudaError_t apply_on_current(const void* in, void* out,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// Run `body` with `device` current, restoring the caller's current device
-// afterwards; returns the first CUDA error.
-template <typename F>
-static int on_device(int device, F body) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = body();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
 }
 
 extern "C" {

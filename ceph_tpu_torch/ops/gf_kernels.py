@@ -59,8 +59,7 @@ from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
     apply_bitmatrix_xor_torch, apply_matrix_torch
-from .xor_schedule import XorSchedule, probe_bitmatrix_schedule, \
-    row_program
+from .xor_schedule import XorSchedule, row_program
 from ..utils.errors import KernelLaunchError
 
 LANE = 128             # words per row of the packed layout
@@ -69,6 +68,14 @@ PACKED_ROW_BYTES = 4 * LANE
 # the dense cost model of the xtime/XOR walk (ceph_tpu's
 # ops/xor_schedule.py::dense_vpu_cost): one xtime is 5 integer ops
 DENSE_XT_COST = 5
+
+# the least sm_90 instructions of one SWAR xtime per 32-bit word.  w=8
+# and w=16: AND with the elements' top bits, one IMAD.HI by the feedback
+# shifted up by 32 - (w - 1) (the reduction term), SHL, and one LOP3
+# computing ((v << 1) & ~carries) ^ term — 4.  w=32: SHL, SHF.R.S32.HI
+# for the sign mask and one LOP3 computing (v << 1) ^ (mask & 0x400007)
+# — 3.
+SM90_XT_COST = {8: 4, 16: 4, 32: 3}
 
 
 def dense_op_count(matrix_t) -> int:
@@ -87,18 +94,20 @@ def dense_op_count(matrix_t) -> int:
     return cost
 
 
-def sm90_op_count(matrix_t) -> int:
-    """Integer instructions per 32-bit word position that the xtime/XOR
-    walk needs at least on sm_90; the ops side of the kernel's bound.
-    An xtime costs what the dense model says, but a row's n planes fold
-    in ceil((n - 1) / 2) three-input XORs (LOP3), not n."""
+def sm90_op_count(matrix_t, w: int = 8) -> int:
+    """Integer instructions per 32-bit word position that the GF(2^w)
+    xtime/XOR walk needs at least on sm_90; the ops side of the kernel's
+    bound.  Each column's doubling chain costs SM90_XT_COST[w] per xtime,
+    and a row's n planes fold in ceil((n - 1) / 2) three-input XORs
+    (LOP3), not n."""
+    xt_cost = SM90_XT_COST[w]
     r = len(matrix_t)
     s = len(matrix_t[0])
     cost = 0
     for j in range(s):
         top = max(int(matrix_t[i][j]).bit_length() for i in range(r))
         if top > 1:
-            cost += DENSE_XT_COST * (top - 1)
+            cost += xt_cost * (top - 1)
     for row in matrix_t:
         planes = sum(int(c).bit_count() for c in row)
         cost += planes // 2
@@ -608,28 +617,19 @@ def apply_bitmatrix_numpy(chunks: torch.Tensor, bitmatrix_rows, w: int,
         chunks.detach().numpy(), bits, w, packetsize))
 
 
-# what a caller passes when it holds no schedule of its own: probe
-PROBE = "probe"
-
-
 def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
-                         packetsize: int,
-                         sched: XorSchedule | None | str = PROBE
+                         packetsize: int, sched: XorSchedule | None
                          ) -> torch.Tensor:
     """Dispatch for packet-layout bitmatrix codes: the CSE-scheduled
-    product when the greedy sharing pays (``probe_bitmatrix_schedule``,
-    jerasure's smart scheduling), the plain packet product otherwise;
-    the kernels on the card, the torch tier on the CPU.  ``sched`` is
-    the rows' schedule (or None: no schedule pays) when the caller
-    caches it; by default it is probed.  Byte-identical in every
-    branch.  Any packetsize the techniques allow is taken: the
-    reference's ``packetsize % 512`` gate is a fact of the TPU's tiling,
-    not of the math."""
+    product when the greedy sharing pays, the plain packet product
+    otherwise; the kernels on the card, the torch tier on the CPU.
+    ``sched`` is the rows' schedule as ``probe_bitmatrix_schedule``
+    (jerasure's smart scheduling) returns it, None when no schedule
+    pays; callers cache it per matrix.  Byte-identical in every branch.
+    Any packetsize the techniques allow is taken: the reference's
+    ``packetsize % 512`` gate is a fact of the TPU's tiling, not of the
+    math."""
     rows = tuple(int(m) for m in bitmatrix_rows)
-    if isinstance(sched, str):
-        if sched != PROBE:
-            raise ValueError(f"sched must be a schedule, None or {PROBE!r}")
-        sched = probe_bitmatrix_schedule(rows, w)
     eng = select_matrix_engine(w, chunks.device)
     if eng == "cuda":
         if sched is not None:
@@ -645,7 +645,7 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 
 __all__ = [
-    "PROBE", "WRAPPERS", "apply_bitmatrix_best", "apply_bitmatrix_cuda",
+    "WRAPPERS", "apply_bitmatrix_best", "apply_bitmatrix_cuda",
     "apply_bitmatrix_numpy", "apply_bitmatrix_xor_cuda",
     "apply_matrix_best", "apply_matrix_cuda", "apply_matrix_cuda_packed",
     "apply_matrix_cuda_words", "apply_matrix_numpy",

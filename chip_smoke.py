@@ -69,9 +69,9 @@ import time
 # H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and the INT32 rate
 # of the SMs outside the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # boost clock.  The SWAR xtime/XOR walks and the packet XORs are INT32
-# work, counted at the least they need on sm_90 (5 instructions per
-# xtime, XORs folded three at a time by LOP3: gf_kernels.sm90_op_count,
-# bitmatrix_op_count, schedule_op_count).
+# work, counted at the least they need on sm_90 (4 instructions per
+# xtime at w=8 and w=16, 3 at w=32, XORs folded three at a time by LOP3:
+# gf_kernels.sm90_op_count, bitmatrix_op_count, schedule_op_count).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
@@ -616,11 +616,12 @@ def main(argv=None) -> int:
         w_bytes = x.numel() * (w // 8)
         w_pos = w_bytes // K // 4
         wb, wb_by = bound_ms(w_bytes * (K + M) // K,
-                             sm90_op_count(wms) * w_pos)
+                             sm90_op_count(wms, w) * w_pos)
         word_times[w] = (t_w, h_w, t_wp, h_wp, wb, wb_by)
         print(f"bound of reed_sol_van w={w} encode at (64, 8, {WORDS}) "
               f"words: {w_bytes * (K + M) // K} bytes moved, "
-              f"{sm90_op_count(wms)} int32 ops per word position x {w_pos}"
+              f"{sm90_op_count(wms, w)} int32 ops per word position x "
+              f"{w_pos}"
               f" -> {wb:.6f} ms, by {wb_by}")
 
     for name, t, h, b, nbytes in (

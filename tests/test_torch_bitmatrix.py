@@ -4,7 +4,7 @@ wrappers' CPU path, the dispatch and the ported XOR scheduler, against
 ceph_tpu's XLA builds, its Pallas kernels in interpret mode and the
 numpy ground truth.  Exact byte equality throughout (GF(2) math is
 integer).  The schedule kernel's instruction list
-(``xor_schedule.slot_program``) is run here by a numpy interpreter that
+(``xor_schedule.row_program``) is run here by a numpy interpreter that
 mirrors the kernel's loop; the kernels themselves are held against the
 plain versions on the card in tests/test_torch_cuda.py."""
 
@@ -161,7 +161,7 @@ def test_bitmatrix_xor_torch_matches_pallas_and_xla(profile):
         # dispatch takes the plain product
         assert ref_xs.probe_bitmatrix_schedule(rows, ours.w) is None
         assert np.array_equal(apply_bitmatrix_best(
-            _t(data), rows, ours.w, ps).numpy(), want)
+            _t(data), rows, ours.w, ps, sched).numpy(), want)
         return
     got = apply_bitmatrix_xor_torch(_t(data), sched.static, ours.w, ps)
     assert np.array_equal(got.numpy(), want)
@@ -332,7 +332,9 @@ def test_bitmatrix_best_routes_and_tiers():
     want = ref_regionops.bitmatrix_encode(data, ref.bitmatrix, w, ps)
     sched = xor_schedule.probe_bitmatrix_schedule(rows, w)
     assert sched is not None
-    for s in (gf_kernels.PROBE, sched, None):
+    # the probe is cached: the same matrix gives the same schedule object
+    assert xor_schedule.probe_bitmatrix_schedule(rows, w) is sched
+    for s in (sched, None):
         assert np.array_equal(
             apply_bitmatrix_best(_t(data), rows, w, ps, s).numpy(), want)
     assert np.array_equal(apply_bitmatrix_numpy(_t(data), rows, w, ps)
@@ -340,13 +342,13 @@ def test_bitmatrix_best_routes_and_tiers():
     prev = fallback.set_global_policy(fallback.FallbackPolicy("numpy"))
     try:
         assert np.array_equal(
-            apply_bitmatrix_best(_t(data), rows, w, ps).numpy(), want)
+            apply_bitmatrix_best(_t(data), rows, w, ps, sched).numpy(), want)
         with pytest.raises(ValueError, match="CPU tensors"):
             gf_kernels.select_matrix_engine(w, torch.device("cuda"))
     finally:
         fallback.set_global_policy(prev)
-    with pytest.raises(ValueError):
-        apply_bitmatrix_best(_t(data), rows, w, ps, "later")
+    with pytest.raises(TypeError):                # the schedule is required
+        apply_bitmatrix_best(_t(data), rows, w, ps)
 
 
 def test_bitmatrix_wrappers_reject_what_the_kernels_do_not_take():

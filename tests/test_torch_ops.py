@@ -270,6 +270,22 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_build_key_covers_shared_headers(tmp_path):
+    """An edit to a shared csrc header rebuilds every source; the
+    port's sources include the one header there."""
+    src, header = tmp_path / "k.cu", tmp_path / "common.cuh"
+    src.write_text('#include "common.cuh"\n')
+    header.write_text("// one\n")
+    first = _build._target(src)
+    assert _build._target(src) == first
+    header.write_text("// two\n")
+    assert _build._target(src) != first
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
+        "on_device.cuh"]
+    for cu in _build.CSRC.glob("*.cu"):
+        assert '#include "on_device.cuh"' in cu.read_text()
+
+
 def test_dense_op_count_matches_reference_model():
     from ceph_tpu_torch.matrices.jerasure import \
         reed_sol_vandermonde_coding_matrix
@@ -283,18 +299,22 @@ def test_dense_op_count_matches_reference_model():
 
 def test_sm90_op_count_counts_wide_fields():
     """w=16/32: the same count with that width's longer doubling chains
-    (an xtime is 5 instructions at every width)."""
+    and its own xtime cost (4 instructions at w=16, 3 at w=32)."""
     from ceph_tpu_torch.matrices.jerasure import \
         reed_sol_vandermonde_coding_matrix
-    for w in (16, 32):
+    assert gf_kernels.SM90_XT_COST == {8: 4, 16: 4, 32: 3}
+    for w, xt_cost, total in ((16, 4, 458), (32, 3, 703)):
         mat = reed_sol_vandermonde_coding_matrix(8, 3, w)
         ms = matrix_to_static(mat)
-        xt = sum(5 * (max(int(v).bit_length() for v in col) - 1)
+        xt = sum(xt_cost * (max(int(v).bit_length() for v in col) - 1)
                  for col in mat.T
                  if max(int(v).bit_length() for v in col) > 1)
         fold = sum(sum(int(v).bit_count() for v in row) // 2 for row in mat)
-        assert gf_kernels.sm90_op_count(ms) == xt + fold
-    assert gf_kernels.sm90_op_count(((1 << 31, 1),)) == 5 * 31 + 1
+        assert gf_kernels.sm90_op_count(ms, w) == xt + fold == total
+    assert gf_kernels.sm90_op_count(((1 << 31, 1),), 32) == 3 * 31 + 1
+    assert gf_kernels.sm90_op_count(((1 << 15, 1),), 16) == 4 * 15 + 1
+    with pytest.raises(KeyError):
+        gf_kernels.sm90_op_count(((3, 1),), 7)
 
 
 def test_sm90_op_count_folds_xors_and_xtimes():
@@ -302,13 +322,14 @@ def test_sm90_op_count_folds_xors_and_xtimes():
         reed_sol_vandermonde_coding_matrix
     mat = reed_sol_vandermonde_coding_matrix(8, 3, 8)
     ms = matrix_to_static(mat)
-    # 5 instructions per xtime up to each column's top bit, and each
+    # 4 instructions per xtime up to each column's top bit, and each
     # row's n planes folded in ceil((n - 1) / 2) three-input XORs
-    xt = sum(5 * (max(int(v).bit_length() for v in col) - 1)
+    xt = sum(4 * (max(int(v).bit_length() for v in col) - 1)
              for col in mat.T if max(int(v).bit_length() for v in col) > 1)
     fold = sum(-(-(sum(int(v).bit_count() for v in row) - 1) // 2)
                for row in mat)
-    assert gf_kernels.sm90_op_count(ms) == xt + fold == 273
+    assert gf_kernels.sm90_op_count(ms) == xt + fold == 225
+    assert gf_kernels.sm90_op_count(ms, 8) == 225
     assert gf_kernels.sm90_op_count(((1,),)) == 0
-    assert gf_kernels.sm90_op_count(((3, 1),)) == 5 + 1
+    assert gf_kernels.sm90_op_count(((3, 1),)) == 4 + 1
     assert gf_kernels.sm90_op_count(ms) < gf_kernels.dense_op_count(ms)
