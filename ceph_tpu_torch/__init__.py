@@ -8,13 +8,16 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
   generator matrices (numpy).
 - ``ops`` — the numpy ground truth (``regionops``), the plain torch tier
   (``torch_ops``), the hand-written CUDA kernels and their wrappers
-  (``gf_kernels``, ``csrc/``), the bitmatrix XOR scheduler
-  (``xor_schedule``), and the cuda -> torch -> numpy tier policy
+  (``gf_kernels``, ``csrc/``: the GF(2^w) matrix kernel, the packet
+  bitmatrix kernel, the GF(2^8) XOR-schedule kernel), the XOR
+  schedulers (``xor_schedule``: the GF(2^8) matrix scheduler and the
+  bitmatrix CSE), and the cuda -> torch -> numpy tier policy
   (``fallback``).
 - ``codes`` — the erasure-code plugin framework: registry, jerasure (all
   seven techniques: reed_sol_van and reed_sol_r6_op at w=8/16/32, and
   the bitmatrix techniques cauchy_orig, cauchy_good, liberation,
-  blaum_roth, liber8tion), isa (reed_sol_van, cauchy), example.
+  blaum_roth, liber8tion), isa (reed_sol_van, cauchy), shec (minimum-read
+  plans, ``codes.linear``), lrc (layers and kml), example.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).

@@ -16,9 +16,12 @@ Surfaces of both:
 
 - ``encode_chunks_batch`` / ``decode_chunks_batch``: numpy in, numpy
   out.  Below ``min_xla_bytes`` (the reference's host rule, kept under
-  its name) the numpy ground truth runs on the host; above it the
-  chunks go to the code's device and through the dispatch.  Both paths
-  are counted in the perf counters (``ec_host_*`` / ``ec_device_*``).
+  its name) the host tier runs: for a matrix code
+  ``xor_schedule.host_matrix_apply`` (the XOR schedule the device runs
+  when the probe prefers one, the regionops ground truth otherwise), for
+  a bitmatrix code the regionops packet product; above it the chunks go
+  to the code's device and through the dispatch.  Both paths are
+  counted in the perf counters (``ec_host_*`` / ``ec_device_*``).
 - ``encode_chunks_torch`` / ``decode_chunks_torch``: a tensor on the
   code's device in, a tensor on that device out (the counterparts of
   ``*_jax``).
@@ -44,7 +47,8 @@ from ..ops.gf_kernels import apply_bitmatrix_best, apply_matrix_best, \
     apply_matrix_packed_best
 from ..ops.torch_ops import bitmatrix_to_static, matrix_to_static, \
     torch_bytes_view, torch_words_view
-from ..ops.xor_schedule import probe_bitmatrix_schedule
+from ..ops.xor_schedule import host_matrix_apply, \
+    probe_bitmatrix_schedule
 from ..utils.perf import global_perf
 
 
@@ -86,8 +90,9 @@ class MatrixCodeMixin(_DeviceCode):
                 or global_policy().engine(self.device) == "numpy"):
             perf.inc("ec_host_calls")
             perf.inc("ec_host_bytes", chunks.nbytes)
-            return regionops.matrix_encode(words, matrix,
-                                           self.w).view(np.uint8)
+            # the XOR schedule the device runs when the probe prefers
+            # one, the regionops ground truth otherwise
+            return host_matrix_apply(chunks, matrix, matrix_static, self.w)
         perf.inc("ec_device_calls")
         perf.inc("ec_device_bytes", chunks.nbytes)
         with perf.timed("ec_device_time"):

@@ -1,8 +1,8 @@
 """GF(2^w) matrix and GF(2) bitmatrix applies on the card: the kernel
 wrappers and the engine-selection table.
 
-Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py``.  Two
-hand-written CUDA sources stand in for five TPU kernels, behind five
+Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py``.  Three
+hand-written CUDA sources stand in for seven TPU kernels, behind seven
 wrappers:
 
 - ``csrc/gf8_matrix.cu`` (GF(2^w) matrix, field width a template
@@ -28,6 +28,15 @@ wrappers:
     must make, shared temps XORed once.  Replaces
     ``apply_bitmatrix_xor_pallas``.
 
+- ``csrc/gf8_xor_schedule.cu`` (a GF(2^8) matrix through its XOR
+  schedule, ``xt`` / ``shl`` / ``shr`` / ``xor`` on SWAR words; the
+  instructions of ``xor_schedule.word_program``):
+
+  - :func:`apply_matrix_xor_cuda` — bytes layout, (..., s, C) uint8, C
+    % 4 == 0.  Replaces ``apply_matrix_xor_pallas``.
+  - :func:`apply_matrix_xor_cuda_packed` — packed layout.  Replaces
+    ``apply_matrix_xor_packed``.
+
 A uint8 buffer read as little-endian uint32 is already the packed
 layout (and a uint16/uint32 word view is the same bytes), so the matrix
 wrappers hand one kernel the same bytes and differ only in how they
@@ -39,7 +48,7 @@ put the tensor; on a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its kernel launches in ``.launches``.
 
 :func:`select_matrix_engine` keeps the reference's table reduced to the
-rows this package has (cuda / torch / numpy); :func:`apply_matrix_best`,
+rows this package has (xor / cuda / torch / numpy); :func:`apply_matrix_best`,
 :func:`apply_matrix_packed_best` and :func:`apply_bitmatrix_best`
 dispatch through it.  A forced torch or numpy tier applies to CPU
 tensors only and raises for CUDA tensors (``ops/fallback.py``).
@@ -58,8 +67,9 @@ from . import regionops
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
-    apply_bitmatrix_xor_torch, apply_matrix_torch
-from .xor_schedule import XorSchedule, row_program
+    apply_bitmatrix_xor_torch, apply_matrix_torch, apply_matrix_xor_torch
+from .xor_schedule import XorSchedule, host_matrix_apply, \
+    preferred_schedule, row_program, word_program
 from ..utils.errors import KernelLaunchError
 
 LANE = 128             # words per row of the packed layout
@@ -141,6 +151,21 @@ def schedule_op_count(sched_static) -> int:
                            for x in (a, b))
         if node in kept:
             cost += leaves[node] // 2
+    return cost
+
+
+def xor_schedule_op_count(sched_static) -> int:
+    """The same count for a GF(2^8) schedule, as the word kernel's
+    instructions (``xor_schedule.word_program``) make its nodes: each
+    instruction folds its leaves in ceil((leaves - 1) / 2) LOP3s; an
+    ``xt`` costs SM90_XT_COST[8] and a byte-local shift 2 (shift + AND),
+    once each."""
+    cost = 0
+    for leaves, _, _ in word_program(sched_static)[1]:
+        cost += len(leaves) // 2
+        for _, _, op, _ in leaves:
+            cost += SM90_XT_COST[8] if op == "xt" else (
+                2 if op in ("shl", "shr") else 0)
     return cost
 
 
@@ -498,9 +523,181 @@ def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
 
 apply_bitmatrix_xor_cuda.launches = 0
 
+
+# -- the GF(2^8) XOR-schedule kernel ------------------------------------------
+
+# shared memory a block of csrc/gf8_xor_schedule.cu may use (GX_SMEM_BUDGET);
+# checked against the library when it loads
+XOR_SMEM_BUDGET = 96 * 1024
+XOR_MIN_BLOCK = 32               # threads of 4-byte units, the smallest block
+_XOR_OP = {"id": 0, "xt": 1, "shl": 2, "shr": 3}
+_FROM_MEMORY = 1 << 28
+_XOR_NONE = 0xFFFFFFFF           # a zero leaf; no slot kept; no row stored
+
+_xorlib_state = None
+
+
+def _xorlib():
+    global _xorlib_state
+    if _xorlib_state is None:
+        lib = load("gf8_xor_schedule")
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.gf8x_schedule_apply.argtypes = [
+            vp, vp, ll, ll, ll, ll, ll, ll, vp, i, i, i, i, vp]
+        lib.gf8x_schedule_apply.restype = i
+        lib.gf8x_error_string.argtypes = [i]
+        lib.gf8x_error_string.restype = ctypes.c_char_p
+        lib.gf8x_smem_budget.restype = i
+        if lib.gf8x_smem_budget() != XOR_SMEM_BUDGET:
+            raise KernelLaunchError(
+                f"the XOR-schedule kernel has {lib.gf8x_smem_budget()} "
+                f"bytes of shared memory; the wrapper plans for "
+                f"{XOR_SMEM_BUDGET}")
+        _xorlib_state = lib
+    return _xorlib_state
+
+
+@functools.lru_cache(maxsize=1024)
+def pack_word_program(sched_static) -> tuple[int, int, np.ndarray]:
+    """(slots, instructions, data) of a GF(2^8) schedule as the word
+    kernel reads them: ``data`` is uint32, in 16-byte words — per
+    instruction a header (groups, dst slot, output row, 0) and its
+    leaves, 4 per group, padded with the zero leaf; then a pad word.  A
+    leaf is ``index | sh << 20 | op << 24``, plus ``1 << 28`` for an
+    input chunk read from memory (``xor_schedule.word_program``)."""
+    n_slots, instrs = word_program(sched_static)
+    flat = []
+    for leaves, dst, row in instrs:
+        codes = [idx | (sh << 20) | (_XOR_OP[op] << 24)
+                 | (_FROM_MEMORY if mem else 0)
+                 for mem, idx, op, sh in leaves]
+        codes += [_XOR_NONE] * (-len(codes) % 4)
+        flat += [len(codes) // 4, _XOR_NONE if dst is None else dst,
+                 _XOR_NONE if row is None else row, 0] + codes
+    flat += [_XOR_NONE] * 4
+    return n_slots, len(instrs), np.asarray(flat, dtype=np.uint32)
+
+
+def xor_program_fits(sched_static) -> bool:
+    """The word kernel's capacity rule: the program and the slots of its
+    smallest block (XOR_MIN_BLOCK threads of 4-byte units) fit
+    XOR_SMEM_BUDGET bytes of shared memory."""
+    n_slots, _, data = pack_word_program(sched_static)
+    return (4 * data.size + (n_slots | 1) * XOR_MIN_BLOCK * 4
+            <= XOR_SMEM_BUDGET)
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_word_program(sched_static, device: torch.device
+                         ) -> tuple[int, int, torch.Tensor]:
+    """pack_word_program's data on ``device``: built once per schedule,
+    then kernel data."""
+    n_slots, n_instr, data = pack_word_program(sched_static)
+    return n_slots, n_instr, torch.from_numpy(
+        data.view(np.int32)).to(device)
+
+
+def _check_sched(sched_static) -> tuple[int, int]:
+    """(s, r) of a GF(2^8) schedule's static tuple."""
+    if not (isinstance(sched_static, tuple) and len(sched_static) == 5
+            and sched_static[0] == "xorsched"):
+        raise ValueError("need a schedule's static tuple")
+    return sched_static[1], sched_static[2]
+
+
+def _launch_xor(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
+                nbytes: int, in_strides: tuple[int, int],
+                out_strides: tuple[int, int], sched_static) -> None:
+    """Run the word kernel on the current stream, counted on ``fn``."""
+    if not xor_program_fits(sched_static):
+        raise KernelLaunchError(
+            f"{fn.__name__}: the schedule's program and slots exceed the "
+            f"kernel's {XOR_SMEM_BUDGET} bytes of shared memory "
+            f"(gf_kernels.xor_program_fits); the engine table routes "
+            f"such a matrix to the dense kernel")
+    if any(v % 4 for v in (x.data_ptr(), out.data_ptr(), *in_strides)):
+        raise ValueError("the XOR-schedule kernel reads 4-byte words: "
+                         "pointers and strides must be multiples of 4")
+    lib = _xorlib()
+    n_slots, n_instr, data = _device_word_program(sched_static, x.device)
+    err = lib.gf8x_schedule_apply(
+        x.data_ptr(), out.data_ptr(), batch, nbytes, *in_strides,
+        *out_strides, data.data_ptr(), data.numel() // 4, n_instr, n_slots,
+        _device_index(x),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise KernelLaunchError(
+            f"{fn.__name__} failed: CUDA error {err} "
+            f"({lib.gf8x_error_string(err).decode()})")
+    fn.launches += 1
+
+
+def apply_matrix_xor_cuda(chunks: torch.Tensor, sched_static
+                          ) -> torch.Tensor:
+    """Apply a GF(2^8) matrix through its XOR schedule
+    (``xor_schedule.XorSchedule.static``): (..., s, C) uint8, C % 4 ==
+    0 -> (..., r, C).  The chunk dimension may be strided (a survivor
+    slice) as long as each chunk's bytes are contiguous."""
+    s, r = _check_sched(sched_static)
+    c = chunks.shape[-1] if chunks.dim() else 0
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
+            or chunks.shape[-2] != s or c % 4:
+        raise ValueError(f"need (..., {s}, C) uint8 chunks with C % 4 == "
+                         f"0, got {tuple(chunks.shape)} {chunks.dtype}")
+    if chunks.device.type == "cpu":
+        return apply_matrix_xor_torch(chunks, sched_static)
+    _check_cuda(chunks)
+    if chunks.stride(-1) != 1:
+        raise ValueError("chunk bytes must be contiguous (stride 1)")
+    lead = tuple(chunks.shape[:-2])
+    out = torch.empty(lead + (r, c), dtype=torch.uint8, device=chunks.device)
+    if out.numel() == 0:
+        return out
+    batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
+    _launch_xor(apply_matrix_xor_cuda, chunks, out, batch, c,
+                (bstride, chunks.stride(-2)), (r * c, c), sched_static)
+    return out
+
+
+apply_matrix_xor_cuda.launches = 0
+
+
+def apply_matrix_xor_cuda_packed(words: torch.Tensor, sched_static
+                                 ) -> torch.Tensor:
+    """Packed-layout twin: (..., s, R, 128) uint32 -> (..., r, R, 128).
+    Each chunk's (R, 128) words must be contiguous; the chunk dimension
+    may be strided."""
+    s, r = _check_sched(sched_static)
+    if words.dtype != torch.uint32 or words.dim() < 3 \
+            or words.shape[-3] != s or words.shape[-1] != LANE:
+        raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if words.device.type == "cpu":
+        return pack_chunks(apply_matrix_xor_torch(unpack_chunks(words),
+                                                  sched_static))
+    _check_cuda(words)
+    if words.stride(-1) != 1 or (words.shape[-2] > 1
+                                 and words.stride(-2) != LANE):
+        raise ValueError("each chunk's (R, 128) words must be contiguous")
+    lead, rows = tuple(words.shape[:-3]), words.shape[-2]
+    nbytes = rows * PACKED_ROW_BYTES
+    out = torch.empty(lead + (r, nbytes), dtype=torch.uint8,
+                      device=words.device)
+    if out.numel() == 0:
+        return pack_chunks(out)
+    batch, bstride = _merged_batch(words, words.dim() - 3, 4)
+    _launch_xor(apply_matrix_xor_cuda_packed, words, out, batch, nbytes,
+                (bstride, words.stride(-3) * 4), (r * nbytes, nbytes),
+                sched_static)
+    return pack_chunks(out)
+
+
+apply_matrix_xor_cuda_packed.launches = 0
+
 WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed,
             apply_matrix_cuda_words, apply_bitmatrix_cuda,
-            apply_bitmatrix_xor_cuda)
+            apply_bitmatrix_xor_cuda, apply_matrix_xor_cuda,
+            apply_matrix_xor_cuda_packed)
 
 
 def launch_counts() -> dict:
@@ -537,41 +734,96 @@ def unpack_chunks(words: torch.Tensor) -> torch.Tensor:
 
 def apply_matrix_numpy(chunks: torch.Tensor, matrix_t, w: int = 8
                        ) -> torch.Tensor:
-    """The host ground truth (``regionops.matrix_encode``) on a CPU
-    tensor's bytes."""
+    """The host tier on a CPU tensor's bytes: for w=8
+    ``xor_schedule.host_matrix_apply`` (the identical XOR schedule when
+    one is preferred, the regionops ground truth otherwise), for w=16/32
+    ``regionops.matrix_encode``."""
     if chunks.device.type != "cpu":
         raise ValueError(f"tensor on {chunks.device}: the numpy tier "
                          f"takes CPU tensors")
-    out = regionops.matrix_encode(chunks.detach().numpy(),
-                                  np.asarray(matrix_t, dtype=np.int64), w)
+    mat = np.asarray(matrix_t, dtype=np.int64)
+    if w == 8:
+        out = host_matrix_apply(chunks.detach().numpy(), mat,
+                                _static(matrix_t), 8)
+    else:
+        out = regionops.matrix_encode(chunks.detach().numpy(), mat, w)
     return torch.from_numpy(out)
 
 
 # -- selection and dispatch ---------------------------------------------------
 
+# nonzeros at or above which the reference sends a matrix without a
+# preferred schedule to its MXU tier (mxu_matrix_min's default); the
+# preference probe reads it
+MXU_MATRIX_MIN = 2048
+
+
+def _static(matrix_t) -> tuple:
+    """A coefficient table as the hashable tuple of tuples the schedule
+    caches key on."""
+    if isinstance(matrix_t, tuple) and all(isinstance(row, tuple)
+                                           for row in matrix_t):
+        return matrix_t
+    return tuple(tuple(int(x) for x in row) for row in matrix_t)
+
+
+def _xor_static(matrix_t):
+    """The static tuple of the schedule the table routed ``matrix_t``
+    to (the probe is cached: a dict hit per call)."""
+    return preferred_schedule(_static(matrix_t), 8,
+                              mxu_min=MXU_MATRIX_MIN).static
+
+
 def select_matrix_engine(w: int = 8, device=None,
-                         engine: str | None = None) -> str:
+                         engine: str | None = None, *, shape=None,
+                         matrix_t=None, packed: bool = False) -> str:
     """THE engine-selection table for GF(2^w) matrix applies (w in
     {8, 16, 32}) and GF(2) bitmatrix applies (``w`` then names the
     packet count of a block), reduced to the rows the port has.
     Returns one of:
 
-    - "cuda":  a hand-written kernel — every CUDA tensor: the w=8 bytes
-               or packed kernel, the w=16/32 word kernel, or a bitmatrix
-               kernel;
+    - "numpy": the host tier, only when forced on CPU tensors;
+    - "xor":   a w=8 matrix (``matrix_t``, applied to chunks of
+               ``shape``) whose XOR schedule the probe prefers
+               (``xor_schedule.preferred_schedule``: it beats the dense
+               cost model by XOR_DENSE_CUTOVER, its bit-matrix expansion
+               has at most DEFAULT_MAX_ONES ones, and at MXU_MATRIX_MIN
+               nonzeros or more it undercuts one op per nonzero), when
+               the layout is packed or C % 4 == 0, and — the word
+               kernel's capacity rule — its program fits the kernel
+               (``xor_program_fits``).  On a CUDA tensor the
+               XOR-schedule kernel runs it, on a CPU tensor the plain
+               torch schedule;
+    - "cuda":  a hand-written kernel for every other CUDA tensor: the
+               dense w=8 bytes or packed kernel, the w=16/32 word
+               kernel, or a bitmatrix kernel;
     - "torch": the plain torch tier — CPU tensors, and a forced torch
-               tier on CPU tensors;
-    - "numpy": the host ground truth, only when forced on CPU tensors.
+               tier on CPU tensors.
 
-    ``engine`` forces a tier for this call in place of the process
-    policy; like the policy's, a forced torch or numpy tier raises for
-    a CUDA ``device``, so a card tensor never leaves the kernels.  The
-    reference's mesh, xor, mxu and tuned-pin rows are not ported yet.
+    The order is the reference's (``ceph_tpu/ops/pallas_gf.py``): the
+    numpy tier first, then the xor row, then the device tier.  ``engine``
+    forces a tier for this call in place of the process policy; like
+    the policy's, a forced torch or numpy tier raises for a CUDA
+    ``device``, so a card tensor never leaves the kernels.  Not ported
+    yet: the mesh row (ROADMAP Queue A item 8), the tuned pins (Queue A
+    item 10) and the mxu row (Queue B item 8) — a matrix with
+    MXU_MATRIX_MIN nonzeros or more and no preferred schedule stays on
+    the dense kernel.
     """
     if w < 1:
         raise ValueError(f"w={w} must be positive")
     policy = global_policy() if engine is None else FallbackPolicy(engine)
-    return policy.engine(device)
+    eng = policy.engine(device)
+    if eng == "numpy":
+        return "numpy"
+    if (w == 8 and matrix_t
+            and (packed or (shape is not None and len(shape) >= 2
+                            and shape[-1] % 4 == 0))):
+        sched = preferred_schedule(_static(matrix_t), 8,
+                                   mxu_min=MXU_MATRIX_MIN)
+        if sched is not None and xor_program_fits(sched.static):
+            return "xor"
+    return eng
 
 
 def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
@@ -581,7 +833,10 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
     if w not in WORD_DTYPE:
         raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
                          f"got w={w}")
-    eng = select_matrix_engine(w, chunks.device)
+    eng = select_matrix_engine(w, chunks.device, shape=tuple(chunks.shape),
+                               matrix_t=matrix_t)
+    if eng == "xor":
+        return apply_matrix_xor_cuda(chunks, _xor_static(matrix_t))
     if eng == "cuda":
         if w == 8:
             return apply_matrix_cuda(chunks, matrix_t)
@@ -594,7 +849,10 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
 def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
     """Packed-layout dispatch: (..., s, R, 128) uint32 ->
     (..., r, R, 128); byte-identical in every branch."""
-    eng = select_matrix_engine(8, words.device)
+    eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
+                               matrix_t=matrix_t, packed=True)
+    if eng == "xor":
+        return apply_matrix_xor_cuda_packed(words, _xor_static(matrix_t))
     if eng == "cuda":
         return apply_matrix_cuda_packed(words, matrix_t)
     byts = unpack_chunks(words)
@@ -645,12 +903,14 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 
 __all__ = [
-    "WRAPPERS", "apply_bitmatrix_best", "apply_bitmatrix_cuda",
-    "apply_bitmatrix_numpy", "apply_bitmatrix_xor_cuda",
-    "apply_matrix_best", "apply_matrix_cuda", "apply_matrix_cuda_packed",
-    "apply_matrix_cuda_words", "apply_matrix_numpy",
-    "apply_matrix_packed_best", "bitmatrix_op_count", "dense_op_count",
-    "launch_counts", "pack_chunks", "pack_rows", "reset_launch_counts",
+    "MXU_MATRIX_MIN", "WRAPPERS", "XOR_SMEM_BUDGET", "apply_bitmatrix_best",
+    "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
+    "apply_bitmatrix_xor_cuda", "apply_matrix_best", "apply_matrix_cuda",
+    "apply_matrix_cuda_packed", "apply_matrix_cuda_words",
+    "apply_matrix_numpy", "apply_matrix_packed_best",
+    "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed",
+    "bitmatrix_op_count", "dense_op_count", "launch_counts", "pack_chunks",
+    "pack_rows", "pack_word_program", "reset_launch_counts",
     "schedule_op_count", "select_matrix_engine", "sm90_op_count",
-    "unpack_chunks",
+    "unpack_chunks", "xor_program_fits", "xor_schedule_op_count",
 ]

@@ -12,7 +12,10 @@ holds each kernel against its plain version on the card.
 - :func:`apply_bitmatrix_torch` — jerasure packet-layout GF(2)
   bitmatrix, one XOR chain per output packet (the row-mask walk);
 - :func:`apply_bitmatrix_xor_torch` — the same product through a CSE
-  schedule (``ops/xor_schedule.py``) over packet views.
+  schedule (``ops/xor_schedule.py``) over packet views;
+- :func:`apply_matrix_xor_torch` — a GF(2^8) matrix through its XOR
+  schedule (``xt`` / ``shl`` / ``shr`` / ``xor`` on SWAR words), the twin
+  of ``ceph_tpu/ops/pallas_gf.py::apply_matrix_xor_xla``.
 
 The math is the reference's SWAR walk: four GF(2^8) field bytes (or
 two GF(2^16) halfwords, or one GF(2^32) word) packed in a 32-bit
@@ -168,6 +171,52 @@ def apply_matrix_torch(chunks: torch.Tensor, matrix_t, w: int = 8
     out = torch.stack([zero if a is None else a for a in accs], dim=-2)
     out = out.view(torch.uint8)[..., :c]
     return out.contiguous().view(chunks.dtype)
+
+
+_LMASK8 = tuple(_s32(0x01010101 * ((0xFF << sh) & 0xFF)) for sh in range(8))
+_RMASK8 = tuple(_s32(0x01010101 * (0xFF >> sh)) for sh in range(8))
+
+
+def _xtime_taps8(v: torch.Tensor) -> torch.Tensor:
+    """The schedule's mul-free xtime on int32 lanes: the feedback 0x1d
+    as ``t ^ t<<2 ^ t<<3 ^ t<<4`` (``xor_schedule.xtime_words_xor``),
+    with ``hi >> 7`` masked back to each byte's low bit."""
+    hi = v & _HI8
+    t = (hi >> 7) & _LO8
+    return ((v ^ hi) << 1) ^ t ^ (t << 2) ^ (t << 3) ^ (t << 4)
+
+
+def apply_matrix_xor_torch(chunks: torch.Tensor, sched_static
+                           ) -> torch.Tensor:
+    """Run a GF(2^8) XOR schedule (``xor_schedule.XorSchedule.static``)
+    over (..., s, C) uint8 chunks, C % 4 == 0 -> (..., r, C): the
+    schedule's op list on int32 SWAR lanes.  ``shr`` masks off what the
+    arithmetic ``>>`` drags in from the sign bit.  The same contract as
+    ``ceph_tpu.ops.pallas_gf.apply_matrix_xor_xla``."""
+    _, s, r, ops, outputs = sched_static
+    c = chunks.shape[-1] if chunks.dim() else 0
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
+            or chunks.shape[-2] != s or c % 4:
+        raise ValueError(f"need (..., {s}, C) uint8 chunks with C % 4 == "
+                         f"0, got {tuple(chunks.shape)} {chunks.dtype}")
+    lanes = _lanes(chunks)
+    nodes = [lanes[..., j, :] for j in range(s)]
+    for op in ops:
+        kind = op[0]
+        if kind == "xor":
+            nodes.append(nodes[op[1]] ^ nodes[op[2]])
+        elif kind == "xt":
+            nodes.append(_xtime_taps8(nodes[op[1]]))
+        elif kind == "shl":
+            nodes.append((nodes[op[1]] << op[2]) & _LMASK8[op[2]])
+        elif kind == "shr":
+            nodes.append((nodes[op[1]] >> op[2]) & _RMASK8[op[2]])
+        else:
+            raise ValueError(f"unknown schedule op {op}")
+    zero = torch.zeros_like(lanes[..., 0, :])
+    out = torch.stack([nodes[o] if o >= 0 else zero for o in outputs],
+                      dim=-2)
+    return out.view(torch.uint8).reshape(chunks.shape[:-2] + (r, c))
 
 
 def _packet_view(chunks: torch.Tensor, w: int, packetsize: int

@@ -25,6 +25,11 @@ source, all started together) and then, in order:
      131072), and random bitmatrices for w in {6, 7, 8} and packetsizes
      {8, 32, 2048}, with and without a leading batch dimension, through a
      strided survivor slice;
+   - the XOR-schedule kernel (bytes and packed wrappers): the
+     reed_sol_r6_op k=8 m=2 encode schedule (the ring transform) at (64,
+     8, 131072), an lrc k=4 m=2 l=3 local repair at (64, 7, 262144), the
+     4 shec k=4 m=3 c=2 plans that take a schedule, random sparse and
+     monomial schedules, a strided slice and C = 4096 + 4;
 
    and two stripes of each against the numpy ground truth;
 3. drives the paths through the entry points a user calls, each with
@@ -45,11 +50,23 @@ source, all started together) and then, in order:
      liber8tion k=8, an encode and a decode each;
    - wide words: reed_sol_van w=16 and w=32 k=8 m=3, an encode and a
      3-erasure decode each;
+   - lrc k=4 m=2 l=3: 64 x 1 MiB encode through ``encode_chunks_torch``
+     and the packed entry, and all 36 one- and two-erasure decodes of a
+     4-stripe batch in both layouts (29 take the XOR-schedule kernel);
+   - r6: jerasure reed_sol_r6_op k=8 m=2, 64 x 1 MiB encode through the
+     tensor and packed entries (the XOR-schedule kernel) and its 55 one-
+     and two-erasure decodes in both layouts (the XOR-schedule kernel for
+     (9,) and (8, 9), the dense kernel for the rest);
+   - shec k=4 m=3 c=2: 64 x 1 MiB encode, and every 1-, 2- and 3-erasure
+     pattern of a 4-stripe batch in both layouts (the undecodable ones
+     must raise);
 4. times each kernel, its plain version and a copy of the same bytes
    with CUDA events at its main shape, with the host's issue time beside
-   it, against the bound (the larger of the bytes over HBM bandwidth
+   it, and each kernel's own device time per launch from a profiler
+   trace, against the bound (the larger of the bytes over HBM bandwidth
    and the integer ops over the INT32 peak), and prints one JSON line
-   ``{"kernels": [...]}``.
+   ``{"kernels": [...]}`` (seven wrappers; "ms" is the profiler's
+   device time, the event time where the trace has no kernel).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -76,6 +93,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 K, M, BATCH, CHUNK = 8, 3, 64, 128 * 1024     # 64 x 1 MiB stripes
+LRC_K, LRC_CHUNK = 4, 256 * 1024              # lrc / shec k=4: 1 MiB stripes
 DECODE_BATCH = 4
 PACKETSIZE = 2048                             # jerasure's default
 WORDS = 65536                                 # w=16/32 words per chunk
@@ -107,6 +125,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host
+
+
+def kernel_ms(fn, kernel: str, iters: int = 20) -> float | None:
+    """Device time per call of the CUDA kernels named ``kernel`` that
+    ``fn`` launches, from a profiler trace of ``iters`` calls (CUPTI
+    records each kernel's own start and end, so the host's issue pace
+    does not enter).  None when the trace holds no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / 1e3 / iters if len(us) >= iters else None
 
 
 def bound_ms(moved_bytes: int, ops: int) -> tuple[float, str]:
@@ -167,14 +205,18 @@ def main(argv=None) -> int:
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.ops import _build, gf_kernels, regionops
     from ceph_tpu_torch.ops.gf_kernels import (
-        apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda, apply_matrix_cuda,
-        apply_matrix_cuda_packed, apply_matrix_cuda_words,
+        MXU_MATRIX_MIN, apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda,
+        apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
+        apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed,
         bitmatrix_op_count, dense_op_count, pack_chunks, schedule_op_count,
-        sm90_op_count, unpack_chunks)
+        sm90_op_count, unpack_chunks, xor_schedule_op_count)
     from ceph_tpu_torch.ops.torch_ops import (
         WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
-        apply_matrix_torch, bitmatrix_to_static, matrix_to_static)
-    from ceph_tpu_torch.ops.xor_schedule import probe_bitmatrix_schedule
+        apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
+        matrix_to_static)
+    from ceph_tpu_torch.ops.xor_schedule import (
+        build_schedule, preferred_schedule, probe_bitmatrix_schedule,
+        word_program)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
@@ -348,6 +390,84 @@ def main(argv=None) -> int:
           f"(w in 6,7,8; packetsize 8, 32, 2048; with and without a batch "
           f"dim; strided slices)")
 
+    # the XOR-schedule kernel: the r6 encode (ring schedule) at the main
+    # shape, an lrc local repair at 64 x 1 MiB stripes, the shec plans
+    def xor_static(ms):
+        sched = preferred_schedule(ms, 8, mxu_min=MXU_MATRIX_MIN)
+        check(sched is not None, f"{ms} has a preferred schedule")
+        return sched.static
+
+    def hold_xor(x, st, what, ground=None):
+        """Both XOR wrappers against the plain schedule on x; when
+        ``ground`` (the matrix) is given, two stripes against the numpy
+        ground truth."""
+        want = apply_matrix_xor_torch(x, st)
+        got = apply_matrix_xor_cuda(x, st)
+        err.hold("apply_matrix_xor_cuda", got, want, what)
+        if x.shape[-1] % 512 == 0:
+            xw = pack_chunks(x)
+            err.hold("apply_matrix_xor_cuda_packed", unpack_chunks(
+                apply_matrix_xor_cuda_packed(xw, st)), want, what)
+        if ground is not None:
+            def two(t):
+                return t.reshape((-1,) + tuple(t.shape[-2:]))[:2].cpu().numpy()
+            check(np.array_equal(two(got), regionops.matrix_encode(
+                two(x), np.asarray(ground), 8)),
+                f"{what}: XOR kernel == numpy ground truth, 2 stripes")
+        return got
+
+    r6 = reg.factory("jerasure", {"technique": "reed_sol_r6_op",
+                                  "k": str(K)})
+    r6_ms = matrix_to_static(r6.matrix)
+    r6_st = xor_static(r6_ms)
+    check(preferred_schedule(r6_ms, 8).transform == "ring",
+          "the r6 encode takes the ring schedule")
+    r6_parity = hold_xor(data, r6_st, "r6 encode, main shape", r6.matrix)
+    lrc = reg.factory("lrc", {"k": "4", "m": "2", "l": "3"})
+    lrc_avail = tuple(range(1, 8))
+    lrc_dm, lrc_ms = lrc._decode_composite(lrc_avail, (0,))
+    lrc_st = xor_static(lrc_ms)
+    lrc_surv = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, 7, LRC_CHUNK), dtype=np.uint8)).to(dev)
+    hold_xor(lrc_surv, lrc_st, "lrc local repair (0,), 64 x 1 MiB", lrc_dm)
+    shec = reg.factory("shec", {"k": "4", "m": "3", "c": "2"})
+    n_shec = shec.k + shec.m
+    shec_xor = []
+    for e in range(n_shec):
+        avail = tuple(i for i in range(n_shec) if i != e)
+        plan = shec._plan(avail, (e,))
+        dm, dm_static = shec._plan_static(plan)
+        sched = preferred_schedule(dm_static, 8, mxu_min=MXU_MATRIX_MIN)
+        if sched is None:
+            continue
+        shec_xor.append(e)
+        x = torch.from_numpy(rng.integers(0, 256, (8, len(plan.reads),
+                                                   8192), dtype=np.uint8)
+                             ).to(dev)
+        hold_xor(x, sched.static, f"shec plan for erasure {e}", dm)
+    check(shec_xor == [0, 1, 2, 4], f"shec XOR plans {shec_xor}")
+    n_rand = 0
+    for i, (lead, c) in enumerate(itertools.product(((3,), ()),
+                                                    (4096 + 4, 8192))):
+        for kind in ("sparse", "monomial"):
+            r, s = 3, 6
+            if kind == "sparse":
+                m_r = rng.integers(0, 256, (r, s)) * (rng.random((r, s)) < 0.4)
+            else:
+                m_r = (1 << rng.integers(0, 8, (r, s))) \
+                    * (rng.random((r, s)) < 0.7)
+            m_r[0, 0] = 1
+            st = build_schedule(matrix_to_static(m_r)).static
+            xh = rng.integers(0, 256, lead + (s + 1, c), dtype=np.uint8)
+            x = torch.from_numpy(xh).to(dev)[..., :s, :]   # strided slice
+            hold_xor(x, st, f"random {kind} lead={lead} C={c}", m_r)
+            n_rand += 1
+    print(f"phase 2: XOR-schedule kernel equal in both layouts on the r6 "
+          f"encode (64, 8, {CHUNK}), an lrc repair (64, 7, {LRC_CHUNK}), "
+          f"the shec plans of erasures {shec_xor} and {n_rand} random "
+          f"sparse/monomial schedules (strided slices, C=4100, no batch "
+          f"dim), and to the host ground truth")
+
     # -- phase 3: the paths, through the user's entry points ----------------
     counts = gf_kernels.launch_counts
     reset = gf_kernels.reset_launch_counts
@@ -423,6 +543,9 @@ def main(argv=None) -> int:
                           "numpy and packed entries; 231 decode patterns x "
                           "2 layouts; isa)", counts, reset, rs_path,
                           ("apply_matrix_cuda", "apply_matrix_cuda_packed"))
+    check(results["rs"]["apply_matrix_xor_cuda"] == 0
+          and results["rs"]["apply_matrix_xor_cuda_packed"] == 0,
+          "reed_sol_van k=8 m=3 routes no pattern to the XOR kernel")
 
     def cauchy_path():
         parity = cg.encode_chunks_torch(data)
@@ -510,6 +633,146 @@ def main(argv=None) -> int:
     results["words"] = drive(
         "reed_sol_van w=16 / w=32 k=8 m=3 (encode + 3-erasure decode "
         "each)", counts, reset, words_path, ("apply_matrix_cuda_words",))
+
+    def erasures(n, most):
+        return [e for t in range(1, most + 1)
+                for e in itertools.combinations(range(n), t)]
+
+    def decode_both(code, full, erased, want_xor):
+        """Decode ``erased`` from the rest of ``full`` through the tensor
+        and packed entries; require the XOR-schedule kernel in both
+        layouts when ``want_xor``, the dense kernel otherwise."""
+        avail = tuple(i for i in range(full.shape[1]) if i not in erased)
+        surv = full.index_select(1, torch.tensor(avail, device=dev))
+        before = counts()
+        rec = code.decode_chunks_torch(surv, avail, erased)
+        recp = code.decode_chunks_packed_torch(pack_chunks(surv), avail,
+                                               erased)
+        torch.cuda.synchronize()
+        after = counts()
+        want = full[:, list(erased)]
+        check(torch.equal(rec, want), f"decode {erased}")
+        check(torch.equal(unpack_chunks(recp), want),
+              f"packed decode {erased}")
+        ran = {k: after[k] - before[k] for k in after}
+        if want_xor:
+            check(ran["apply_matrix_xor_cuda"] == 1
+                  and ran["apply_matrix_xor_cuda_packed"] == 1,
+                  f"decode {erased} took the XOR kernel: {ran}")
+        else:
+            check(ran["apply_matrix_cuda"] >= 1
+                  and ran["apply_matrix_cuda_packed"] >= 1
+                  and ran["apply_matrix_xor_cuda"] == 0,
+                  f"decode {erased} took the dense kernel: {ran}")
+
+    def routes_xor(code, avail, erased, ms=None):
+        if ms is None:
+            ms = code._decode_composite(avail, erased)[1]
+        return preferred_schedule(ms, 8, mxu_min=MXU_MATRIX_MIN) is not None
+
+    lrc_host = rng.integers(0, 256, (BATCH, LRC_K, LRC_CHUNK),
+                            dtype=np.uint8)
+    lrc_data = torch.from_numpy(lrc_host).to(dev)
+
+    def lrc_path():
+        parity = lrc.encode_chunks_torch(lrc_data)
+        parity_p = lrc.encode_chunks_packed_torch(pack_chunks(lrc_data))
+        torch.cuda.synchronize()
+        check(torch.equal(unpack_chunks(parity_p), parity),
+              "lrc packed encode")
+        check(np.array_equal(parity[:2].cpu().numpy(),
+                             lrc.encode_chunks_batch(lrc_host[:2])),
+              "lrc encode == encode_chunks_batch (host schedule)")
+        n_lrc = lrc.get_chunk_count()
+        full = torch.empty((DECODE_BATCH, n_lrc, LRC_CHUNK),
+                           dtype=torch.uint8, device=dev)
+        dpos = lrc.data_positions
+        ppos = [p for p in range(n_lrc) if p not in dpos]
+        full[:, dpos] = lrc_data[:DECODE_BATCH]
+        full[:, ppos] = parity[:DECODE_BATCH]
+        n_xor = 0
+        for erased in erasures(n_lrc, 2):
+            avail = tuple(i for i in range(n_lrc) if i not in erased)
+            xor = routes_xor(lrc, avail, erased)
+            n_xor += xor
+            decode_both(lrc, full, erased, xor)
+        check(n_xor == 29, f"lrc: {n_xor} of 36 patterns on the XOR kernel")
+
+    results["lrc"] = drive(
+        "lrc k=4 m=2 l=3 (64 x 1 MiB encode via tensor and packed "
+        "entries; 36 decode patterns x 2 layouts, 29 scheduled)", counts,
+        reset, lrc_path, ("apply_matrix_cuda", "apply_matrix_cuda_packed",
+                          "apply_matrix_xor_cuda",
+                          "apply_matrix_xor_cuda_packed"))
+
+    def r6_path():
+        parity = r6.encode_chunks_torch(data)
+        parity_p = r6.encode_chunks_packed_torch(pack_chunks(data))
+        torch.cuda.synchronize()
+        check(torch.equal(parity, r6_parity), "r6 encode_chunks_torch")
+        check(torch.equal(unpack_chunks(parity_p), parity),
+              "r6 packed encode")
+        check(counts()["apply_matrix_xor_cuda"] == 1
+              and counts()["apply_matrix_xor_cuda_packed"] == 1,
+              "the r6 encode took the XOR kernel in both layouts")
+        n6 = r6.k + r6.m
+        full = torch.cat([data[:DECODE_BATCH], parity[:DECODE_BATCH]],
+                         dim=1)
+        on_xor = []
+        for erased in erasures(n6, 2):
+            avail = tuple(i for i in range(n6) if i not in erased)
+            dm_static = r6._decode_matrix(avail, erased)[1]
+            xor = routes_xor(r6, avail, erased, dm_static)
+            if xor:
+                on_xor.append(erased)
+            decode_both(r6, full, erased, xor)
+        check(on_xor == [(9,), (8, 9)], f"r6 XOR decodes {on_xor}")
+
+    results["r6"] = drive(
+        "reed_sol_r6_op k=8 m=2 (64 x 1 MiB encode via tensor and packed "
+        "entries on the XOR kernel; 55 decode patterns x 2 layouts)",
+        counts, reset, r6_path,
+        ("apply_matrix_cuda", "apply_matrix_cuda_packed",
+         "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed"))
+
+    shec_chunk = shec.get_chunk_size(LRC_K * LRC_CHUNK)
+    shec_host = rng.integers(0, 256, (BATCH, shec.k, shec_chunk),
+                             dtype=np.uint8)
+
+    def shec_path():
+        x = torch.from_numpy(shec_host).to(dev)
+        parity = shec.encode_chunks_torch(x)
+        check(np.array_equal(parity[:2].cpu().numpy(),
+                             regionops.matrix_encode(shec_host[:2],
+                                                     shec.matrix, 8)),
+              "shec encode == numpy ground truth")
+        full = torch.cat([x[:DECODE_BATCH], parity[:DECODE_BATCH]], dim=1)
+        done = refused = n_xor = 0
+        for erased in erasures(n_shec, 3):
+            avail = tuple(i for i in range(n_shec) if i not in erased)
+            try:
+                shec.minimum_to_decode(set(erased), set(avail))
+            except IOError:
+                refused += 1
+                continue
+            plan = shec._plan(avail, erased)
+            xor = routes_xor(shec, avail, erased,
+                             shec._plan_static(plan)[1])
+            n_xor += xor
+            decode_both(shec, full, erased, xor)
+            done += 1
+        check(done + refused == 63 and n_xor == 4,
+              f"shec: {done} decoded, {refused} undecodable, {n_xor} "
+              f"scheduled")
+        print(f"  shec: {done} patterns decoded ({n_xor} on the XOR "
+              f"kernel), {refused} undecodable (IOError, as the "
+              f"reference)")
+
+    results["shec"] = drive(
+        "shec k=4 m=3 c=2 (64 x 1 MiB encode; every 1-3 erasure pattern x "
+        "2 layouts)", counts, reset, shec_path,
+        ("apply_matrix_cuda", "apply_matrix_cuda_packed",
+         "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed"))
     launches = {name: sum(r[name] for r in results.values())
                 for name in counts()}
     for name, cnt in launches.items():
@@ -656,19 +919,118 @@ def main(argv=None) -> int:
               f"{nbytes / t / 1e6:.3f} GB/s of input, {b / t:.4f} of "
               f"bound")
 
+    # the XOR-schedule kernel: the r6 encode at the main shape and the lrc
+    # local repair, both layouts, against the bytes each one must move
+    def read_chunks(st):
+        """The input chunks the schedule reads (the kernel loads no
+        other)."""
+        return {idx for leaves, _, _ in word_program(st)[1]
+                for mem, idx, _, _ in leaves if mem}
+
+    def xor_bound(st, x, r):
+        c = x.shape[-1]
+        moved = x.shape[0] * (len(read_chunks(st)) + r) * c
+        return bound_ms(moved, xor_schedule_op_count(st) * x.shape[0]
+                        * c // 4) + (moved,)
+
+    xor_times = {}
+    for label, x, st, mat_s in (
+            ("r6 encode", data, r6_st, r6_ms),
+            ("lrc local repair (0,)", lrc_surv, lrc_st, lrc_ms)):
+        xw = pack_chunks(x)
+        r = st[2]
+        t_x, h_x = time_ms(lambda: apply_matrix_xor_cuda(x, st), 50)
+        t_xp, h_xp = time_ms(lambda: apply_matrix_xor_cuda_packed(xw, st),
+                             50)
+        t_pl, h_pl = time_ms(lambda: apply_matrix_xor_torch(x, st), 5,
+                             warmup=1)
+        t_plp, h_plp = time_ms(lambda: pack_chunks(apply_matrix_xor_torch(
+            unpack_chunks(xw), st)), 5, warmup=1)
+        read = sorted(read_chunks(st))
+        src = x[:, read]
+        t_cp, h_cp = time_ms(lambda: src.clone(), 50)
+        k_x = kernel_ms(lambda: apply_matrix_xor_cuda(x, st),
+                        "gf8_xor_kernel")
+        k_xp = kernel_ms(lambda: apply_matrix_xor_cuda_packed(xw, st),
+                         "gf8_xor_kernel")
+        # the dense kernel on the same matrix: what the schedule is for
+        k_dense = kernel_ms(lambda: apply_matrix_cuda(x, mat_s),
+                            "gf_matrix_kernel")
+        b, b_by, moved = xor_bound(st, x, r)
+        xor_times[label] = (k_x or t_x, k_xp or t_xp, t_pl, t_plp, b, b_by)
+        print(f"bound of the {label} {tuple(x.shape)} -> {r} rows: reads "
+              f"chunks {read}, {moved} bytes moved, "
+              f"{xor_schedule_op_count(st)} int32 ops per word position "
+              f"-> {b:.6f} ms, by {b_by}")
+        for name, t, h, nbytes in (
+                ("XOR-schedule kernel (bytes)", t_x, h_x, moved),
+                ("XOR-schedule kernel (packed)", t_xp, h_xp, moved),
+                ("plain torch schedule (bytes)", t_pl, h_pl, moved),
+                ("plain torch schedule (packed)", t_plp, h_plp, moved),
+                (f"copy floor (clone of the {len(read)} chunks read)", t_cp,
+                 h_cp, 2 * src.numel())):
+            print(f"time {label}, {name}: {t:.6f} ms device, {h:.6f} ms "
+                  f"host issue, {nbytes / t / 1e6:.3f} GB/s moved, "
+                  f"{b / t:.4f} of bound")
+        for name, k_t in (("XOR-schedule kernel (bytes)", k_x),
+                          ("XOR-schedule kernel (packed)", k_xp),
+                          ("dense kernel on the same matrix", k_dense)):
+            print(f"time {label}, {name}, profiler device time per "
+                  f"launch: "
+                  + ("not measured (no kernel in the trace)" if k_t is None
+                     else f"{k_t:.6f} ms, {b / k_t:.4f} of bound"))
+    t_r6e, h_r6e = time_ms(lambda: r6.encode_chunks_torch(data), 50)
+    t_lrd, h_lrd = time_ms(lambda: lrc.decode_chunks_torch(
+        lrc_surv, lrc_avail, (0,)), 50)
+    print(f"time r6 encode via encode_chunks_torch: {t_r6e:.6f} ms device, "
+          f"{h_r6e:.6f} ms host issue; lrc repair (0,) via "
+          f"decode_chunks_torch: {t_lrd:.6f} ms device, {h_lrd:.6f} ms "
+          f"host issue")
+
+    # each kernel's "ms" is its own device time per launch from the
+    # profiler (the event times above include the host's issue pace where
+    # that is the slower); the event time where the trace has no kernel
+    w16 = word_data[16][1]
+    w16_ms = matrix_to_static(wide_codes[16].matrix)
+    prof = {name: kernel_ms(fn, kernel) for name, fn, kernel in (
+        ("apply_matrix_cuda", lambda: apply_matrix_cuda(data, ms),
+         "gf_matrix_kernel"),
+        ("apply_matrix_cuda_packed",
+         lambda: apply_matrix_cuda_packed(words, ms), "gf_matrix_kernel"),
+        ("apply_matrix_cuda_words",
+         lambda: apply_matrix_cuda_words(w16, w16_ms, 16),
+         "gf_matrix_kernel"),
+        ("apply_bitmatrix_cuda",
+         lambda: apply_bitmatrix_cuda(data, rows, 8, PACKETSIZE),
+         "gf2_packet_kernel"),
+        ("apply_bitmatrix_xor_cuda", lambda: apply_bitmatrix_xor_cuda(
+            data, enc_sched.static, 8, PACKETSIZE), "gf2_packet_kernel"))}
+    for name, k_t in prof.items():
+        print(f"time {name} at its main shape, profiler device time per "
+              f"launch: " + ("not measured (no kernel in the trace)"
+                             if k_t is None else f"{k_t:.6f} ms"))
     kernels = []
     for name, t, tp, b, b_by, source, line in (
-            ("apply_matrix_cuda", t_bytes, t_plain, bound, bound_by,
-             "gf8_matrix.cu", 195),
-            ("apply_matrix_cuda_packed", t_packed, t_plain_packed, bound,
-             bound_by, "gf8_matrix.cu", 350),
-            ("apply_matrix_cuda_words", word_times[16][0],
+            ("apply_matrix_cuda", prof["apply_matrix_cuda"] or t_bytes,
+             t_plain, bound, bound_by, "gf8_matrix.cu", 195),
+            ("apply_matrix_cuda_packed",
+             prof["apply_matrix_cuda_packed"] or t_packed, t_plain_packed,
+             bound, bound_by, "gf8_matrix.cu", 350),
+            ("apply_matrix_cuda_words",
+             prof["apply_matrix_cuda_words"] or word_times[16][0],
              word_times[16][2], word_times[16][4], word_times[16][5],
              "gf8_matrix.cu", 283),
-            ("apply_bitmatrix_cuda", t_bm, t_bm_plain, bm_bound, bm_by,
-             "gf2_bitmatrix.cu", 559),
-            ("apply_bitmatrix_xor_cuda", t_xs, t_xs_plain, xs_bound, xs_by,
-             "gf2_bitmatrix.cu", 782)):
+            ("apply_bitmatrix_cuda", prof["apply_bitmatrix_cuda"] or t_bm,
+             t_bm_plain, bm_bound, bm_by, "gf2_bitmatrix.cu", 559),
+            ("apply_bitmatrix_xor_cuda",
+             prof["apply_bitmatrix_xor_cuda"] or t_xs, t_xs_plain, xs_bound,
+             xs_by, "gf2_bitmatrix.cu", 782),
+            ("apply_matrix_xor_cuda", xor_times["r6 encode"][0],
+             xor_times["r6 encode"][2], xor_times["r6 encode"][4],
+             xor_times["r6 encode"][5], "gf8_xor_schedule.cu", 623),
+            ("apply_matrix_xor_cuda_packed", xor_times["r6 encode"][1],
+             xor_times["r6 encode"][3], xor_times["r6 encode"][4],
+             xor_times["r6 encode"][5], "gf8_xor_schedule.cu", 664)):
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + source,
             "replaces": f"ceph_tpu/ops/pallas_gf.py:{line}",

@@ -265,7 +265,7 @@ def test_example_plugin_and_registry_errors():
         reg.factory("no_such_plugin", {}, device="cpu")
     # a plugin of the reference that the port does not carry yet
     with pytest.raises(IOError):
-        reg.factory("shec", {"k": "4", "m": "3", "c": "2"}, device="cpu")
+        reg.factory("clay", {"k": "4", "m": "2", "d": "5"}, device="cpu")
     assert reg.factory("jerasure", {"technique": "cauchy_good"},
                        device="cpu").technique == "cauchy_good"
     with pytest.raises(ValueError):
@@ -314,7 +314,8 @@ CORPUS = Path(__file__).resolve().parent / "corpus"
 PORTED_TECHNIQUES = {"jerasure": {"reed_sol_van", "reed_sol_r6_op",
                                   "cauchy_orig", "cauchy_good",
                                   "liberation", "blaum_roth", "liber8tion"},
-                     "isa": {"reed_sol_van", "cauchy"}, "example": None}
+                     "isa": {"reed_sol_van", "cauchy"}, "example": None,
+                     "shec": None, "lrc": None}
 
 
 def _ported_corpus_dirs():

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain torch versions, on
 the card: the GF(2^8) matrix kernel (bytes and packed wrappers), the
-w=16/32 word kernel, and the two packet-layout bitmatrix kernels (plain
-and scheduled).  Every test here is marked ``cuda`` and skips (with a
-reason) where no CUDA device is present: a CUDA kernel has no CPU mode.
+w=16/32 word kernel, the two packet-layout bitmatrix kernels (plain
+and scheduled), and the XOR-schedule kernel (bytes and packed wrappers;
+the shec, lrc and reed_sol_r6_op paths that take it).  Every test here
+is marked ``cuda`` and skips (with a reason) where no CUDA device is
+present: a CUDA kernel has no CPU mode.
 
 The file imports neither jax nor ceph_tpu (the machine with the card
 need not have them); the numpy ground truth is the port's own copy.
@@ -22,14 +24,19 @@ import torch
 
 from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
 from ceph_tpu_torch.ops import fallback, regionops
+from ceph_tpu_torch.ops import gf_kernels
 from ceph_tpu_torch.ops.gf_kernels import (
     apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda, apply_matrix_best,
     apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
-    pack_chunks, select_matrix_engine, unpack_chunks)
+    apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed, pack_chunks,
+    select_matrix_engine, unpack_chunks)
 from ceph_tpu_torch.ops.torch_ops import (
     WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
-    apply_matrix_torch, bitmatrix_to_static, matrix_to_static)
-from ceph_tpu_torch.ops.xor_schedule import probe_bitmatrix_schedule
+    apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
+    matrix_to_static)
+from ceph_tpu_torch.ops.xor_schedule import (
+    build_schedule, preferred_schedule, probe_bitmatrix_schedule)
+from ceph_tpu_torch.utils.errors import KernelLaunchError
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +253,128 @@ def test_bitmatrix_and_word_codes_round_trip_on_card(cuda_device, profile):
             avail = tuple(i for i in range(n) if i not in erased)
             rec = ec.decode_chunks_torch(full[:, list(avail)], avail, erased)
             assert torch.equal(rec, full[:, list(erased)]), erased
+
+
+# -- the XOR-schedule kernel ------------------------------------------------------
+
+R6 = ((1,) * 8, tuple(1 << j for j in range(8)))
+LRC_REPAIR = ("xorsched", 7, 1, (("xor", 0, 1), ("xor", 7, 2)), (8,))
+
+
+def _xor_schedules():
+    rng = np.random.default_rng(21)
+    out = [("r6-encode", preferred_schedule(R6, 8).static, R6),
+           ("lrc-repair", LRC_REPAIR, ((1, 1, 1, 0, 0, 0, 0),))]
+    for kind in ("sparse", "monomial", "dense"):
+        if kind == "sparse":
+            m = rng.integers(0, 256, (3, 6)) * (rng.random((3, 6)) < 0.4)
+        elif kind == "monomial":
+            m = (1 << rng.integers(0, 8, (3, 6))) * (rng.random((3, 6)) < 0.7)
+        else:
+            m = rng.integers(0, 256, (2, 5))
+        m[0, 0] = 1
+        ms = matrix_to_static(m)
+        out.append((kind, build_schedule(ms).static, ms))
+    return out
+
+
+@pytest.mark.parametrize("name,static,ms", _xor_schedules(),
+                         ids=[c[0] for c in _xor_schedules()])
+@pytest.mark.parametrize("C,lead", [(131072, (4,)), (4096 + 4, (3,)),
+                                    (8192, ())])
+def test_xor_kernel_matches_plain_on_card(cuda_device, name, static, ms, C,
+                                          lead):
+    """Both XOR wrappers against the plain schedule and the numpy ground
+    truth: full width, C % 16 != 0 (4-byte units), no leading batch, and
+    a survivor slice whose chunk axis is strided."""
+    s = static[1]
+    rng = np.random.default_rng(C + s)
+    data = rng.integers(0, 256, lead + (s + 1, C), dtype=np.uint8)
+    x = torch.from_numpy(data).to(cuda_device)
+    view = x[..., :s, :]
+    before = apply_matrix_xor_cuda.launches
+    got = apply_matrix_xor_cuda(view, static)
+    torch.cuda.synchronize()
+    assert apply_matrix_xor_cuda.launches == before + 1
+    assert torch.equal(got, apply_matrix_xor_torch(view.contiguous(),
+                                                   static))
+    assert np.array_equal(got.cpu().numpy(), regionops.matrix_encode(
+        data[..., :s, :], np.array(ms, dtype=np.int64), 8))
+    if C % 512 == 0:
+        before = apply_matrix_xor_cuda_packed.launches
+        gotp = apply_matrix_xor_cuda_packed(pack_chunks(x)[..., :s, :, :],
+                                            static)
+        torch.cuda.synchronize()
+        assert apply_matrix_xor_cuda_packed.launches == before + 1
+        assert torch.equal(unpack_chunks(gotp), got)
+
+
+def test_xor_kernel_refuses_what_it_cannot_take(cuda_device):
+    static = preferred_schedule(R6, 8).static
+    buf = torch.zeros(2 * 8 * 512 + 2, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        apply_matrix_xor_cuda(buf[2:].view(2, 8, 512), static)
+    n = 800                        # 800 nodes live at once: past the budget
+
+    def chain(first):
+        ops = [("xor", 2, 3)]
+        for j in range(4, n + 2):
+            ops.append(("xor", first + len(ops) - 1, j))
+        return ops
+
+    first = 2 + n
+    big = ("xorsched", 2, 2, tuple([("xor", 0, 1)] * n + chain(first)
+                                   + chain(first + n - 1)),
+           (first + n - 2, first + 2 * n - 3))
+    before = apply_matrix_xor_cuda.launches
+    with pytest.raises(KernelLaunchError):
+        apply_matrix_xor_cuda(torch.zeros(1, 2, 64, dtype=torch.uint8,
+                                          device=cuda_device), big)
+    assert apply_matrix_xor_cuda.launches == before
+
+
+@pytest.mark.parametrize("plugin,profile", [
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("shec", {"k": "4", "m": "3", "c": "2"}),
+    ("jerasure", {"technique": "reed_sol_r6_op", "k": "8", "m": "2"})])
+def test_composite_codes_round_trip_on_card(cuda_device, plugin, profile):
+    """Encode, then every 1- and 2-erasure decode the code can make, in
+    both layouts; a decode runs the XOR-schedule kernel exactly where the
+    engine table routes its matrix there."""
+    ec = ErasureCodePluginRegistry.instance().factory(plugin, dict(profile))
+    assert ec.device.type == "cuda"
+    k, n = ec.get_data_chunk_count(), ec.get_chunk_count()
+    data = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (2, k, 65536), dtype=np.uint8)).to(cuda_device)
+    parity = ec.encode_chunks_torch(data)
+    assert torch.equal(unpack_chunks(ec.encode_chunks_packed_torch(
+        pack_chunks(data))), parity)
+    assert np.array_equal(parity.cpu().numpy(),
+                          ec.encode_chunks_batch(data.cpu().numpy()))
+    full = torch.empty((2, n, 65536), dtype=torch.uint8, device=cuda_device)
+    dpos = list(getattr(ec, "data_positions", range(k)))
+    full[:, dpos] = data
+    full[:, [p for p in range(n) if p not in dpos]] = parity
+    scheduled = 0
+    for e in (1, 2):
+        for erased in itertools.combinations(range(n), e):
+            avail = tuple(i for i in range(n) if i not in erased)
+            try:
+                ec.minimum_to_decode(set(erased), set(avail))
+            except IOError:
+                continue
+            surv = full[:, list(avail)]
+            before = gf_kernels.launch_counts()
+            rec = ec.decode_chunks_torch(surv, avail, erased)
+            recp = ec.decode_chunks_packed_torch(pack_chunks(surv), avail,
+                                                 erased)
+            torch.cuda.synchronize()
+            after = gf_kernels.launch_counts()
+            assert torch.equal(rec, full[:, list(erased)]), erased
+            assert torch.equal(unpack_chunks(recp), rec), erased
+            ran_xor = after["apply_matrix_xor_cuda"] - before[
+                "apply_matrix_xor_cuda"]
+            assert ran_xor == after["apply_matrix_xor_cuda_packed"] - \
+                before["apply_matrix_xor_cuda_packed"]
+            scheduled += ran_xor
+    assert scheduled == {"lrc": 29, "shec": 4, "jerasure": 2}[plugin]

@@ -177,6 +177,8 @@ def test_importing_port_loads_no_jax_or_ceph_tpu_module():
         "import ceph_tpu_torch.codes.plugins.jerasure\n"
         "import ceph_tpu_torch.codes.plugins.isa\n"
         "import ceph_tpu_torch.codes.plugins.example\n"
+        "import ceph_tpu_torch.codes.plugins.shec\n"
+        "import ceph_tpu_torch.codes.plugins.lrc\n"
         "import ceph_tpu_torch.ops.gf_kernels\n"
         "import ceph_tpu_torch.ops._build\n"
         "new = set(sys.modules) - before\n"
