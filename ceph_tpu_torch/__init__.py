@@ -17,7 +17,14 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
   seven techniques: reed_sol_van and reed_sol_r6_op at w=8/16/32, and
   the bitmatrix techniques cauchy_orig, cauchy_good, liberation,
   blaum_roth, liber8tion), isa (reed_sol_van, cauchy), shec (minimum-read
-  plans, ``codes.linear``), lrc (layers and kml), example.
+  plans, ``codes.linear``), lrc (layers and kml), example; and
+  ``codes.engine``, the process-wide pattern cache and the serving
+  dispatch seams.
+- ``serve``, ``scenario`` — the paged (and dense) serving plane: the
+  admission queue, the continuous batcher, the paged stripe pool, the
+  SLO ledger, the load generator and its event loop.
+- ``telemetry``, ``utils`` — metrics, spans, causal tracing, histograms;
+  clocks, logging, locks, errors.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).

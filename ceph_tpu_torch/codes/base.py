@@ -92,6 +92,26 @@ class ErasureCode(ErasureCodeInterface):
     def get_data_chunk_count(self) -> int:
         return self.k
 
+    # -- paged serving layout (serve/pool.py) -------------------------------
+
+    def page_unit(self) -> int:
+        """Page-size quantum for the paged serving pool: every pool
+        page size must be a multiple of this, so that each page is a
+        valid standalone chunk for this code's column-local region
+        math.  Codes whose mixing spans a wider column group override
+        (matrix codes: the field-element width; bitmatrix codes: one
+        w*packetsize packet block)."""
+        return 1
+
+    def page_interleave(self) -> int:
+        """Column-interleave factor Q for page split/join
+        (serve/pool.py::split_pages): a chunk is viewed as (Q, C/Q)
+        and pages take column slices of every group, so codes whose
+        region math spans all Q groups at one intra-group byte offset
+        (clay's sub-chunk coupling) still see valid mini-chunks.
+        Q=1 (default) is a contiguous column split."""
+        return 1
+
     # -- encode path (ErasureCode.cc -> encode/encode_prepare) --------------
 
     def encode_prepare(self, data: bytes) -> Dict[int, bytes]:

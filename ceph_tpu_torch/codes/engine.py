@@ -1,0 +1,362 @@
+"""The cross-call pattern cache and the serving dispatch seams.
+
+Counterpart of ``ceph_tpu/codes/engine.py``.  Every plugin's decode is,
+for a fixed (profile, erasure pattern), one GF(2^w)-linear map; the
+matrices behind it, and the callables that run it on the card, are
+built once per pattern and process:
+
+- ``PatternCache`` — a process-wide LRU keyed on (plugin class,
+  profile, kind, available, erased) + extras, with the reference's
+  recompile-count guard: ``builds`` against ``recompile_budget`` turns
+  unbounded pattern churn into an observable counter and, when a budget
+  is armed, a loud RuntimeError.
+- ``fused_repair_call`` — one callable per (plugin, pattern) that
+  decodes the erased shards and re-encodes the full parity set from
+  the survivors: (B, n_avail, C) -> (rec (B, n_erased, C), parity (B,
+  m, C)).
+- ``serve_dispatch_call`` / ``serve_dispatch_ragged`` — the continuous
+  batcher's device seams (serve/batcher.py), dense shape buckets and
+  paged pools.
+
+Where the reference caches a jitted program, the port caches a Python
+callable over tensors on the code's device; it closes over the
+pattern's matrix, and the kernel data that matrix needs is cached per
+(matrix, device) in ``ops/gf_kernels.py``, so a warm stream builds no
+entry and uploads nothing but its inputs (the kernel-setup count of
+``telemetry.metrics`` stays flat).  The device is part of every
+callable's key: a CPU instance and a card instance of one profile get
+their own.  The host twin is the numpy batch surfaces, which the
+batcher's ``executor="host"`` runs itself.
+
+Not ported: the mesh variants (ROADMAP Queue A item 8), the supervised
+dispatch plane (item 6: here a failure raises, it never demotes to the
+numpy twin) and the program profiler (item 10).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..ops.torch_ops import mask_pages
+from ..telemetry import metrics as tel
+from ..telemetry import tracing as trc
+from ..utils.log import dout
+from ..utils.locks import make_lock
+from .stripe import _chunk_mapping
+
+DEFAULT_MAX_PATTERNS = 512
+
+
+class PatternCache:
+    """Cross-call LRU of per-(plugin, profile, erasure-pattern) decode
+    artifacts, with a recompile-count guard.
+
+    Values are opaque to the cache (matrix/static tuples, callables);
+    the contract is only that a given key always maps to the same
+    value, so eviction + rebuild is correct at any size."""
+
+    def __init__(self, max_patterns: int = DEFAULT_MAX_PATTERNS,
+                 recompile_budget: Optional[int] = None) -> None:
+        self.max_patterns = max_patterns
+        # builds above this raise (tests arm it to pin "no new entry on
+        # a warm stream"); None = log-once observability only
+        self.recompile_budget = recompile_budget
+        self._lock = make_lock("codes.engine.PatternCache._lock")
+        self._entries: "OrderedDict[tuple, object]" = OrderedDict()
+        self.hits = 0
+        self.builds = 0
+        self.evictions = 0
+        self._warned = False
+
+    def get_or_build(self, key: tuple, build: Callable[[], object]):
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                tel.counter("pattern_cache_hits")
+                return hit
+        # build outside the lock: a probe can take seconds and must not
+        # serialize unrelated patterns
+        with tel.record_dispatch("pattern_cache_build"):
+            value = build()
+        with self._lock:
+            race = self._entries.get(key)
+            if race is not None:
+                self.hits += 1
+                tel.counter("pattern_cache_hits")
+                return race
+            self.builds += 1
+            tel.counter("pattern_cache_builds")
+            if (self.recompile_budget is not None
+                    and self.builds > self.recompile_budget):
+                tel.counter("pattern_cache_budget_exceeded")
+                tel.event("pattern_cache_budget_exceeded",
+                          builds=self.builds,
+                          budget=self.recompile_budget, key=str(key))
+                raise RuntimeError(
+                    f"pattern-cache recompile budget exceeded: "
+                    f"{self.builds} builds > {self.recompile_budget} "
+                    f"(unbounded erasure-pattern churn would rebuild per "
+                    f"call)")
+            self._entries[key] = value
+            while len(self._entries) > self.max_patterns:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+                tel.counter("pattern_cache_evictions")
+                if not self._warned:
+                    self._warned = True
+                    dout("ec", 1,
+                         f"pattern cache exceeded {self.max_patterns} "
+                         f"patterns; evicting LRU (repeat plans will "
+                         f"rebuild)")
+            return value
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"patterns": len(self._entries), "hits": self.hits,
+                    "builds": self.builds, "evictions": self.evictions}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.hits = 0
+            self.builds = 0
+            self.evictions = 0
+            self._warned = False
+
+
+_global: Optional[PatternCache] = None
+_global_lock = make_lock("codes.engine._global_lock")
+
+
+def global_pattern_cache() -> PatternCache:
+    global _global
+    with _global_lock:
+        if _global is None:
+            _global = PatternCache()
+        return _global
+
+
+def set_global_pattern_cache(cache: Optional[PatternCache]
+                             ) -> Optional[PatternCache]:
+    """Swap the process cache (tests); returns the previous one."""
+    global _global
+    with _global_lock:
+        prev = _global
+        _global = cache
+        return prev
+
+
+def pattern_key(ec, kind: str, available: tuple, erased: tuple,
+                extra: tuple = ()) -> tuple:
+    """Cache key for one plugin instance's (pattern, artifact kind).
+
+    Profile-derived, not instance-derived: two factory() calls with
+    the same profile share every composite matrix."""
+    return (type(ec).__name__,
+            tuple(sorted((str(k), str(v))
+                         for k, v in ec.get_profile().items())),
+            kind, tuple(available), tuple(erased)) + tuple(extra)
+
+
+def _callable_key(ec, kind: str, available: tuple, erased: tuple,
+                  extra: tuple = ()) -> tuple:
+    """pattern_key of a cached callable: the code's device joins the
+    extras, since the callable runs on it."""
+    return pattern_key(ec, kind, available, erased,
+                       tuple(extra) + ("device", str(ec.device)))
+
+
+def _repair_sources(ec, available: tuple, erased: tuple) -> list:
+    """For each data chunk, where the re-encode takes it from: ("avail",
+    survivor column) or ("rec", decoded column).  Raises IOError when a
+    data shard is neither."""
+    mapping = _chunk_mapping(ec)
+    aidx = {s: t for t, s in enumerate(available)}
+    eidx = {s: t for t, s in enumerate(erased)}
+    src = []
+    for c in range(ec.get_data_chunk_count()):
+        shard = mapping[c]
+        if shard in aidx:
+            src.append(("avail", aidx[shard]))
+        elif shard in eidx:
+            src.append(("rec", eidx[shard]))
+        else:
+            raise IOError(
+                f"data shard {shard} neither available nor erased in "
+                f"pattern (avail={available}, erased={erased})")
+    return src
+
+
+def _labels(ec, kind: str, erased: tuple) -> dict:
+    """The program series a dispatch rides (the causal-trace link)."""
+    return dict(
+        plugin=type(ec).__name__, kind=kind,
+        profile=",".join(f"{pk}={pv}" for pk, pv in
+                         sorted(ec.get_profile().items())),
+        pattern="e" + "_".join(map(str, erased)),
+        engine="device", devices=1)
+
+
+# -- fused decode -> re-encode --------------------------------------------
+
+def fused_repair_call(ec, available: Tuple[int, ...],
+                      erased: Tuple[int, ...]):
+    """One cached callable: survivors (B, n_avail, C) uint8 on the code's
+    device -> (rec (B, n_erased, C), parity (B, m, C)) — the decode of
+    every erased shard plus the full parity re-encode.
+
+    Shard space follows the plugin's decode surface (identity chunk
+    ids, or lrc's global positions via get_chunk_mapping); the data
+    chunks for the re-encode are assembled from survivor and decoded
+    columns by index, as the reference does."""
+    available = tuple(available)
+    erased = tuple(erased)
+    key = _callable_key(ec, "fused-repair", available, erased)
+
+    def build():
+        src = _repair_sources(ec, available, erased)
+        labels = _labels(ec, "fused-repair", erased)
+
+        def call(stack: torch.Tensor):
+            if trc.enabled():
+                trc.note_program("engine.fused_repair",
+                                 dict(labels, batch=int(stack.shape[0])))
+            with tel.record_dispatch("engine_fused_repair_dispatch",
+                                     plugin=type(ec).__name__):
+                rec = ec.decode_chunks_torch(stack, available, erased)
+                data = torch.stack(
+                    [stack[:, t] if where == "avail" else rec[:, t]
+                     for where, t in src], dim=1)
+                return rec, ec.encode_chunks_torch(data)
+
+        return call
+
+    return global_pattern_cache().get_or_build(key, build)
+
+
+# -- serving dispatch seams (serve/batcher.py's device calls) -------------
+
+def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
+                        erased: Tuple[int, ...] = ()):
+    """One cached callable per (plugin, profile, op, erasure pattern,
+    device): the seam the continuous batcher fires its shape buckets
+    through.
+
+    - ``encode``: stack ``(B, k, C)`` uint8 -> parity ``(B, m, C)``
+    - ``decode``: stack ``(B, n_avail, C)`` survivors -> ``(B, n_erased,
+      C)`` reconstructed chunks
+    - ``repair``: delegates to :func:`fused_repair_call`.
+
+    The cache key is :func:`pattern_key` with ``kind=f"serve-{op}"``,
+    the keying the decode matrices use, so a warm bucket builds nothing
+    (an armed recompile budget turns a violation into a RuntimeError)."""
+    if op == "repair":
+        return fused_repair_call(ec, available, erased)
+    if op not in ("encode", "decode"):
+        raise ValueError(f"serve op {op!r} must be encode|decode|repair")
+    available = tuple(available)
+    erased = tuple(erased)
+    key = _callable_key(ec, f"serve-{op}", available, erased)
+
+    def build():
+        labels = _labels(ec, f"serve-{op}", erased)
+
+        def call(stack: torch.Tensor):
+            if trc.enabled():
+                trc.note_program("engine.serve_dispatch",
+                                 dict(labels, batch=int(stack.shape[0])))
+            with tel.record_dispatch("serve_dispatch", op=op,
+                                     plugin=type(ec).__name__):
+                if op == "encode":
+                    return ec.encode_chunks_torch(stack)
+                return ec.decode_chunks_torch(stack, available, erased)
+
+        return call
+
+    return global_pattern_cache().get_or_build(key, build)
+
+
+def _ragged_surface(ec, op: str):
+    """The plugin's true ragged surface when it has one (the matrix and
+    bitmatrix families, shec), else None — the generic mask-gate body
+    runs instead, byte-identically."""
+    return getattr(type(ec), f"{op}_chunks_ragged_torch", None)
+
+
+def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
+                          erased: Tuple[int, ...] = (), *,
+                          pages: int, page_size: int):
+    """One cached callable per (plugin, profile, op, erasure pattern,
+    pool geometry, device): the paged batcher's device seam.
+
+    Its signature is ``(pool, mask)`` — pool ``(pages, rows,
+    page_size)`` uint8 and mask ``(pages,)`` {0,1}, both on the code's
+    device — and the mask is data, so every occupancy of the pool runs
+    the same callable and the same kernel build.  Dead pages compute
+    zeros in every tier (GF linearity), so demux never reads them.
+
+    - ``encode``: pool pages are (k, page_size) mini-chunks -> parity
+      pages (pages, m, page_size)
+    - ``decode``: survivor pages -> (pages, n_erased, page_size)
+    - ``repair``: the fused decode -> column assembly -> re-encode of
+      fused_repair_call on the masked page batch -> (rec, parity)
+
+    Not ported: the reference's page sharding over a mesh (ROADMAP
+    Queue A item 8)."""
+    if op not in ("encode", "decode", "repair"):
+        raise ValueError(f"serve op {op!r} must be encode|decode|repair")
+    available = tuple(available)
+    erased = tuple(erased)
+    key = _callable_key(ec, f"serve-{op}-ragged", available, erased,
+                        ("paged", int(pages), int(page_size)))
+
+    def build():
+        src = (_repair_sources(ec, available, erased) if op == "repair"
+               else None)
+        dec = _ragged_surface(ec, "decode")
+        enc = _ragged_surface(ec, "encode")
+        labels = _labels(ec, f"serve-{op}-ragged", erased)
+
+        def raw(pool: torch.Tensor, mask: torch.Tensor):
+            if op == "encode":
+                if enc is not None:
+                    return enc(ec, pool, mask)
+                return ec.encode_chunks_torch(mask_pages(pool, mask))
+            if op == "decode":
+                if dec is not None:
+                    return dec(ec, pool, mask, available, erased)
+                return ec.decode_chunks_torch(mask_pages(pool, mask),
+                                              available, erased)
+            # repair: survivors mask-gated once, so the column assembly
+            # and the re-encode see zeros on dead pages
+            x = mask_pages(pool, mask)
+            if dec is not None:
+                rec = dec(ec, pool, mask, available, erased)
+            else:
+                rec = ec.decode_chunks_torch(x, available, erased)
+            data = torch.stack(
+                [x[:, t] if where == "avail" else rec[:, t]
+                 for where, t in src], dim=1)
+            return rec, ec.encode_chunks_torch(data)
+
+        def call(pool: torch.Tensor, mask: torch.Tensor):
+            if trc.enabled():
+                trc.note_program("engine.serve_dispatch_ragged",
+                                 dict(labels, batch=int(pool.shape[0])))
+            with tel.record_dispatch("serve_dispatch_ragged", op=op,
+                                     plugin=type(ec).__name__):
+                return raw(pool, mask)
+
+        return call
+
+    return global_pattern_cache().get_or_build(key, build)
+
+
+__all__ = ["DEFAULT_MAX_PATTERNS", "PatternCache", "fused_repair_call",
+           "global_pattern_cache", "pattern_key", "serve_dispatch_call",
+           "serve_dispatch_ragged", "set_global_pattern_cache"]

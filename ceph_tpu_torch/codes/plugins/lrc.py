@@ -29,7 +29,8 @@ Mirrors src/erasure-code/lrc/ErasureCodeLrc.{h,cc} + ErasureCodePluginLrc.cc:
 
 Addition of the JAX package, kept: the whole layered encode and every
 fixed-pattern decode are GF(2^8)-linear over whole chunks, so they are
-probed once into composite matrices (cached per instance), and the
+probed once into composite matrices (the decode composites cached per
+instance and in the process-wide ``engine.PatternCache``), and the
 batched and device paths run ONE matrix apply: ``*_batch`` through
 ``xor_schedule.host_matrix_apply`` on the host, ``*_torch`` and
 ``*_packed_torch`` through the engine table — the XOR-schedule kernel for
@@ -52,6 +53,7 @@ from ...ops.gf_kernels import apply_matrix_best, apply_matrix_packed_best
 from ...ops.torch_ops import matrix_to_static
 from ...ops.xor_schedule import host_matrix_apply
 from ..base import ErasureCode
+from ..engine import global_pattern_cache, pattern_key
 from ..interface import SIMD_ALIGN, ErasureCodeProfile
 from ..registry import ERASURE_CODE_VERSION, ErasureCodePlugin
 from ..techniques import _DeviceCode
@@ -467,20 +469,25 @@ class ErasureCodeLrc(_DeviceCode, ErasureCode):
     def _decode_composite(self, available: tuple, erased: tuple):
         """(M, static) for the probed per-pattern composite decode
         matrix — the layer walk collapsed to ONE (len(erased),
-        len(available)) GF(2^8) map, cached per instance."""
+        len(available)) GF(2^8) map, cached per instance and process."""
         key = ("decode", available, erased)
         hit = self._linear_cache.get(key)
         if hit is None:
-            na = len(available)
-            chunks = {}
-            for t, c in enumerate(available):
-                arr = np.zeros(na, dtype=np.uint8)
-                arr[t] = 1
-                chunks[c] = arr.tobytes()
-            out = self.decode(set(erased), chunks, na)
-            M = np.stack([np.frombuffer(out[c], dtype=np.uint8)
-                          for c in erased]).astype(np.int64)
-            hit = (M, matrix_to_static(M))
+            def build():
+                na = len(available)
+                chunks = {}
+                for t, c in enumerate(available):
+                    arr = np.zeros(na, dtype=np.uint8)
+                    arr[t] = 1
+                    chunks[c] = arr.tobytes()
+                out = self.decode(set(erased), chunks, na)
+                M = np.stack([np.frombuffer(out[c], dtype=np.uint8)
+                              for c in erased]).astype(np.int64)
+                return (M, matrix_to_static(M))
+
+            hit = global_pattern_cache().get_or_build(
+                pattern_key(self, "lrc-composite-decode", available,
+                            erased), build)
             self._linear_cache[key] = hit
         return hit
 

@@ -19,8 +19,10 @@ minimum-read plan (the mixin's survivor-submatrix inversion is singular
 for shec patterns), and the plan's matrix through the engine table: the
 XOR-schedule kernel for the plans whose schedule the probe prefers
 (single erasures whose plan is a row of 1s), the dense kernel for the
-rest.  The plan cache is per instance; the process-wide
-``engine.PatternCache`` behind it comes with ROADMAP Queue A item 4.
+rest.  The plan caches are two-level, as in the reference: a
+per-instance dict in front of the process-wide ``engine.PatternCache``.
+The paged serving pool decodes through the same plans
+(``decode_chunks_ragged_torch``).
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ import numpy as np
 import torch
 
 from ...matrices.jerasure import reed_sol_vandermonde_coding_matrix
-from ...ops.gf_kernels import apply_matrix_best, apply_matrix_packed_best
+from ...ops.gf_kernels import apply_matrix_best, apply_matrix_best_ragged, \
+    apply_matrix_packed_best
 from ...ops.torch_ops import matrix_to_static, torch_bytes_view, \
     torch_words_view
 from ..base import ErasureCode
+from ..engine import global_pattern_cache, pattern_key
 from ..linear import DecodePlan, decode_plan
 from ..registry import ERASURE_CODE_VERSION, ErasureCodePlugin
 from ..techniques import MatrixCodeMixin
@@ -78,17 +82,27 @@ def _take(x: torch.Tensor, index: list) -> torch.Tensor:
 class ErasureCodeShecTableCache:
     """ErasureCodeShecTableCache.{h,cc} — decode-plan cache per pattern:
     the minimum-read plan search and its composed decode matrix, keyed by
-    (available, want), per instance."""
+    (available, want).  A per-instance dict in front of the process-wide
+    ``engine.PatternCache`` (``owner`` supplies the profile key), so
+    fresh instances with the same profile skip the search."""
 
-    def __init__(self) -> None:
+    def __init__(self, owner=None) -> None:
         self._plans: dict = {}
+        self._owner = owner
 
     def get_plan(self, matrix: np.ndarray, k: int, w: int,
                  available: frozenset, want: frozenset) -> DecodePlan:
         key = (available, want)
         plan = self._plans.get(key)
         if plan is None:
-            plan = decode_plan(matrix, k, w, available, want)
+            if self._owner is not None:
+                plan = global_pattern_cache().get_or_build(
+                    pattern_key(self._owner, "shec-plan",
+                                tuple(sorted(available)),
+                                tuple(sorted(want))),
+                    lambda: decode_plan(matrix, k, w, available, want))
+            else:
+                plan = decode_plan(matrix, k, w, available, want)
             self._plans[key] = plan
         return plan
 
@@ -130,7 +144,7 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
         """The coding matrix, and the plan caches and windows drawn from
         it (so ``techniques.load_reference_matrix`` resets them too)."""
         super()._install_matrix(matrix)
-        self.tcache = ErasureCodeShecTableCache()
+        self.tcache = ErasureCodeShecTableCache(self)
         self._windows = [frozenset(int(j) for j in np.nonzero(
             self.matrix[i])[0]) for i in range(self.m)]
 
@@ -182,11 +196,14 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
         return decoded
 
     def _plan_static(self, plan: DecodePlan):
-        """(matrix, static) of a plan, cached per instance."""
+        """(matrix, static) of a plan, cached per instance and process."""
         key = (plan.reads, plan.want_order)
         hit = self._decode_cache.get(key)
         if hit is None:
-            hit = (plan.matrix, matrix_to_static(plan.matrix))
+            hit = global_pattern_cache().get_or_build(
+                pattern_key(self, "shec-plan-static", plan.reads,
+                            plan.want_order),
+                lambda: (plan.matrix, matrix_to_static(plan.matrix)))
             self._decode_cache[key] = hit
         return hit
 
@@ -222,6 +239,23 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
         dm_static = self._plan_static(plan)[1]
         words = torch_words_view(_take(chunks, sel), self.w)
         out = torch_bytes_view(apply_matrix_best(words, dm_static, self.w))
+        return _take(out, keep)
+
+    def decode_chunks_ragged_torch(self, pool: torch.Tensor,
+                                   mask: torch.Tensor, available: tuple,
+                                   erased: tuple) -> torch.Tensor:
+        """Page-pool minimum-read decode: (P, n_avail, page) survivors +
+        (P,) activity mask -> (P, n_erased, page), dead pages zero.
+        Overrides the mixin's ragged path, as the reference does: the
+        plain decode-matrix inversion there is singular for shec
+        survivor patterns, so every shec decode, ragged included, goes
+        through the minimum-read plan."""
+        self._check_device(pool)
+        plan, sel, keep = self._plan_indices(tuple(available), tuple(erased))
+        dm_static = self._plan_static(plan)[1]
+        words = torch_words_view(_take(pool, sel), self.w)
+        out = torch_bytes_view(apply_matrix_best_ragged(words, dm_static,
+                                                        mask, self.w))
         return _take(out, keep)
 
     def decode_chunks_packed_torch(self, words: torch.Tensor,

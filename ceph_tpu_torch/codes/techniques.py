@@ -27,13 +27,19 @@ Surfaces of both:
   ``*_jax``).
 - ``encode_chunks_packed_torch`` / ``decode_chunks_packed_torch``
   (matrix codes): the packed (..., R, 128) uint32 layout, w=8 only.
+- ``page_unit`` and ``encode_chunks_ragged_torch`` /
+  ``decode_chunks_ragged_torch``: the paged serving pool (serve/pool.py)
+  — a (P, rows, page) pool and a (P,) activity mask on the code's
+  device, dead pages zero.  Matrix codes run the ragged kernel family
+  (``gf_kernels.apply_matrix_best_ragged``); bitmatrix codes zero the
+  dead pages (``mask_pages``) and run the packet kernels.
 
-The decode caches are per instance (reset by prepare()); a bitmatrix
-code's entry also holds the pattern's schedule, so the greedy CSE runs
-once per pattern.  Not ported yet: the process-wide
-``engine.PatternCache`` behind them and the ragged paged surfaces
-(``page_unit``, ``encode/decode_chunks_ragged_*``; ROADMAP Queue A
-items 4 and 9).
+The decode caches are two-level, as in the reference: a per-instance
+dict (reset by prepare()) in front of the process-wide
+``engine.PatternCache``, keyed by profile and pattern, so a fresh
+instance with a known profile builds nothing.  A bitmatrix code's entry
+also holds the pattern's schedule, so the greedy CSE runs once per
+pattern and process.
 """
 
 from __future__ import annotations
@@ -44,12 +50,13 @@ import torch
 from ..ops import regionops
 from ..ops.fallback import global_policy
 from ..ops.gf_kernels import apply_bitmatrix_best, apply_matrix_best, \
-    apply_matrix_packed_best
-from ..ops.torch_ops import bitmatrix_to_static, matrix_to_static, \
-    torch_bytes_view, torch_words_view
+    apply_matrix_best_ragged, apply_matrix_packed_best
+from ..ops.torch_ops import bitmatrix_to_static, mask_pages, \
+    matrix_to_static, torch_bytes_view, torch_words_view
 from ..ops.xor_schedule import host_matrix_apply, \
     probe_bitmatrix_schedule
 from ..utils.perf import global_perf
+from .engine import global_pattern_cache, pattern_key
 
 
 class _DeviceCode:
@@ -107,10 +114,15 @@ class MatrixCodeMixin(_DeviceCode):
         key = (available, erased)
         hit = self._decode_cache.get(key)
         if hit is None:
-            survivors = list(available[:self.k])
-            dm = regionops.matrix_decode_matrix(
-                self.matrix, self.k, survivors, list(erased), self.w)
-            hit = (dm, matrix_to_static(dm), len(survivors))
+            def build():
+                survivors = list(available[:self.k])
+                dm = regionops.matrix_decode_matrix(
+                    self.matrix, self.k, survivors, list(erased), self.w)
+                return (dm, matrix_to_static(dm), len(survivors))
+
+            hit = global_pattern_cache().get_or_build(
+                pattern_key(self, "matrix-decode", available, erased),
+                build)
             self._decode_cache[key] = hit
         return hit
 
@@ -142,6 +154,38 @@ class MatrixCodeMixin(_DeviceCode):
                                                tuple(erased))
         words = torch_words_view(chunks[..., :ns, :], self.w)
         return torch_bytes_view(apply_matrix_best(words, dm_static, self.w))
+
+    # -- ragged paged surfaces (serve/pool.py page pools) ----------------
+
+    def page_unit(self) -> int:
+        """Page-size quantum for the paged serving pool: pages hold
+        whole GF(2^w) field elements, so the word views stay free."""
+        return max(1, self.w // 8)
+
+    def encode_chunks_ragged_torch(self, pool: torch.Tensor,
+                                   mask: torch.Tensor) -> torch.Tensor:
+        """Page-pool encode: (P, k, page) uint8 pool + (P,) {0,1}
+        activity mask on the code's device -> (P, m, page) parity, dead
+        pages zero — the ragged kernel family, one build for every
+        occupancy."""
+        self._check_device(pool)
+        words = torch_words_view(pool, self.w)
+        return torch_bytes_view(apply_matrix_best_ragged(
+            words, self._matrix_static, mask, self.w))
+
+    def decode_chunks_ragged_torch(self, pool: torch.Tensor,
+                                   mask: torch.Tensor, available: tuple,
+                                   erased: tuple) -> torch.Tensor:
+        """Page-pool decode: (P, n_avail, page) survivors + mask ->
+        (P, n_erased, page), dead pages zero."""
+        if len(available) < self.k:
+            raise IOError(f"need {self.k} chunks, have {len(available)}")
+        self._check_device(pool)
+        _, dm_static, ns = self._decode_matrix(tuple(available),
+                                               tuple(erased))
+        words = torch_words_view(pool[:, :ns, :], self.w)
+        return torch_bytes_view(apply_matrix_best_ragged(
+            words, dm_static, mask, self.w))
 
     # -- packed resident layout (ops/gf_kernels.py pack_chunks form) ----
 
@@ -211,16 +255,21 @@ class BitmatrixCodeMixin(_DeviceCode):
 
     def _decode_bitmatrix(self, available: tuple, erased: tuple):
         """(decode bitmatrix, its row masks, survivors used, schedule or
-        None) of one erasure pattern, cached per instance."""
+        None) of one erasure pattern, cached per instance and process."""
         key = (available, erased)
         hit = self._decode_cache.get(key)
         if hit is None:
-            survivors = list(available[:self.k])
-            dm = regionops.bitmatrix_decode_matrix(
-                self.bitmatrix, self.k, self.w, survivors, list(erased))
-            dm_static = bitmatrix_to_static(dm)
-            hit = (dm, dm_static, len(survivors),
-                   probe_bitmatrix_schedule(dm_static, self.w))
+            def build():
+                survivors = list(available[:self.k])
+                dm = regionops.bitmatrix_decode_matrix(
+                    self.bitmatrix, self.k, self.w, survivors, list(erased))
+                dm_static = bitmatrix_to_static(dm)
+                return (dm, dm_static, len(survivors),
+                        probe_bitmatrix_schedule(dm_static, self.w))
+
+            hit = global_pattern_cache().get_or_build(
+                pattern_key(self, "bitmatrix-decode", available, erased),
+                build)
             self._decode_cache[key] = hit
         return hit
 
@@ -251,6 +300,37 @@ class BitmatrixCodeMixin(_DeviceCode):
                                                          tuple(erased))
         return apply_bitmatrix_best(chunks[..., :ns, :], dm_static, self.w,
                                     self.packetsize, sched)
+
+    # -- ragged paged surfaces -------------------------------------------
+
+    def page_unit(self) -> int:
+        """Bitmatrix codes mix across the w packets of one
+        w*packetsize block but never across blocks: every pool page
+        holds whole blocks."""
+        return self.w * self.packetsize
+
+    def encode_chunks_ragged_torch(self, pool: torch.Tensor,
+                                   mask: torch.Tensor) -> torch.Tensor:
+        """Page-pool bitmatrix encode: zero the dead pages
+        (``mask_pages``) and run the packet kernels on the page batch —
+        dead pages zero by XOR linearity."""
+        self._check_device(pool)
+        return apply_bitmatrix_best(mask_pages(pool, mask),
+                                    self._bitmatrix_static, self.w,
+                                    self.packetsize, self._encode_sched)
+
+    def decode_chunks_ragged_torch(self, pool: torch.Tensor,
+                                   mask: torch.Tensor, available: tuple,
+                                   erased: tuple) -> torch.Tensor:
+        """Page-pool bitmatrix decode, dead pages zero."""
+        if len(available) < self.k:
+            raise IOError(f"need {self.k} chunks, have {len(available)}")
+        self._check_device(pool)
+        _, dm_static, ns, sched = self._decode_bitmatrix(tuple(available),
+                                                         tuple(erased))
+        return apply_bitmatrix_best(mask_pages(pool[:, :ns, :], mask),
+                                    dm_static, self.w, self.packetsize,
+                                    sched)
 
 
 def load_reference_matrix(ec, matrix: np.ndarray, pattern=None) -> None:

@@ -24,6 +24,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..telemetry import metrics as tel
 from ..utils.errors import KernelBuildError
 from ..utils.locks import make_lock
 
@@ -99,7 +100,8 @@ def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (a
+    kernel setup in the metrics plane, ``telemetry.metrics``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -109,4 +111,5 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as e:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             _libs[name] = lib
+            tel.note_kernel_setup()
         return lib

@@ -2,12 +2,16 @@
 // over regions of w-bit field elements, w in {8, 16, 32} (polys 0x11D,
 // 0x1100B, 0x100400007, as jerasure / gf-complete).
 //
-// Replaces three TPU kernels of the JAX package (ceph_tpu/ops/pallas_gf.py):
+// Replaces five TPU kernels of the JAX package (ceph_tpu/ops/pallas_gf.py):
 //   - apply_matrix_pallas         (w=8, bytes layout, (..., s, C) uint8)
 //   - apply_matrix_pallas_packed  (w=8, packed layout, (..., s, R, 128) u32)
 //     (both share the body _matrix_kernel)
 //   - apply_matrix_pallas_words   (w=16/32, (..., s, Ce) uint16/uint32 word
 //     views; body _gfw_matrix_kernel)
+//   - apply_matrix_pallas_ragged and apply_matrix_pallas_packed_ragged (w=8
+//     over a page pool (P, s, page) under a (P,) activity mask; body
+//     _gf8_ragged_kernel, the dense body under a pl.when on the page's mask
+//     word)
 // On the TPU the bytes kernel repacks u8 tiles into u32 words in registers.
 // Here a uint8 buffer read as little-endian uint32 already IS the packed
 // layout, and GF(2^w) region math is local to each w-bit element, so one
@@ -36,6 +40,13 @@
 //     not a whole vector, the thread loads and stores bytes (masked).  A
 //     w-bit element never straddles a vector (16 % (w/8) == 0), so a
 //     zero-padded tail element maps to zero and is never stored.
+//   - Ragged: the same kernel with a device pointer to a (batch,) uint8
+//     page mask (null on the dense path).  The batch index is the page; a
+//     page whose mask byte is 0 reads no input and stores zeros to this row
+//     group's rows, so its cost is the zero store.  The mask is an argument,
+//     not code: one build serves every occupancy, and a fire moves nothing
+//     but the pool and its mask.  Its bound counts the reads of live pages,
+//     the writes of every page, and the integer work of live pages.
 //
 // What bounds it (H100 SXM, 64 stripes x (8 in + 3 out) x 128 KiB, RS k=8
 // m=3, w=8): 92.3 MB moved is ~27.5 us at 3.35 TB/s.  The integer work is at
@@ -139,6 +150,7 @@ gf_matrix_kernel(const unsigned char* __restrict__ in,
                  long long nbytes, long long in_bstride,
                  long long in_cstride, long long out_bstride,
                  long long out_cstride, int aligned, int row0,
+                 const unsigned char* __restrict__ mask,
                  const __grid_constant__ M m) {
   const long long nvec = (nbytes + 15) / 16;
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -151,6 +163,16 @@ gf_matrix_kernel(const unsigned char* __restrict__ in,
   const auto* rows = m.coef + row0 * s;
 
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+    unsigned char* dst = out + b * out_bstride + off;
+    if (mask != nullptr && mask[b] == 0) {
+      // a dead page: no input read, zeros out (GF linearity: the masked
+      // pool's page is zero, so its product is zero)
+      const uint32_t zero[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < RG; ++i) store16(dst + i * out_cstride, vec, avail,
+                                           zero);
+      continue;
+    }
     const unsigned char* src = in + b * in_bstride + off;
     uint32_t acc[RG][4];
 #pragma unroll
@@ -172,9 +194,9 @@ gf_matrix_kernel(const unsigned char* __restrict__ in,
       while (true) {
 #pragma unroll
         for (int i = 0; i < RG; ++i) {
-          const uint32_t mask = 0u - (c[i] & 1u);
+          const uint32_t sel = 0u - (c[i] & 1u);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] ^= x[q] & mask;
+          for (int q = 0; q < 4; ++q) acc[i][q] ^= x[q] & sel;
           c[i] >>= 1;
         }
         any >>= 1;
@@ -183,7 +205,6 @@ gf_matrix_kernel(const unsigned char* __restrict__ in,
         for (int q = 0; q < 4; ++q) x[q] = xtime_swar<W>(x[q]);
       }
     }
-    unsigned char* dst = out + b * out_bstride + off;
 #pragma unroll
     for (int i = 0; i < RG; ++i) store16(dst + i * out_cstride, vec, avail,
                                          acc[i]);
@@ -195,10 +216,10 @@ static void launch(dim3 grid, cudaStream_t stream, const unsigned char* in,
                    unsigned char* out, long long batch, long long nbytes,
                    long long in_bstride, long long in_cstride,
                    long long out_bstride, long long out_cstride, int aligned,
-                   int row0, const M& m) {
+                   int row0, const unsigned char* mask, const M& m) {
   gf_matrix_kernel<W, RG, M><<<grid, 256, 0, stream>>>(
       in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
-      out_cstride, aligned, row0, m);
+      out_cstride, aligned, row0, mask, m);
 }
 
 // Launches ceil(r / GF_ROW_GROUP) kernels on `stream` on the current
@@ -210,7 +231,8 @@ static cudaError_t apply_on_current(const void* in, void* out,
                                     long long in_cstride,
                                     long long out_bstride,
                                     long long out_cstride, int r, int s,
-                                    const C* coef, void* stream) {
+                                    const C* coef, const void* mask,
+                                    void* stream) {
   M m;
   m.r = r;
   m.s = s;
@@ -225,19 +247,20 @@ static cudaError_t apply_on_current(const void* in, void* out,
   dim3 grid(static_cast<unsigned>((nvec + 255) / 256),
             static_cast<unsigned>(batch < 65535 ? batch : 65535));
   auto st = static_cast<cudaStream_t>(stream);
+  const auto* mk = static_cast<const unsigned char*>(mask);
   for (int row0 = 0; row0 < r; row0 += GF_ROW_GROUP) {
     const int rg = (r - row0 < GF_ROW_GROUP) ? r - row0 : GF_ROW_GROUP;
     const unsigned char* s_in = src;
     unsigned char* d_out = dst + row0 * out_cstride;
     switch (rg) {
-      case 1: launch<W, 1>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 2: launch<W, 2>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 3: launch<W, 3>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 4: launch<W, 4>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 5: launch<W, 5>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 6: launch<W, 6>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      case 7: launch<W, 7>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
-      default: launch<W, 8>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, m); break;
+      case 1: launch<W, 1>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 2: launch<W, 2>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 3: launch<W, 3>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 4: launch<W, 4>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 5: launch<W, 5>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 6: launch<W, 6>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 7: launch<W, 7>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      default: launch<W, 8>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -260,7 +283,9 @@ const char* gf8_error_string(int err) {
 // Apply the (r, s) GF(2^8) matrix `coef` (host memory, row-major) to
 // `batch` stripes of s input chunks of `nbytes` bytes each; strides are in
 // bytes.  Output row i of stripe b lands at out + b * out_bstride + i *
-// out_cstride.  Launches ceil(r / GF_ROW_GROUP) kernels on `stream`, which
+// out_cstride.  `mask` is null (dense) or a device pointer to `batch`
+// uint8 page flags (ragged): a stripe whose flag is 0 reads nothing and
+// gets zero rows.  Launches ceil(r / GF_ROW_GROUP) kernels on `stream`, which
 // belongs to `device`, and returns the first CUDA error (0 when every
 // launch was accepted).  The caller's current device is restored before
 // returning.
@@ -268,7 +293,8 @@ int gf8_matrix_apply(const void* in, void* out, long long batch,
                      long long nbytes, long long in_bstride,
                      long long in_cstride, long long out_bstride,
                      long long out_cstride, int r, int s,
-                     const unsigned char* coef, int device, void* stream) {
+                     const unsigned char* coef, const void* mask, int device,
+                     void* stream) {
   if (r < 1 || s < 1 || static_cast<long long>(r) * s > GF8_MAX_COEF ||
       batch < 1 || nbytes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -277,7 +303,7 @@ int gf8_matrix_apply(const void* in, void* out, long long batch,
     return apply_on_current<8, Gf8Matrix>(in, out, batch, nbytes,
                                           in_bstride, in_cstride,
                                           out_bstride, out_cstride, r, s,
-                                          coef, stream);
+                                          coef, mask, stream);
   });
 }
 
@@ -298,12 +324,12 @@ int gfw_matrix_apply(const void* in, void* out, long long batch,
       return apply_on_current<16, GfwMatrix>(in, out, batch, nbytes,
                                              in_bstride, in_cstride,
                                              out_bstride, out_cstride, r,
-                                             s, coef, stream);
+                                             s, coef, nullptr, stream);
     }
     return apply_on_current<32, GfwMatrix>(in, out, batch, nbytes,
                                            in_bstride, in_cstride,
                                            out_bstride, out_cstride, r, s,
-                                           coef, stream);
+                                           coef, nullptr, stream);
   });
 }
 

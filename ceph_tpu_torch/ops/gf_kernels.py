@@ -2,7 +2,7 @@
 wrappers and the engine-selection table.
 
 Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py``.  Three
-hand-written CUDA sources stand in for seven TPU kernels, behind seven
+hand-written CUDA sources stand in for nine TPU kernels, behind nine
 wrappers:
 
 - ``csrc/gf8_matrix.cu`` (GF(2^w) matrix, field width a template
@@ -17,6 +17,12 @@ wrappers:
   - :func:`apply_matrix_cuda_words` — w=16/32, (..., s, Ce)
     uint16/uint32 word views -> (..., r, Ce).  Replaces
     ``apply_matrix_pallas_words``.
+  - :func:`apply_matrix_cuda_ragged` — w=8 over a page pool (P, s, page)
+    uint8 under a (P,) activity mask -> (P, r, page), dead pages zero
+    (the dense kernel with a mask pointer; a dead page reads nothing).
+    Replaces ``apply_matrix_pallas_ragged``.
+  - :func:`apply_matrix_cuda_packed_ragged` — the same on a (P, s, R,
+    128) uint32 pool.  Replaces ``apply_matrix_pallas_packed_ragged``.
 
 - ``csrc/gf2_bitmatrix.cu`` (jerasure packet layout, any packetsize; one
   kernel that runs "rows", each the XOR of a list of slots):
@@ -50,7 +56,10 @@ Each wrapper counts its kernel launches in ``.launches``.
 :func:`select_matrix_engine` keeps the reference's table reduced to the
 rows this package has (xor / cuda / torch / numpy); :func:`apply_matrix_best`,
 :func:`apply_matrix_packed_best` and :func:`apply_bitmatrix_best`
-dispatch through it.  A forced torch or numpy tier applies to CPU
+dispatch through it.  :func:`select_ragged_engine` projects it onto the
+ragged tiers (cuda / mask / numpy) for :func:`apply_matrix_best_ragged`
+and :func:`apply_matrix_packed_best_ragged`, the paged serving path's
+ops entries.  A forced torch or numpy tier applies to CPU
 tensors only and raises for CUDA tensors (``ops/fallback.py``).
 """
 
@@ -67,9 +76,12 @@ from . import regionops
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
-    apply_bitmatrix_xor_torch, apply_matrix_torch, apply_matrix_xor_torch
+    apply_bitmatrix_xor_torch, apply_matrix_packed_ragged_torch, \
+    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_xor_torch, \
+    mask_pages
 from .xor_schedule import XorSchedule, host_matrix_apply, \
     preferred_schedule, row_program, word_program
+from ..telemetry import metrics as tel
 from ..utils.errors import KernelLaunchError
 
 LANE = 128             # words per row of the packed layout
@@ -182,7 +194,8 @@ def _lib():
         lib = load("gf8_matrix")
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         lib.gf8_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, i, vp]
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, vp, i,
+            vp]
         lib.gf8_matrix_apply.restype = i
         lib.gfw_matrix_apply.argtypes = [
             vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, ctypes.c_char_p, i,
@@ -242,9 +255,11 @@ def _device_index(x: torch.Tensor) -> int:
 
 def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
             in_strides: tuple[int, int], out_strides: tuple[int, int],
-            r: int, s: int, coef: bytes, w: int = 8) -> int:
+            r: int, s: int, coef: bytes, w: int = 8,
+            mask: torch.Tensor | None = None) -> int:
     """Launch the GF(2^w) matrix kernel on the current stream; return how
-    many launches it took (one per group of output rows)."""
+    many launches it took (one per group of output rows).  ``mask`` (w=8
+    only): a (batch,) uint8 page mask on the card, the ragged variant."""
     lib, max8, maxw, row_group = _lib()
     max_coef = max8 if w == 8 else maxw
     if r * s > max_coef:
@@ -252,12 +267,13 @@ def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
                          f"{max_coef} coefficients for w={w}")
     args = (x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
             in_strides[1], out_strides[0], out_strides[1], r, s)
-    tail = (coef, _device_index(x),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    where = (_device_index(x),
+             torch.cuda.current_stream(x.device).cuda_stream)
     if w == 8:
-        err = lib.gf8_matrix_apply(*args, *tail)
+        err = lib.gf8_matrix_apply(
+            *args, coef, None if mask is None else mask.data_ptr(), *where)
     else:
-        err = lib.gfw_matrix_apply(*args, w, *tail)
+        err = lib.gfw_matrix_apply(*args, w, coef, *where)
     if err:
         raise KernelLaunchError(
             f"GF(2^{w}) matrix kernel failed: CUDA error {err} "
@@ -365,6 +381,85 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
 apply_matrix_cuda_words.launches = 0
 
 
+def _page_mask(pool: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Validate a (P,) activity mask against a (P, ...) pool: raises
+    ValueError when it lies on another device or has another length.
+    Returns it as contiguous uint8 {0,1} page flags on the pool's
+    device (no copy when it already is)."""
+    if not isinstance(mask, torch.Tensor):
+        raise ValueError(f"the mask must be a tensor, got {type(mask)}")
+    if mask.device != pool.device:
+        raise ValueError(f"mask on {mask.device}, pool on {pool.device}: "
+                         f"the mask must lie on the pool's device")
+    if mask.dim() != 1 or mask.shape[0] != pool.shape[0]:
+        raise ValueError(f"mask {tuple(mask.shape)} does not fit a pool of "
+                         f"{pool.shape[0]} pages")
+    if mask.dtype != torch.uint8:
+        mask = (mask != 0).to(torch.uint8)
+    return mask.contiguous()
+
+
+def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Apply a (r, s) GF(2^8) matrix to a page pool (P, s, page) uint8
+    under a (P,) activity mask -> (P, r, page); a dead page (mask 0)
+    reads nothing and comes back zero.  The mask lies on the pool's
+    device, so one build serves every occupancy."""
+    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    if pool.dtype != torch.uint8 or pool.dim() != 3 or pool.shape[1] != s:
+        raise ValueError(f"need a (P, {s}, page) uint8 pool, got "
+                         f"{tuple(pool.shape)} {pool.dtype}")
+    mask = _page_mask(pool, mask)
+    if pool.device.type == "cpu":
+        return apply_matrix_ragged_torch(pool, matrix_t, mask)
+    _check_cuda(pool)
+    if pool.stride(-1) != 1:
+        raise ValueError("page bytes must be contiguous (stride 1)")
+    p, c = pool.shape[0], pool.shape[-1]
+    out = torch.empty((p, r, c), dtype=torch.uint8, device=pool.device)
+    if out.numel() == 0:
+        return out
+    apply_matrix_cuda_ragged.launches += _launch(
+        pool, out, p, c, (pool.stride(0), pool.stride(1)), (r * c, c), r, s,
+        coef, mask=mask)
+    return out
+
+
+apply_matrix_cuda_ragged.launches = 0
+
+
+def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
+                                    mask: torch.Tensor) -> torch.Tensor:
+    """Packed-layout twin: a (P, s, R, 128) uint32 pool under a (P,)
+    mask -> (P, r, R, 128), dead pages zero.  Each page chunk's (R, 128)
+    words must be contiguous."""
+    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    if words.dtype != torch.uint32 or words.dim() != 4 \
+            or words.shape[1] != s or words.shape[-1] != LANE:
+        raise ValueError(f"need a (P, {s}, R, {LANE}) uint32 pool, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    mask = _page_mask(words, mask)
+    if words.device.type == "cpu":
+        return apply_matrix_packed_ragged_torch(words, matrix_t, mask)
+    _check_cuda(words)
+    if words.stride(-1) != 1 or (words.shape[-2] > 1
+                                 and words.stride(-2) != LANE):
+        raise ValueError("each page chunk's (R, 128) words must be "
+                         "contiguous")
+    p, rows = words.shape[0], words.shape[-2]
+    nbytes = rows * PACKED_ROW_BYTES
+    out = torch.empty((p, r, nbytes), dtype=torch.uint8, device=words.device)
+    if out.numel() == 0:
+        return pack_chunks(out)
+    apply_matrix_cuda_packed_ragged.launches += _launch(
+        words, out, p, nbytes, (words.stride(0) * 4, words.stride(1) * 4),
+        (r * nbytes, nbytes), r, s, coef, mask=mask)
+    return pack_chunks(out)
+
+
+apply_matrix_cuda_packed_ragged.launches = 0
+
+
 # -- the GF(2) bitmatrix kernel -----------------------------------------------
 
 ROW_GROUP = 4          # leaves a row step of the packet kernel reads at once
@@ -434,6 +529,7 @@ def _device_rows(kind: str, key: tuple, n_in: int, w: int,
     else:
         n_slots, rows = row_program(key, w)
     data = pack_rows(rows, n_slots).view(np.int16)
+    tel.note_kernel_setup()
     return n_slots, len(rows), torch.from_numpy(data).to(device)
 
 
@@ -593,6 +689,7 @@ def _device_word_program(sched_static, device: torch.device
     """pack_word_program's data on ``device``: built once per schedule,
     then kernel data."""
     n_slots, n_instr, data = pack_word_program(sched_static)
+    tel.note_kernel_setup()
     return n_slots, n_instr, torch.from_numpy(
         data.view(np.int32)).to(device)
 
@@ -697,7 +794,8 @@ apply_matrix_xor_cuda_packed.launches = 0
 WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed,
             apply_matrix_cuda_words, apply_bitmatrix_cuda,
             apply_bitmatrix_xor_cuda, apply_matrix_xor_cuda,
-            apply_matrix_xor_cuda_packed)
+            apply_matrix_xor_cuda_packed, apply_matrix_cuda_ragged,
+            apply_matrix_cuda_packed_ragged)
 
 
 def launch_counts() -> dict:
@@ -861,6 +959,113 @@ def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
     return pack_chunks(apply_matrix_numpy(byts, matrix_t, 8))
 
 
+# -- the ragged (paged) tier ---------------------------------------------------
+#
+# The paged serving path (serve/pool.py, codes/engine.py ::
+# serve_dispatch_ragged) co-batches requests of different stripe sizes
+# into one pool (P, s, page) plus a per-fire (P,) activity mask; dead
+# pages carry stale bytes.  Every tier writes zeros for dead pages, so
+# the three are byte-identical (GF(2^w) applies are linear):
+#
+# - "cuda":  the dense kernel with the mask pointer (a dead page reads
+#            nothing and stores zeros);
+# - "mask":  zero the dead pages (mask_pages), then the dense table on
+#            the product (the XOR-schedule kernel, the torch tier);
+# - "numpy": the host ground truth on the live pages only, forced.
+
+RAGGED_MIN_PAGES = 2
+
+
+def tuned_ragged_cutover() -> int:
+    """The least pool page count for the page-skipping kernel: the
+    reference's ``tuned_ragged_cutover`` seam, here always
+    RAGGED_MIN_PAGES (the port has no tune table).  Below it the mask
+    tier runs, byte-identically."""
+    return RAGGED_MIN_PAGES
+
+
+def select_ragged_engine(shape, matrix_t, w: int = 8, packed: bool = False,
+                         engine: str | None = None, device=None) -> str:
+    """The engine table of the ragged family: select_matrix_engine
+    projected onto the ragged tiers, as the reference's
+    ``select_ragged_engine`` does (its "pallas" is the port's "cuda"):
+
+    - "cuda":  the dense table picked the device kernel (not "xor") and
+               the pool has at least tuned_ragged_cutover() pages;
+    - "mask":  mask_pages, then the dense table on the product;
+    - "numpy": the numpy tier was forced (CPU tensors only).
+    """
+    inner = select_matrix_engine(w, device, engine, shape=tuple(shape),
+                                 matrix_t=matrix_t, packed=packed)
+    if inner == "numpy":
+        return "numpy"
+    if inner == "cuda" and shape[0] >= tuned_ragged_cutover():
+        return "cuda"
+    return "mask"
+
+
+def _host_apply_bytes_ragged(pool: torch.Tensor, matrix_t,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Numpy ground truth of the ragged bytes dispatch: the host apply
+    on the live pages only, scattered into zeros."""
+    arr = pool.detach().numpy()
+    live = mask.numpy() != 0
+    out = np.zeros((arr.shape[0], len(matrix_t), arr.shape[-1]), np.uint8)
+    if live.any():
+        out[live] = apply_matrix_numpy(torch.from_numpy(
+            np.ascontiguousarray(arr[live])), matrix_t, 8).numpy()
+    return torch.from_numpy(out)
+
+
+def _host_apply_packed_ragged(words: torch.Tensor, matrix_t,
+                              mask: torch.Tensor) -> torch.Tensor:
+    """Packed twin of _host_apply_bytes_ragged."""
+    out = _host_apply_bytes_ragged(unpack_chunks(words), matrix_t, mask)
+    return pack_chunks(out)
+
+
+def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
+                             mask: torch.Tensor, w: int = 8
+                             ) -> torch.Tensor:
+    """Ragged dispatch over a page pool (P, s, page) of w-bit words under
+    a (P,) activity mask -> (P, r, page), dead pages zero in every
+    branch.  w=16/32 pools take the mask tier, as in the reference (the
+    word kernel has no ragged variant)."""
+    if pool.dim() != 3:
+        raise ValueError(f"need a (P, s, page) pool, got "
+                         f"{tuple(pool.shape)}")
+    mask = _page_mask(pool, mask)
+    if w != 8:
+        return apply_matrix_best(mask_pages(pool, mask), matrix_t, w)
+    eng = select_ragged_engine(pool.shape, matrix_t, 8, device=pool.device)
+    with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
+                             layout="bytes"):
+        if eng == "cuda":
+            return apply_matrix_cuda_ragged(pool, matrix_t, mask)
+        if eng == "numpy":
+            return _host_apply_bytes_ragged(pool, matrix_t, mask)
+        return apply_matrix_best(mask_pages(pool, mask), matrix_t, 8)
+
+
+def apply_matrix_packed_best_ragged(words: torch.Tensor, matrix_t,
+                                    mask: torch.Tensor) -> torch.Tensor:
+    """Packed-layout ragged dispatch: a (P, s, R, 128) uint32 pool under
+    a (P,) mask -> (P, r, R, 128), dead pages zero in every branch."""
+    if words.dim() != 4:
+        raise ValueError(f"need a (P, s, R, 128) pool, got "
+                         f"{tuple(words.shape)}")
+    mask = _page_mask(words, mask)
+    eng = select_ragged_engine(words.shape, matrix_t, 8, packed=True,
+                               device=words.device)
+    with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
+                             layout="packed"):
+        if eng == "cuda":
+            return apply_matrix_cuda_packed_ragged(words, matrix_t, mask)
+        if eng == "numpy":
+            return _host_apply_packed_ragged(words, matrix_t, mask)
+        return apply_matrix_packed_best(mask_pages(words, mask), matrix_t)
+
+
 def apply_bitmatrix_numpy(chunks: torch.Tensor, bitmatrix_rows, w: int,
                           packetsize: int) -> torch.Tensor:
     """The host ground truth (``regionops.bitmatrix_encode``) on a CPU
@@ -903,14 +1108,18 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 
 __all__ = [
-    "MXU_MATRIX_MIN", "WRAPPERS", "XOR_SMEM_BUDGET", "apply_bitmatrix_best",
-    "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
-    "apply_bitmatrix_xor_cuda", "apply_matrix_best", "apply_matrix_cuda",
-    "apply_matrix_cuda_packed", "apply_matrix_cuda_words",
+    "MXU_MATRIX_MIN", "RAGGED_MIN_PAGES", "WRAPPERS", "XOR_SMEM_BUDGET",
+    "apply_bitmatrix_best", "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
+    "apply_bitmatrix_xor_cuda", "apply_matrix_best",
+    "apply_matrix_best_ragged", "apply_matrix_cuda",
+    "apply_matrix_cuda_packed", "apply_matrix_cuda_packed_ragged",
+    "apply_matrix_cuda_ragged", "apply_matrix_cuda_words",
     "apply_matrix_numpy", "apply_matrix_packed_best",
-    "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed",
-    "bitmatrix_op_count", "dense_op_count", "launch_counts", "pack_chunks",
-    "pack_rows", "pack_word_program", "reset_launch_counts",
-    "schedule_op_count", "select_matrix_engine", "sm90_op_count",
-    "unpack_chunks", "xor_program_fits", "xor_schedule_op_count",
+    "apply_matrix_packed_best_ragged", "apply_matrix_xor_cuda",
+    "apply_matrix_xor_cuda_packed", "bitmatrix_op_count", "dense_op_count",
+    "launch_counts", "mask_pages", "pack_chunks", "pack_rows",
+    "pack_word_program", "reset_launch_counts", "schedule_op_count",
+    "select_matrix_engine", "select_ragged_engine", "sm90_op_count",
+    "tuned_ragged_cutover", "unpack_chunks", "xor_program_fits",
+    "xor_schedule_op_count",
 ]

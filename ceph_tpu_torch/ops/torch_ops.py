@@ -15,7 +15,11 @@ holds each kernel against its plain version on the card.
   schedule (``ops/xor_schedule.py``) over packet views;
 - :func:`apply_matrix_xor_torch` — a GF(2^8) matrix through its XOR
   schedule (``xt`` / ``shl`` / ``shr`` / ``xor`` on SWAR words), the twin
-  of ``ceph_tpu/ops/pallas_gf.py::apply_matrix_xor_xla``.
+  of ``ceph_tpu/ops/pallas_gf.py::apply_matrix_xor_xla``;
+- :func:`apply_matrix_ragged_torch` / :func:`apply_matrix_packed_ragged_torch`
+  — the GF(2^8) matrix over a page pool under a (P,) activity mask: the
+  dead pages zeroed by :func:`mask_pages`, then :func:`apply_matrix_torch`
+  (the reference's mask tier).
 
 The math is the reference's SWAR walk: four GF(2^8) field bytes (or
 two GF(2^16) halfwords, or one GF(2^32) word) packed in a 32-bit
@@ -171,6 +175,49 @@ def apply_matrix_torch(chunks: torch.Tensor, matrix_t, w: int = 8
     out = torch.stack([zero if a is None else a for a in accs], dim=-2)
     out = out.view(torch.uint8)[..., :c]
     return out.contiguous().view(chunks.dtype)
+
+
+def mask_pages(pool: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero the dead pages of a (P, ...) pool by multiplying with the
+    (P,) {0,1} mask, on the pool's bytes (any word dtype; torch has no
+    uint32 multiply).  The twin of ``ceph_tpu.ops.pallas_gf.mask_pages``:
+    a page's values are field elements, so scaling by 0 or 1 is the page
+    predicate, and GF linearity makes a zero page's product zero."""
+    if mask.dim() != 1 or mask.shape[0] != pool.shape[0]:
+        raise ValueError(f"mask {tuple(mask.shape)} does not fit a pool "
+                         f"of {pool.shape[0]} pages")
+    byts = pool.contiguous().view(torch.uint8)
+    live = (mask != 0).to(torch.uint8).reshape(
+        (pool.shape[0],) + (1,) * (pool.dim() - 1))
+    return (byts * live).view(pool.dtype)
+
+
+def apply_matrix_ragged_torch(pool: torch.Tensor, matrix_t,
+                              mask: torch.Tensor, w: int = 8
+                              ) -> torch.Tensor:
+    """Apply a (r, s) GF(2^w) matrix to a page pool (P, s, page) of
+    w-bit words under a (P,) activity mask -> (P, r, page), dead pages
+    zero.  The plain version of ``gf_kernels.apply_matrix_cuda_ragged``."""
+    if pool.dim() != 3:
+        raise ValueError(f"need a (P, s, page) pool, got "
+                         f"{tuple(pool.shape)}")
+    return apply_matrix_torch(mask_pages(pool, mask), matrix_t, w)
+
+
+def apply_matrix_packed_ragged_torch(words: torch.Tensor, matrix_t,
+                                     mask: torch.Tensor) -> torch.Tensor:
+    """Packed twin: a (P, s, R, 128) uint32 pool -> (P, r, R, 128),
+    dead pages zero.  The plain version of
+    ``gf_kernels.apply_matrix_cuda_packed_ragged``."""
+    if words.dtype != torch.uint32 or words.dim() != 4:
+        raise ValueError(f"need a (P, s, R, 128) uint32 pool, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    p, s, rows, lanes = words.shape
+    byts = mask_pages(words, mask).view(torch.uint8).reshape(
+        p, s, rows * lanes * 4)
+    out = apply_matrix_torch(byts, matrix_t, 8)
+    return out.contiguous().view(torch.uint32).reshape(
+        p, out.shape[1], rows, lanes)
 
 
 _LMASK8 = tuple(_s32(0x01010101 * ((0xFF << sh) & 0xFF)) for sh in range(8))

@@ -30,6 +30,11 @@ source, all started together) and then, in order:
      8, 131072), an lrc k=4 m=2 l=3 local repair at (64, 7, 262144), the
      4 shec k=4 m=3 c=2 plans that take a schedule, random sparse and
      monomial schedules, a strided slice and C = 4096 + 4;
+   - the ragged kernel (bytes and packed wrappers): the serving pool
+     (512 pages, 8 rows, 4096 bytes) under a scattered half-live, an
+     all-dead and an all-live mask, for the RS encode matrix and random
+     r in {1, 3, 11}, also against the dense kernel on the masked pool;
+     dead pages must be zero;
 
    and two stripes of each against the numpy ground truth;
 3. drives the paths through the entry points a user calls, each with
@@ -60,12 +65,25 @@ source, all started together) and then, in order:
    - shec k=4 m=3 c=2: 64 x 1 MiB encode, and every 1-, 2- and 3-erasure
      pattern of a 4-stripe batch in both layouts (the undecodable ones
      must raise);
+   - serving: one closed-loop stream of 512 requests (64 in flight;
+     RS k=8 m=3 at 64 KiB, 1 MiB and 4 MiB, shec k=6 m=3 c=2 at 1 MiB;
+     encode / decode / repair) through ``run_serving_scenario`` on the
+     real clock, dense (rung ladder 1/4/16/64) and paged (pages of 4096
+     bytes, 512 per pool): every output verified byte for byte, no
+     kernel setup after warmup, the pools drained; the ragged kernel
+     launches on the paged run and never on the dense one;
+   - ``apply_matrix_packed_best_ragged``, the packed ragged ops entry,
+     once;
 4. times each kernel, its plain version and a copy of the same bytes
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
    trace, against the bound (the larger of the bytes over HBM bandwidth
-   and the integer ops over the INT32 peak), and prints one JSON line
-   ``{"kernels": [...]}`` (seven wrappers; "ms" is the profiler's
+   and the integer ops over the INT32 peak); the ragged kernel at 25,
+   50 and 100 % live pages beside the dense kernel on the same bytes;
+   the host-to-device copy of one pool; the serving runs' GB/s, GB/s
+   under SLO and p50/p99 per op, and where one fire's time goes (copy
+   in, the call, copy out, demux), paged and dense; and prints one JSON
+   line ``{"kernels": [...]}`` (nine wrappers; "ms" is the profiler's
    device time, the event time where the trace has no kernel).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -98,6 +116,36 @@ DECODE_BATCH = 4
 PACKETSIZE = 2048                             # jerasure's default
 WORDS = 65536                                 # w=16/32 words per chunk
 SRC = "ceph_tpu_torch/ops/csrc/"
+
+# the serving stream: 512 closed-loop requests, 64 in flight; RS k=8 m=3
+# at 64 KiB (the bench serving row's size), 1 MiB (the north-star stripe)
+# and 4 MiB (RADOS's default object size), shec k=6 m=3 c=2 at 1 MiB,
+# weighted 3 : 2 between RS and shec as the reference's default_spec
+# does; pages of 4096 bytes (Ceph's default EC stripe_unit, which divides
+# every RS chunk of the mix), 512 per pool
+SERVE_REQUESTS, SERVE_CONCURRENCY = 512, 64
+PAGE, SERVE_POOL_PAGES = 4096, 512
+RAG_PAGES = 512                               # the ragged kernel's pool
+# the dense encode's profiler time before the page mask was added to its
+# kernel, and the card it was read on
+EARLIER_DENSE_MS, EARLIER_CARD = 0.059812, "H100 80GB HBM3, 700 W"
+
+
+def serving_spec(paged: bool):
+    """The serving stream's TrafficSpec (seed 0), dense or paged."""
+    from ceph_tpu_torch.serve import CodecSpec, TrafficSpec
+    rs = {"technique": "reed_sol_van", "k": "8", "m": "3"}
+    codecs = [CodecSpec(f"rs_k8_m3_{size >> 10}k", "jerasure", dict(rs),
+                        size, weight=1.0)
+              for size in (64 << 10, 1 << 20, 4 << 20)]
+    codecs.append(CodecSpec("shec_k6_m3_c2_1024k", "shec",
+                            {"k": "6", "m": "3", "c": "2"}, 1 << 20,
+                            weight=2.0))
+    return TrafficSpec(seed=0, n_requests=SERVE_REQUESTS, codecs=codecs,
+                       concurrency=SERVE_CONCURRENCY, erasures=1,
+                       ladder=(1, 4, 16, 64), paged=paged,
+                       page_size=PAGE if paged else None,
+                       pool_pages=SERVE_POOL_PAGES if paged else None)
 
 
 def check(cond: bool, what: str) -> None:
@@ -206,14 +254,21 @@ def main(argv=None) -> int:
     from ceph_tpu_torch.ops import _build, gf_kernels, regionops
     from ceph_tpu_torch.ops.gf_kernels import (
         MXU_MATRIX_MIN, apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda,
-        apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
+        apply_matrix_cuda, apply_matrix_cuda_packed,
+        apply_matrix_cuda_packed_ragged, apply_matrix_cuda_ragged,
+        apply_matrix_cuda_words, apply_matrix_packed_best_ragged,
         apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed,
         bitmatrix_op_count, dense_op_count, pack_chunks, schedule_op_count,
         sm90_op_count, unpack_chunks, xor_schedule_op_count)
     from ceph_tpu_torch.ops.torch_ops import (
         WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
+        apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch,
         apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
-        matrix_to_static)
+        mask_pages, matrix_to_static)
+    from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
+                                             serve_dispatch_ragged)
+    from ceph_tpu_torch.serve import (EcRequest, run_serving_scenario,
+                                      verify_results)
     from ceph_tpu_torch.ops.xor_schedule import (
         build_schedule, preferred_schedule, probe_bitmatrix_schedule,
         word_program)
@@ -467,6 +522,44 @@ def main(argv=None) -> int:
           f"the shec plans of erasures {shec_xor} and {n_rand} random "
           f"sparse/monomial schedules (strided slices, C=4100, no batch "
           f"dim), and to the host ground truth")
+
+    # the ragged kernel (bytes and packed wrappers): the serving pool
+    # shape, (512 pages, 8 rows, 4096 bytes), under a scattered half-live
+    # mask, all-dead and all-live, for the RS encode matrix and random
+    # r in {1, 3, 11}; against the plain version and against the dense
+    # kernel on mask_pages(pool); dead pages zero
+    rag_host = rng.integers(0, 256, (RAG_PAGES, K, PAGE), dtype=np.uint8)
+    rag_pool = torch.from_numpy(rag_host).to(dev)
+    rag_words = pack_chunks(rag_pool)
+    rag_masks = {
+        "half-live": torch.from_numpy(
+            (rng.random(RAG_PAGES) < 0.5).astype(np.uint8)).to(dev),
+        "all-dead": torch.zeros(RAG_PAGES, dtype=torch.uint8, device=dev),
+        "all-live": torch.ones(RAG_PAGES, dtype=torch.uint8, device=dev)}
+    rag_mats = {"rs encode": ms}
+    for r in (1, 3, 11):
+        m_r = rng.integers(0, 256, (r, K))
+        m_r[rng.random((r, K)) < 0.25] = 0
+        rag_mats[f"random r={r}"] = matrix_to_static(m_r)
+    for (mname, m_s), (kind, mk) in itertools.product(rag_mats.items(),
+                                                      rag_masks.items()):
+        what = f"{mname}, {kind} mask, {tuple(rag_pool.shape)}"
+        got = apply_matrix_cuda_ragged(rag_pool, m_s, mk)
+        err.hold("apply_matrix_cuda_ragged", got,
+                 apply_matrix_ragged_torch(rag_pool, m_s, mk), what)
+        err.hold("apply_matrix_cuda_ragged", got,
+                 apply_matrix_cuda(mask_pages(rag_pool, mk), m_s),
+                 f"{what} vs the dense kernel on the masked pool")
+        check(not got[mk == 0].any(), f"{what}: dead pages are zero")
+        gotp = apply_matrix_cuda_packed_ragged(rag_words, m_s, mk)
+        err.hold("apply_matrix_cuda_packed_ragged", gotp,
+                 apply_matrix_packed_ragged_torch(rag_words, m_s, mk), what)
+        err.hold("apply_matrix_cuda_packed_ragged", unpack_chunks(gotp), got,
+                 f"{what}, packed == bytes")
+    print(f"phase 2: both ragged wrappers equal their plain versions and "
+          f"the dense kernel on the masked pool at ({RAG_PAGES}, {K}, "
+          f"{PAGE}), {len(rag_mats)} matrices x {len(rag_masks)} masks; "
+          f"dead pages zero")
 
     # -- phase 3: the paths, through the user's entry points ----------------
     counts = gf_kernels.launch_counts
@@ -773,6 +866,57 @@ def main(argv=None) -> int:
         "2 layouts)", counts, reset, shec_path,
         ("apply_matrix_cuda", "apply_matrix_cuda_packed",
          "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed"))
+    # the serving plane: one closed-loop stream of 512 requests, dense
+    # (the rung ladder) and paged (512 pages of 4096 bytes per queue),
+    # through run_serving_scenario on the real clock
+    serve_runs = {}
+
+    def serve_path(paged):
+        def fn():
+            run = run_serving_scenario(serving_spec(paged))
+            bad = verify_results(run.results)
+            check(len(run.results) == SERVE_REQUESTS and not bad,
+                  f"{len(run.results)} served, {len(bad)} wrong")
+            check(run.report["stream_compiles"] == 0,
+                  f"stream_compiles {run.report['stream_compiles']}")
+            if paged:
+                ps = run.batcher.pool_stats()
+                check(ps["used_pages"] == 0
+                      and ps["allocs"] == ps["reclaims"] > 0,
+                      f"pools drained: {ps}")
+            serve_runs["paged" if paged else "dense"] = run
+        return fn
+
+    results["serve_dense"] = drive(
+        f"serving, dense rung ladder 1/4/16/64 ({SERVE_REQUESTS} requests: "
+        f"RS k=8 m=3 at 64 KiB / 1 MiB / 4 MiB, shec k=6 m=3 c=2 at "
+        f"1 MiB)", counts,
+        reset, serve_path(False), ("apply_matrix_cuda",))
+    check(results["serve_dense"]["apply_matrix_cuda_ragged"] == 0,
+          "the dense run launches no ragged kernel")
+    results["serve_paged"] = drive(
+        f"serving, paged ({SERVE_POOL_PAGES} pages of {PAGE} bytes per "
+        f"queue; same stream)", counts, reset, serve_path(True),
+        ("apply_matrix_cuda_ragged",))
+    for mode, run in serve_runs.items():
+        st = run.batcher.padding_stats()
+        print(f"  serving {mode}: {len(run.batcher.dispatch_log)} fires, "
+              f"{st['warmup_dispatches']} warmup dispatches, "
+              f"{st['cached_programs']} programs, padding overhead "
+              f"{st['padding_overhead']}, stream_compiles "
+              f"{run.report['stream_compiles']}"
+              + (f", pools {st['pool']}" if mode == "paged" else ""))
+
+    def packed_ragged_path():
+        mk = rag_masks["half-live"]
+        got = apply_matrix_packed_best_ragged(rag_words, ms, mk)
+        check(torch.equal(got, apply_matrix_packed_ragged_torch(
+            rag_words, ms, mk)), "apply_matrix_packed_best_ragged")
+
+    results["packed_ragged"] = drive(
+        f"apply_matrix_packed_best_ragged (the packed ragged ops entry, "
+        f"{tuple(rag_words.shape)} words, half-live)", counts, reset,
+        packed_ragged_path, ("apply_matrix_cuda_packed_ragged",))
     launches = {name: sum(r[name] for r in results.values())
                 for name in counts()}
     for name, cnt in launches.items():
@@ -987,6 +1131,150 @@ def main(argv=None) -> int:
           f"decode_chunks_torch: {t_lrd:.6f} ms device, {h_lrd:.6f} ms "
           f"host issue")
 
+    # the ragged kernel at the serving pool shape, 25 / 50 / 100 % live,
+    # beside the dense kernel on the same bytes; its bound counts the
+    # reads of live pages, the writes of every page and the integer work
+    # of live pages
+    k_dense_main = kernel_ms(lambda: apply_matrix_cuda(data, ms),
+                             "gf_matrix_kernel")
+    print("dense encode at the main shape, profiler device time per "
+          "launch: " + ("not measured" if k_dense_main is None
+                        else f"{k_dense_main:.6f} ms")
+          + f", beside {EARLIER_DENSE_MS} ms before the page mask "
+          f"({EARLIER_CARD})")
+    words_per_page = PAGE // 4
+    rag_times = {}
+    for share in (0.25, 0.5, 1.0):
+        live = np.zeros(RAG_PAGES, np.uint8)
+        live[rng.permutation(RAG_PAGES)[:int(RAG_PAGES * share)]] = 1
+        mk = torch.from_numpy(live).to(dev)
+        n_live = int(live.sum())
+        b, b_by = bound_ms(n_live * K * PAGE + RAG_PAGES * M * PAGE
+                           + RAG_PAGES,
+                           sm90_op_count(ms) * n_live * words_per_page)
+        k_r = kernel_ms(lambda: apply_matrix_cuda_ragged(rag_pool, ms, mk),
+                        "gf_matrix_kernel")
+        k_rp = kernel_ms(lambda: apply_matrix_cuda_packed_ragged(
+            rag_words, ms, mk), "gf_matrix_kernel")
+        t_r, _ = time_ms(lambda: apply_matrix_cuda_ragged(rag_pool, ms, mk),
+                         50)
+        t_rpk, _ = time_ms(lambda: apply_matrix_cuda_packed_ragged(
+            rag_words, ms, mk), 50)
+        t_rp, _ = time_ms(lambda: apply_matrix_ragged_torch(rag_pool, ms,
+                                                             mk), 5,
+                          warmup=1)
+        t_rpp, _ = time_ms(lambda: apply_matrix_packed_ragged_torch(
+            rag_words, ms, mk), 5, warmup=1)
+        rag_times[share] = (k_r or t_r, k_rp or t_rpk, t_rp, t_rpp, b, b_by)
+        print(f"time ragged kernel, RS encode over ({RAG_PAGES}, {K}, "
+              f"{PAGE}), {n_live} live pages ({share:.0%}): profiler "
+              + ("not measured" if k_r is None else f"{k_r:.6f} ms")
+              + " bytes, " + ("not measured" if k_rp is None
+                              else f"{k_rp:.6f} ms") + " packed; events "
+              f"{t_r:.6f} / {t_rpk:.6f} ms; plain {t_rp:.6f} / {t_rpp:.6f} "
+              f"ms; bound {b:.6f} ms by {b_by}")
+    k_pool_dense = kernel_ms(lambda: apply_matrix_cuda(rag_pool, ms),
+                             "gf_matrix_kernel")
+    pd_bound, pd_by = bound_ms(RAG_PAGES * (K + M) * PAGE,
+                               sm90_op_count(ms) * RAG_PAGES
+                               * words_per_page)
+    print(f"time dense kernel on the same ({RAG_PAGES}, {K}, {PAGE}) "
+          f"bytes: profiler "
+          + ("not measured" if k_pool_dense is None
+             else f"{k_pool_dense:.6f} ms") + f"; bound {pd_bound:.6f} ms "
+          f"by {pd_by}")
+
+    # the host-to-device copy of one pool, as a fire makes it (pageable
+    # numpy buffer, dead pages included)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        torch.from_numpy(rag_host).to(dev)
+    torch.cuda.synchronize()
+    t_copy_pool = (time.perf_counter() - t0) * 1e3 / 10
+    print(f"time host-to-device copy of one {rag_host.nbytes} byte pool "
+          f"({RAG_PAGES}, {K}, {PAGE}): {t_copy_pool:.6f} ms host clock, "
+          f"{rag_host.nbytes / t_copy_pool / 1e6:.3f} GB/s")
+
+    # the serving runs: GB/s, GB/s under SLO, p50/p99 per op, and the
+    # mean service time of a fire (copy in, kernels, copy out, demux)
+    for mode, run in serve_runs.items():
+        rep = run.report
+        fires = {(res.completed, res.service) for res in run.results}
+        mean_fire = sum(sv for _, sv in fires) / len(fires) * 1e3
+        per_op = "; ".join(
+            f"{op} {row['requests']} req p50 {row['p50_ms']} ms p99 "
+            f"{row['p99_ms']} ms miss {row['deadline_miss_rate']}"
+            for op, row in sorted(rep["op_classes"].items()))
+        print(f"serving {mode}: {rep['requests']} requests, {rep['bytes']} "
+              f"bytes in {rep['elapsed_s']} s: {rep['gbps']} GB/s, "
+              f"{rep['gbps_under_slo']} GB/s under SLO, p50 "
+              f"{rep['p50_ms']} ms, p99 {rep['p99_ms']} ms; {len(fires)} "
+              f"fires, mean service {mean_fire:.6f} ms; {per_op}")
+
+    # where a fire's time goes: 16 RS k=8 m=3 1 MiB encodes, staged into
+    # a full pool of the paged run's warm queue and stacked at rung 16 in
+    # the dense run's warm bucket, each step of the fire timed on its own
+    # (host clock, synchronised): copy in, the call, copy out, demux
+    rs_1m = serving_spec(True).codecs[1]
+    staged = [EcRequest(op="encode", plugin=rs_1m.plugin,
+                        profile=rs_1m.profile, stripe_size=rs_1m.stripe_size,
+                        payload=rng.integers(0, 256, (K, CHUNK),
+                                             dtype=np.uint8), req_id=i)
+              for i in range(16)]
+    q = serve_runs["paged"].batcher._queue_for(staged[0])
+    for r in staged:
+        q.pool.write(r.req_id, r.payload)
+    check(q.pool.free_pages() == 0, "16 x 1 MiB fill the pool")
+    page_mask = q.pool.mask()
+    pcall = serve_dispatch_ragged(q.ec, "encode", pages=q.pool.pages,
+                                  page_size=q.page_size)
+    bk = serve_runs["dense"].batcher._bucket_for(staged[0])
+    stack = np.stack([r.payload for r in staged])
+    dcall = serve_dispatch_call(bk.ec, "encode")
+    anatomy = {}
+    for mode in ("paged", "dense"):
+        steps = {"copy in": 0.0, "call": 0.0, "copy out": 0.0,
+                 "demux": 0.0}
+        reps = 5
+        for rep in range(reps + 1):
+            t = [time.perf_counter()]
+            if mode == "paged":
+                args = (torch.from_numpy(q.pool.buf).to(dev),
+                        torch.from_numpy(page_mask).to(dev))
+                call = pcall
+            else:
+                args = (torch.from_numpy(stack).to(dev),)
+                call = dcall
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            out = call(*args)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            host_out = out.cpu().numpy()
+            t.append(time.perf_counter())
+            got = ([q.pool.read(r.req_id, host_out) for r in staged]
+                   if mode == "paged" else list(host_out))
+            t.append(time.perf_counter())
+            if rep == 0:
+                continue           # the first round warms the allocator
+            for name, a, b in zip(steps, t, t[1:]):
+                steps[name] += (b - a) * 1e3 / reps
+        anatomy[mode] = (steps, got, kernel_ms(lambda: call(*args),
+                                               "gf_matrix_kernel"))
+    check(all(np.array_equal(a, b) for a, b in zip(anatomy["paged"][1],
+                                                   anatomy["dense"][1])),
+          "paged and dense fires give the same parity")
+    for r in staged:
+        q.pool.reclaim(r.req_id)
+    for mode, (steps, _, k_t) in anatomy.items():
+        print(f"serving {mode}, where a fire's time goes (16 x 1 MiB RS "
+              f"encodes, " + ("a full pool of 512 pages" if mode == "paged"
+                              else "rung 16") + "): "
+              + ", ".join(f"{n} {v:.6f} ms" for n, v in steps.items())
+              + f", total {sum(steps.values()):.6f} ms; the kernels' "
+              f"profiler time in the call "
+              + ("not measured" if k_t is None else f"{k_t:.6f} ms"))
+
     # each kernel's "ms" is its own device time per launch from the
     # profiler (the event times above include the host's issue pace where
     # that is the slower); the event time where the trace has no kernel
@@ -1030,7 +1318,12 @@ def main(argv=None) -> int:
              xor_times["r6 encode"][5], "gf8_xor_schedule.cu", 623),
             ("apply_matrix_xor_cuda_packed", xor_times["r6 encode"][1],
              xor_times["r6 encode"][3], xor_times["r6 encode"][4],
-             xor_times["r6 encode"][5], "gf8_xor_schedule.cu", 664)):
+             xor_times["r6 encode"][5], "gf8_xor_schedule.cu", 664),
+            ("apply_matrix_cuda_ragged", rag_times[0.5][0], rag_times[0.5][2],
+             rag_times[0.5][4], rag_times[0.5][5], "gf8_matrix.cu", 1253),
+            ("apply_matrix_cuda_packed_ragged", rag_times[0.5][1],
+             rag_times[0.5][3], rag_times[0.5][4], rag_times[0.5][5],
+             "gf8_matrix.cu", 1294)):
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + source,
             "replaces": f"ceph_tpu/ops/pallas_gf.py:{line}",

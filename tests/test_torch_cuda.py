@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch versions, on
-the card: the GF(2^8) matrix kernel (bytes and packed wrappers), the
-w=16/32 word kernel, the two packet-layout bitmatrix kernels (plain
+the card: the GF(2^8) matrix kernel (bytes, packed and the two ragged
+wrappers, and a small serving stream through them), the w=16/32 word
+kernel, the two packet-layout bitmatrix kernels (plain
 and scheduled), and the XOR-schedule kernel (bytes and packed wrappers;
 the shec, lrc and reed_sol_r6_op paths that take it).  Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
@@ -32,8 +33,9 @@ from ceph_tpu_torch.ops.gf_kernels import (
     select_matrix_engine, unpack_chunks)
 from ceph_tpu_torch.ops.torch_ops import (
     WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
+    apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch,
     apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
-    matrix_to_static)
+    mask_pages, matrix_to_static)
 from ceph_tpu_torch.ops.xor_schedule import (
     build_schedule, preferred_schedule, probe_bitmatrix_schedule)
 from ceph_tpu_torch.utils.errors import KernelLaunchError
@@ -378,3 +380,72 @@ def test_composite_codes_round_trip_on_card(cuda_device, plugin, profile):
                 before["apply_matrix_xor_cuda_packed"]
             scheduled += ran_xor
     assert scheduled == {"lrc": 29, "shec": 4, "jerasure": 2}[plugin]
+
+
+# -- the ragged (paged) wrappers -----------------------------------------------
+
+@pytest.mark.parametrize("r,s,p,page,kind", [
+    (3, 8, 64, 4096, "scattered"), (11, 8, 16, 4096 + 4, "scattered"),
+    (1, 5, 8, 1024, "dead"), (8, 6, 8, 2048, "live"),
+    (3, 8, 1, 512, "live")])
+def test_ragged_kernel_matches_plain_on_card(cuda_device, r, s, p, page,
+                                             kind):
+    """Both ragged wrappers against their plain versions and against the
+    dense kernel on the masked pool; dead pages zero."""
+    rng = np.random.default_rng(r * 1000 + p)
+    mat = rng.integers(0, 256, (r, s))
+    mat[0, 0] = 0
+    ms = matrix_to_static(mat)
+    pool = torch.from_numpy(rng.integers(0, 256, (p, s, page),
+                                         dtype=np.uint8)).to(cuda_device)
+    live = {"scattered": rng.random(p) < 0.5, "dead": np.zeros(p, bool),
+            "live": np.ones(p, bool)}[kind]
+    mask = torch.from_numpy(live.astype(np.uint8)).to(cuda_device)
+    before = gf_kernels.apply_matrix_cuda_ragged.launches
+    got = gf_kernels.apply_matrix_cuda_ragged(pool, ms, mask)
+    torch.cuda.synchronize()
+    assert gf_kernels.apply_matrix_cuda_ragged.launches > before
+    assert torch.equal(got, apply_matrix_ragged_torch(pool, ms, mask))
+    assert torch.equal(got, apply_matrix_cuda(mask_pages(pool, mask), ms))
+    assert not got[~torch.from_numpy(live).to(cuda_device)].any()
+    if page % 512 == 0:
+        words = pack_chunks(pool)
+        before = gf_kernels.apply_matrix_cuda_packed_ragged.launches
+        gotp = gf_kernels.apply_matrix_cuda_packed_ragged(words, ms, mask)
+        torch.cuda.synchronize()
+        assert gf_kernels.apply_matrix_cuda_packed_ragged.launches > before
+        assert torch.equal(gotp, apply_matrix_packed_ragged_torch(
+            words, ms, mask))
+        assert torch.equal(unpack_chunks(gotp), got)
+
+
+def test_ragged_wrappers_refuse_a_mask_off_the_pool(cuda_device):
+    pool = torch.zeros(4, 3, 512, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="device"):
+        gf_kernels.apply_matrix_cuda_ragged(
+            pool, ((1, 2, 3),), torch.ones(4, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="pool"):
+        gf_kernels.apply_matrix_cuda_ragged(
+            pool, ((1, 2, 3),),
+            torch.ones(3, dtype=torch.uint8, device=cuda_device))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_serving_stream_on_card(cuda_device, paged):
+    """A small mixed stream through the device executor on the card:
+    verified against ground truth; the ragged kernel launches on the
+    paged run only."""
+    from ceph_tpu_torch.serve import (CodecSpec, TrafficSpec,
+                                      run_serving_scenario, verify_results)
+    codecs = [CodecSpec(f"rs_{s}", "jerasure",
+                        {"technique": "reed_sol_van", "k": "4", "m": "2"}, s)
+              for s in (4096, 16384)]
+    spec = TrafficSpec(seed=5, n_requests=32, codecs=codecs,
+                       ladder=(1, 4, 16), paged=paged, page_size=1024,
+                       pool_pages=64)
+    gf_kernels.reset_launch_counts()
+    run = run_serving_scenario(spec)
+    assert verify_results(run.results) == []
+    ragged = gf_kernels.launch_counts()["apply_matrix_cuda_ragged"]
+    assert (ragged > 0) == paged
+    assert run.report["stream_compiles"] == 0

@@ -181,6 +181,14 @@ def test_importing_port_loads_no_jax_or_ceph_tpu_module():
         "import ceph_tpu_torch.codes.plugins.lrc\n"
         "import ceph_tpu_torch.ops.gf_kernels\n"
         "import ceph_tpu_torch.ops._build\n"
+        "import ceph_tpu_torch.codes.engine\n"
+        "import ceph_tpu_torch.codes.stripe\n"
+        "import ceph_tpu_torch.serve\n"
+        "import ceph_tpu_torch.scenario.runner\n"
+        "import ceph_tpu_torch.telemetry\n"
+        "import ceph_tpu_torch.utils.detcheck\n"
+        "import ceph_tpu_torch.utils.log\n"
+        "import ceph_tpu_torch.utils.retry\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ceph_tpu'))\n"

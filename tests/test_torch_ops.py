@@ -188,11 +188,17 @@ def test_wrappers_on_cpu_take_plain_version_and_count_nothing():
     sched = ("xorsched", 8, 1, (("xor", 0, 1), ("shl", 8, 2)), (9,))
     gf_kernels.apply_matrix_xor_cuda(_t(data), sched)
     gf_kernels.apply_matrix_xor_cuda_packed(pack_chunks(_t(data)), sched)
+    live = torch.tensor([1, 0], dtype=torch.uint8)
+    gf_kernels.apply_matrix_cuda_ragged(_t(data), matrix_to_static(mat),
+                                        live)
+    gf_kernels.apply_matrix_cuda_packed_ragged(
+        pack_chunks(_t(data)), matrix_to_static(mat), live)
     assert gf_kernels.launch_counts() == {
         "apply_matrix_cuda": 0, "apply_matrix_cuda_packed": 0,
         "apply_matrix_cuda_words": 0, "apply_bitmatrix_cuda": 0,
         "apply_bitmatrix_xor_cuda": 0, "apply_matrix_xor_cuda": 0,
-        "apply_matrix_xor_cuda_packed": 0}
+        "apply_matrix_xor_cuda_packed": 0, "apply_matrix_cuda_ragged": 0,
+        "apply_matrix_cuda_packed_ragged": 0}
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
