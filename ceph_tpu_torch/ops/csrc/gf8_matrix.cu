@@ -20,11 +20,17 @@
 // Python wrappers in ops/gf_kernels.py only describe the buffers.
 //
 // Design:
-//   - The coefficients are data, not code: the (r, s) matrix travels as a
-//     by-value __grid_constant__ struct (uint8 coefficients for w=8, uint32
-//     for w=16/32), so one binary serves every matrix (encode, and every one
-//     of the C(k+m, m) decode patterns).  Pallas specialises a program per
-//     static matrix; on CUDA a per-matrix build would cost seconds.  Each
+//   - The coefficients are data, not code, so one binary serves every
+//     matrix (encode, and every one of the C(k+m, m) decode patterns).
+//     Pallas specialises a program per static matrix; on CUDA a per-matrix
+//     build would cost seconds.  Up to GF8_MAX_COEF (w=8) or GFW_MAX_COEF
+//     (w=16/32) coefficients the (r, s) matrix travels as a by-value
+//     __grid_constant__ struct (uint8 coefficients for w=8, uint32 for
+//     w=16/32).  A larger table (clay's composites: 64 x 704 for a repair)
+//     lies in a device buffer the wrapper uploads once per matrix; each
+//     block stages its row group's coefficients into shared memory in tiles
+//     of GF_TABLE_TILE_BYTES (gf_matrix_table_kernel), so any (r, s) fits.
+//     Both walk the same columns with the same body (fold_column).  Each
 //     column's bits are walked up to its highest set bit (uniform across the
 //     warp: no divergence).
 //   - Each thread owns one 16-byte vector (4 SWAR words) of the region.  It
@@ -68,6 +74,8 @@
 #define GF8_MAX_COEF 2048
 #define GFW_MAX_COEF 512
 #define GF_ROW_GROUP 8
+// shared memory of one staged tile of a device-buffer table
+#define GF_TABLE_TILE_BYTES 16384
 
 // by-value kernel argument: the (r, s) matrix, row-major; under 4 KB of
 // kernel parameters for every width
@@ -143,6 +151,55 @@ __device__ __forceinline__ void store16(unsigned char* p, bool vec,
   }
 }
 
+// Fold input column `p` (16 bytes of one chunk) into the RG accumulators:
+// plane t of the column goes into every row whose coefficient c[i] has bit
+// t set.  `c` is consumed.
+template <int W, int RG>
+__device__ __forceinline__ void fold_column(uint32_t (&acc)[RG][4],
+                                            uint32_t (&c)[RG],
+                                            const unsigned char* p, bool vec,
+                                            long long avail) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < RG; ++i) any |= c[i];
+  if (!any) return;
+  uint32_t x[4];
+  load16(p, vec, avail, x);
+  while (true) {
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      const uint32_t sel = 0u - (c[i] & 1u);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] ^= x[q] & sel;
+      c[i] >>= 1;
+    }
+    any >>= 1;
+    if (!any) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = xtime_swar<W>(x[q]);
+  }
+}
+
+template <int RG>
+__device__ __forceinline__ void store_rows(unsigned char* dst,
+                                           long long out_cstride, bool vec,
+                                           long long avail,
+                                           const uint32_t (&acc)[RG][4]) {
+#pragma unroll
+  for (int i = 0; i < RG; ++i) store16(dst + i * out_cstride, vec, avail,
+                                       acc[i]);
+}
+
+template <int RG>
+__device__ __forceinline__ void zero_rows(uint32_t (&acc)[RG][4]) {
+#pragma unroll
+  for (int i = 0; i < RG; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0u;
+  }
+}
+
+// The by-value variant: the matrix is a kernel parameter.
 template <int W, int RG, typename M>
 __global__ void __launch_bounds__(256)
 gf_matrix_kernel(const unsigned char* __restrict__ in,
@@ -164,66 +221,103 @@ gf_matrix_kernel(const unsigned char* __restrict__ in,
 
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
     unsigned char* dst = out + b * out_bstride + off;
+    uint32_t acc[RG][4];
+    zero_rows<RG>(acc);
     if (mask != nullptr && mask[b] == 0) {
       // a dead page: no input read, zeros out (GF linearity: the masked
       // pool's page is zero, so its product is zero)
-      const uint32_t zero[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int i = 0; i < RG; ++i) store16(dst + i * out_cstride, vec, avail,
-                                           zero);
+      store_rows<RG>(dst, out_cstride, vec, avail, acc);
       continue;
     }
     const unsigned char* src = in + b * in_bstride + off;
-    uint32_t acc[RG][4];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0u;
-    }
     for (int j = 0; j < s; ++j) {
       uint32_t c[RG];
-      uint32_t any = 0;
 #pragma unroll
-      for (int i = 0; i < RG; ++i) {
-        c[i] = rows[i * s + j];
-        any |= c[i];
-      }
-      if (!any) continue;
-      uint32_t x[4];
-      load16(src + j * in_cstride, vec, avail, x);
-      while (true) {
-#pragma unroll
-        for (int i = 0; i < RG; ++i) {
-          const uint32_t sel = 0u - (c[i] & 1u);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] ^= x[q] & sel;
-          c[i] >>= 1;
-        }
-        any >>= 1;
-        if (!any) break;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) x[q] = xtime_swar<W>(x[q]);
-      }
+      for (int i = 0; i < RG; ++i) c[i] = rows[i * s + j];
+      fold_column<W, RG>(acc, c, src + j * in_cstride, vec, avail);
     }
-#pragma unroll
-    for (int i = 0; i < RG; ++i) store16(dst + i * out_cstride, vec, avail,
-                                         acc[i]);
+    store_rows<RG>(dst, out_cstride, vec, avail, acc);
   }
 }
 
-template <int W, int RG, typename M>
+// The table variant: the (r, s) coefficients lie in device memory
+// (`table`, row-major); the block stages its row group's coefficients into
+// shared memory, COLS columns at a time, then runs the same column walk.
+// Every thread of the block reaches every barrier: a thread past the end of
+// the region helps stage and skips the walk.
+template <int W, int RG, typename C>
+__global__ void __launch_bounds__(256)
+gf_matrix_table_kernel(const unsigned char* __restrict__ in,
+                       unsigned char* __restrict__ out, long long batch,
+                       long long nbytes, long long in_bstride,
+                       long long in_cstride, long long out_bstride,
+                       long long out_cstride, int aligned, int row0,
+                       const unsigned char* __restrict__ mask,
+                       const C* __restrict__ table, int s) {
+  constexpr int COLS = GF_TABLE_TILE_BYTES / (RG * sizeof(C));
+  __shared__ C tile[RG * COLS];
+  const long long nvec = (nbytes + 15) / 16;
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const bool active = v < nvec;
+  const long long off = v * 16;
+  const long long avail = nbytes - off;
+  const bool vec = aligned && avail >= 16;
+  const C* rows = table + static_cast<long long>(row0) * s;
+
+  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+    unsigned char* dst = out + b * out_bstride + off;
+    uint32_t acc[RG][4];
+    zero_rows<RG>(acc);
+    if (mask != nullptr && mask[b] == 0) {   // uniform across the block
+      if (active) store_rows<RG>(dst, out_cstride, vec, avail, acc);
+      continue;
+    }
+    const unsigned char* src = in + b * in_bstride + off;
+    for (int j0 = 0; j0 < s; j0 += COLS) {
+      const int cols = (s - j0 < COLS) ? s - j0 : COLS;
+      __syncthreads();                        // the last tile is consumed
+      for (int idx = threadIdx.x; idx < RG * cols; idx += blockDim.x) {
+        const int i = idx / cols;
+        const int j = idx - i * cols;
+        tile[i * COLS + j] = rows[static_cast<long long>(i) * s + j0 + j];
+      }
+      __syncthreads();
+      if (!active) continue;
+      for (int j = 0; j < cols; ++j) {
+        uint32_t c[RG];
+#pragma unroll
+        for (int i = 0; i < RG; ++i) c[i] = tile[i * COLS + j];
+        fold_column<W, RG>(acc, c, src + (j0 + j) * in_cstride, vec, avail);
+      }
+    }
+    if (active) store_rows<RG>(dst, out_cstride, vec, avail, acc);
+  }
+}
+
+// One launch for output rows [row0, row0 + RG): the by-value kernel when
+// `table` is null, else the table kernel.
+template <int W, int RG, typename M, typename C>
 static void launch(dim3 grid, cudaStream_t stream, const unsigned char* in,
                    unsigned char* out, long long batch, long long nbytes,
                    long long in_bstride, long long in_cstride,
                    long long out_bstride, long long out_cstride, int aligned,
-                   int row0, const unsigned char* mask, const M& m) {
-  gf_matrix_kernel<W, RG, M><<<grid, 256, 0, stream>>>(
-      in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
-      out_cstride, aligned, row0, mask, m);
+                   int row0, const unsigned char* mask, const M& m,
+                   const C* table, int s) {
+  if (table == nullptr) {
+    gf_matrix_kernel<W, RG, M><<<grid, 256, 0, stream>>>(
+        in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
+        out_cstride, aligned, row0, mask, m);
+  } else {
+    gf_matrix_table_kernel<W, RG, C><<<grid, 256, 0, stream>>>(
+        in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
+        out_cstride, aligned, row0, mask, table, s);
+  }
 }
 
 // Launches ceil(r / GF_ROW_GROUP) kernels on `stream` on the current
-// device and returns the first CUDA error.
+// device and returns the first CUDA error.  `coef` (host) fills the
+// by-value matrix when `table` (device) is null.
 template <int W, typename M, typename C>
 static cudaError_t apply_on_current(const void* in, void* out,
                                     long long batch, long long nbytes,
@@ -231,12 +325,14 @@ static cudaError_t apply_on_current(const void* in, void* out,
                                     long long in_cstride,
                                     long long out_bstride,
                                     long long out_cstride, int r, int s,
-                                    const C* coef, const void* mask,
-                                    void* stream) {
+                                    const C* coef, const C* table,
+                                    const void* mask, void* stream) {
   M m;
   m.r = r;
   m.s = s;
-  for (int i = 0; i < r * s; ++i) m.coef[i] = coef[i];
+  if (table == nullptr) {
+    for (int i = 0; i < r * s; ++i) m.coef[i] = coef[i];
+  }
   const auto* src = static_cast<const unsigned char*>(in);
   auto* dst = static_cast<unsigned char*>(out);
   const bool aligned =
@@ -250,18 +346,21 @@ static cudaError_t apply_on_current(const void* in, void* out,
   const auto* mk = static_cast<const unsigned char*>(mask);
   for (int row0 = 0; row0 < r; row0 += GF_ROW_GROUP) {
     const int rg = (r - row0 < GF_ROW_GROUP) ? r - row0 : GF_ROW_GROUP;
-    const unsigned char* s_in = src;
-    unsigned char* d_out = dst + row0 * out_cstride;
+    unsigned char* d = dst + row0 * out_cstride;
+#define GF_LAUNCH(RG)                                                      \
+  launch<W, RG>(grid, st, src, d, batch, nbytes, in_bstride, in_cstride,   \
+                out_bstride, out_cstride, aligned, row0, mk, m, table, s)
     switch (rg) {
-      case 1: launch<W, 1>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 2: launch<W, 2>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 3: launch<W, 3>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 4: launch<W, 4>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 5: launch<W, 5>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 6: launch<W, 6>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      case 7: launch<W, 7>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
-      default: launch<W, 8>(grid, st, s_in, d_out, batch, nbytes, in_bstride, in_cstride, out_bstride, out_cstride, aligned, row0, mk, m); break;
+      case 1: GF_LAUNCH(1); break;
+      case 2: GF_LAUNCH(2); break;
+      case 3: GF_LAUNCH(3); break;
+      case 4: GF_LAUNCH(4); break;
+      case 5: GF_LAUNCH(5); break;
+      case 6: GF_LAUNCH(6); break;
+      case 7: GF_LAUNCH(7); break;
+      default: GF_LAUNCH(8); break;
     }
+#undef GF_LAUNCH
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -280,56 +379,58 @@ const char* gf8_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Apply the (r, s) GF(2^8) matrix `coef` (host memory, row-major) to
-// `batch` stripes of s input chunks of `nbytes` bytes each; strides are in
-// bytes.  Output row i of stripe b lands at out + b * out_bstride + i *
-// out_cstride.  `mask` is null (dense) or a device pointer to `batch`
-// uint8 page flags (ragged): a stripe whose flag is 0 reads nothing and
-// gets zero rows.  Launches ceil(r / GF_ROW_GROUP) kernels on `stream`, which
-// belongs to `device`, and returns the first CUDA error (0 when every
-// launch was accepted).  The caller's current device is restored before
-// returning.
+// Apply the (r, s) GF(2^8) matrix to `batch` stripes of s input chunks of
+// `nbytes` bytes each; strides are in bytes.  The matrix is `coef` (host
+// memory, row-major, at most GF8_MAX_COEF coefficients) when `table` is
+// null, else `table` (device memory, row-major, any size).  Output row i of
+// stripe b lands at out + b * out_bstride + i * out_cstride.  `mask` is null
+// (dense) or a device pointer to `batch` uint8 page flags (ragged): a
+// stripe whose flag is 0 reads nothing and gets zero rows.  Launches
+// ceil(r / GF_ROW_GROUP) kernels on `stream`, which belongs to `device`,
+// and returns the first CUDA error (0 when every launch was accepted).  The
+// caller's current device is restored before returning.
 int gf8_matrix_apply(const void* in, void* out, long long batch,
                      long long nbytes, long long in_bstride,
                      long long in_cstride, long long out_bstride,
                      long long out_cstride, int r, int s,
-                     const unsigned char* coef, const void* mask, int device,
-                     void* stream) {
-  if (r < 1 || s < 1 || static_cast<long long>(r) * s > GF8_MAX_COEF ||
-      batch < 1 || nbytes < 1) {
+                     const unsigned char* coef, const void* table,
+                     const void* mask, int device, void* stream) {
+  if (r < 1 || s < 1 || batch < 1 || nbytes < 1 ||
+      (table == nullptr && static_cast<long long>(r) * s > GF8_MAX_COEF)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return on_device(device, [&] {
-    return apply_on_current<8, Gf8Matrix>(in, out, batch, nbytes,
-                                          in_bstride, in_cstride,
-                                          out_bstride, out_cstride, r, s,
-                                          coef, mask, stream);
+    return apply_on_current<8, Gf8Matrix>(
+        in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
+        out_cstride, r, s, coef, static_cast<const unsigned char*>(table),
+        mask, stream);
   });
 }
 
-// The same for w = 16 or 32: `coef` holds uint32 coefficients below 2^w,
-// `nbytes` is a whole number of w-bit elements.
+// The same for w = 16 or 32: `coef` / `table` hold uint32 coefficients
+// below 2^w (`coef` at most GFW_MAX_COEF), `nbytes` is a whole number of
+// w-bit elements.
 int gfw_matrix_apply(const void* in, void* out, long long batch,
                      long long nbytes, long long in_bstride,
                      long long in_cstride, long long out_bstride,
                      long long out_cstride, int r, int s, int w,
-                     const uint32_t* coef, int device, void* stream) {
-  if (r < 1 || s < 1 || static_cast<long long>(r) * s > GFW_MAX_COEF ||
-      batch < 1 || nbytes < 1 || (w != 16 && w != 32) ||
-      nbytes % (w / 8) != 0) {
+                     const uint32_t* coef, const void* table, int device,
+                     void* stream) {
+  if (r < 1 || s < 1 || batch < 1 || nbytes < 1 || (w != 16 && w != 32) ||
+      nbytes % (w / 8) != 0 ||
+      (table == nullptr && static_cast<long long>(r) * s > GFW_MAX_COEF)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto* tab = static_cast<const uint32_t*>(table);
   return on_device(device, [&] {
     if (w == 16) {
-      return apply_on_current<16, GfwMatrix>(in, out, batch, nbytes,
-                                             in_bstride, in_cstride,
-                                             out_bstride, out_cstride, r,
-                                             s, coef, nullptr, stream);
+      return apply_on_current<16, GfwMatrix>(
+          in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
+          out_cstride, r, s, coef, tab, nullptr, stream);
     }
-    return apply_on_current<32, GfwMatrix>(in, out, batch, nbytes,
-                                           in_bstride, in_cstride,
-                                           out_bstride, out_cstride, r, s,
-                                           coef, nullptr, stream);
+    return apply_on_current<32, GfwMatrix>(
+        in, out, batch, nbytes, in_bstride, in_cstride, out_bstride,
+        out_cstride, r, s, coef, tab, nullptr, stream);
   });
 }
 

@@ -1,8 +1,9 @@
 """GF(2^w) matrix and GF(2) bitmatrix applies on the card: the kernel
 wrappers and the engine-selection table.
 
-Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py``.  Three
-hand-written CUDA sources stand in for nine TPU kernels, behind nine
+Counterpart of the kernel part of ``ceph_tpu/ops/pallas_gf.py`` and of
+the MXU path of ``ceph_tpu/ops/xla_ops.py``.  Four hand-written CUDA
+sources stand in for nine TPU kernels and the MXU path, behind eleven
 wrappers:
 
 - ``csrc/gf8_matrix.cu`` (GF(2^w) matrix, field width a template
@@ -24,6 +25,10 @@ wrappers:
   - :func:`apply_matrix_cuda_packed_ragged` — the same on a (P, s, R,
     128) uint32 pool.  Replaces ``apply_matrix_pallas_packed_ragged``.
 
+  Any table size (:func:`matrix_kernel_fits`): up to BY_VALUE_MAX_COEF
+  coefficients the matrix is a kernel parameter, above that a device
+  buffer cached per matrix (clay's 64 x 704 repair composites).
+
 - ``csrc/gf2_bitmatrix.cu`` (jerasure packet layout, any packetsize; one
   kernel that runs "rows", each the XOR of a list of slots):
 
@@ -43,6 +48,15 @@ wrappers:
   - :func:`apply_matrix_xor_cuda_packed` — packed layout.  Replaces
     ``apply_matrix_xor_packed``.
 
+- ``csrc/gf2_bitplane_mma.cu`` (a GF(2^8) matrix as a GF(2) product of
+  its (8r, 8s) bitmatrix with the input's bit-planes, int8 ``mma.sync``
+  on the tensor cores; the bitmatrix is kernel data cached per matrix):
+
+  - :func:`apply_matrix_mxu_cuda` — bytes layout.  Replaces
+    ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu``.
+  - :func:`apply_matrix_mxu_cuda_packed` — packed layout (the same
+    kernel on the words' uint8 view).
+
 A uint8 buffer read as little-endian uint32 is already the packed
 layout (and a uint16/uint32 word view is the same bytes), so the matrix
 wrappers hand one kernel the same bytes and differ only in how they
@@ -54,7 +68,7 @@ put the tensor; on a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its kernel launches in ``.launches``.
 
 :func:`select_matrix_engine` keeps the reference's table reduced to the
-rows this package has (xor / cuda / torch / numpy); :func:`apply_matrix_best`,
+rows this package has (xor / mxu / cuda / torch / numpy); :func:`apply_matrix_best`,
 :func:`apply_matrix_packed_best` and :func:`apply_bitmatrix_best`
 dispatch through it.  :func:`select_ragged_engine` projects it onto the
 ragged tiers (cuda / mask / numpy) for :func:`apply_matrix_best_ragged`
@@ -76,9 +90,9 @@ from . import regionops
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
-    apply_bitmatrix_xor_torch, apply_matrix_packed_ragged_torch, \
-    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_xor_torch, \
-    mask_pages
+    apply_bitmatrix_xor_torch, apply_matrix_mxu_torch, \
+    apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch, \
+    apply_matrix_torch, apply_matrix_xor_torch, mask_pages, mxu_bitmatrix
 from .xor_schedule import XorSchedule, host_matrix_apply, \
     preferred_schedule, row_program, word_program
 from ..telemetry import metrics as tel
@@ -183,8 +197,17 @@ def xor_schedule_op_count(sched_static) -> int:
 
 # -- the GF(2^w) matrix kernel -----------------------------------------------
 
-# (library, max w=8 coefficients, max w=16/32 coefficients, output rows
-# per launch), set on first use; the per-call path reads it without a lock
+# coefficients the kernel takes as a by-value kernel parameter
+# (csrc/gf8_matrix.cu GF8_MAX_COEF / GFW_MAX_COEF), checked against the
+# library when it loads; a larger table goes to the kernel's table
+# variant through a device buffer
+BY_VALUE_MAX_COEF = {8: 2048, 16: 512, 32: 512}
+# the largest table either variant takes: the kernel indexes rows with
+# 32-bit ints
+MAX_TABLE_COEF = (1 << 31) - 1
+
+# (library, output rows per launch), set on first use; the per-call path
+# reads it without a lock
 _lib_state = None
 
 
@@ -194,11 +217,11 @@ def _lib():
         lib = load("gf8_matrix")
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         lib.gf8_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, vp, i,
-            vp]
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, vp, vp,
+            i, vp]
         lib.gf8_matrix_apply.restype = i
         lib.gfw_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, ctypes.c_char_p, i,
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, ctypes.c_char_p, vp, i,
             vp]
         lib.gfw_matrix_apply.restype = i
         lib.gf8_max_coef.restype = i
@@ -206,9 +229,22 @@ def _lib():
         lib.gf8_row_group.restype = i
         lib.gf8_error_string.argtypes = [i]
         lib.gf8_error_string.restype = ctypes.c_char_p
-        _lib_state = (lib, lib.gf8_max_coef(), lib.gfw_max_coef(),
-                      lib.gf8_row_group())
+        have = (lib.gf8_max_coef(), lib.gfw_max_coef())
+        if have != (BY_VALUE_MAX_COEF[8], BY_VALUE_MAX_COEF[16]):
+            raise KernelLaunchError(
+                f"the GF(2^w) matrix kernel takes {have} coefficients by "
+                f"value; the wrapper plans for {BY_VALUE_MAX_COEF}")
+        _lib_state = (lib, lib.gf8_row_group())
     return _lib_state
+
+
+def matrix_kernel_fits(r: int, s: int, w: int = 8) -> bool:
+    """The dense GF(2^w) kernel's capacity rule, a pure function of the
+    shape: any (r, s) table up to MAX_TABLE_COEF coefficients.  Up to
+    BY_VALUE_MAX_COEF[w] it travels as a kernel parameter, above that
+    through a device buffer staged into shared memory."""
+    return w in BY_VALUE_MAX_COEF and r >= 1 and s >= 1 \
+        and r * s <= MAX_TABLE_COEF
 
 
 @functools.lru_cache(maxsize=512)
@@ -229,6 +265,14 @@ def _matrix_info(matrix_t, w: int = 8) -> tuple[int, int, bytes]:
     if w == 8:
         return r, s, bytes(flat)
     return r, s, np.asarray(flat, dtype="<u4").tobytes()
+
+
+@functools.lru_cache(maxsize=256)
+def _device_table(coef: bytes, device: torch.device) -> torch.Tensor:
+    """A coefficient table above the by-value limit, on ``device``:
+    uploaded once per matrix, then kernel data."""
+    tel.note_kernel_setup()
+    return torch.frombuffer(bytearray(coef), dtype=torch.uint8).to(device)
 
 
 def _merged_batch(x: torch.Tensor, nlead: int, elem: int
@@ -258,22 +302,27 @@ def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
             r: int, s: int, coef: bytes, w: int = 8,
             mask: torch.Tensor | None = None) -> int:
     """Launch the GF(2^w) matrix kernel on the current stream; return how
-    many launches it took (one per group of output rows).  ``mask`` (w=8
-    only): a (batch,) uint8 page mask on the card, the ragged variant."""
-    lib, max8, maxw, row_group = _lib()
-    max_coef = max8 if w == 8 else maxw
-    if r * s > max_coef:
+    many launches it took (one per group of output rows).  A table above
+    BY_VALUE_MAX_COEF[w] goes through its cached device buffer.
+    ``mask`` (w=8 only): a (batch,) uint8 page mask on the card, the
+    ragged variant."""
+    if not matrix_kernel_fits(r, s, w):
         raise ValueError(f"({r}, {s}) matrix exceeds the kernel's "
-                         f"{max_coef} coefficients for w={w}")
+                         f"{MAX_TABLE_COEF} coefficients")
+    lib, row_group = _lib()
+    table = None
+    if r * s > BY_VALUE_MAX_COEF[w]:
+        table = _device_table(coef, x.device).data_ptr()
     args = (x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
             in_strides[1], out_strides[0], out_strides[1], r, s)
     where = (_device_index(x),
              torch.cuda.current_stream(x.device).cuda_stream)
     if w == 8:
         err = lib.gf8_matrix_apply(
-            *args, coef, None if mask is None else mask.data_ptr(), *where)
+            *args, coef, table, None if mask is None else mask.data_ptr(),
+            *where)
     else:
-        err = lib.gfw_matrix_apply(*args, w, coef, *where)
+        err = lib.gfw_matrix_apply(*args, w, coef, table, *where)
     if err:
         raise KernelLaunchError(
             f"GF(2^{w}) matrix kernel failed: CUDA error {err} "
@@ -791,11 +840,137 @@ def apply_matrix_xor_cuda_packed(words: torch.Tensor, sched_static
 
 apply_matrix_xor_cuda_packed.launches = 0
 
+# -- the GF(2) bit-plane product on the tensor cores ---------------------------
+
+_mmalib_state = None
+
+
+def _mmalib():
+    global _mmalib_state
+    if _mmalib_state is None:
+        lib = load("gf2_bitplane_mma")
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.gf2_mma_apply.argtypes = [
+            vp, vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, i, i, vp]
+        lib.gf2_mma_apply.restype = i
+        lib.gf2_mma_error_string.argtypes = [i]
+        lib.gf2_mma_error_string.restype = ctypes.c_char_p
+        lib.gf2_mma_tile_m.restype = i
+        lib.gf2_mma_tile_k.restype = i
+        tiles = (lib.gf2_mma_tile_m(), lib.gf2_mma_tile_k())
+        if tiles != (MMA_TILE_M, MMA_TILE_K):
+            raise KernelLaunchError(
+                f"the bit-plane kernel takes tiles of {tiles}; the wrapper "
+                f"pads the bitmatrix to {(MMA_TILE_M, MMA_TILE_K)}")
+        _mmalib_state = lib
+    return _mmalib_state
+
+
+MMA_TILE_M, MMA_TILE_K = 64, 32   # bitmatrix rows / columns per kernel tile
+
+
+@functools.lru_cache(maxsize=256)
+def _device_bitmatrix(matrix_t, device: torch.device) -> torch.Tensor:
+    """The (8r, 8s) GF(2) bitmatrix of ``matrix_t`` as int8 0/1 on
+    ``device``, zero-padded to whole (MMA_TILE_M, MMA_TILE_K) tiles:
+    built once per matrix, then kernel data."""
+    bm = mxu_bitmatrix(matrix_t)
+    rows = -(-bm.shape[0] // MMA_TILE_M) * MMA_TILE_M
+    cols = -(-bm.shape[1] // MMA_TILE_K) * MMA_TILE_K
+    padded = np.zeros((rows, cols), dtype=np.int8)
+    padded[:bm.shape[0], :bm.shape[1]] = bm
+    tel.note_kernel_setup()
+    return torch.from_numpy(padded).to(device)
+
+
+def _launch_mma(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
+                nbytes: int, in_strides: tuple[int, int],
+                out_strides: tuple[int, int], matrix_t) -> None:
+    """Run the bit-plane kernel on the current stream, counted on
+    ``fn``."""
+    lib = _mmalib()
+    bm = _device_bitmatrix(matrix_t, x.device)
+    err = lib.gf2_mma_apply(
+        x.data_ptr(), out.data_ptr(), bm.data_ptr(), batch, nbytes,
+        *in_strides, *out_strides, len(matrix_t), len(matrix_t[0]),
+        bm.shape[0], bm.shape[1], _device_index(x),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise KernelLaunchError(
+            f"{fn.__name__} failed: CUDA error {err} "
+            f"({lib.gf2_mma_error_string(err).decode()})")
+    fn.launches += 1
+
+
+def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
+    """Apply a (r, s) GF(2^8) matrix to (..., s, C) uint8 chunks ->
+    (..., r, C) as a GF(2) bit-plane product on the tensor cores (the
+    reference's MXU tier).  Any C; the chunk dimension may be strided
+    as long as each chunk's bytes are contiguous."""
+    static = _static(matrix_t)
+    r, s, _ = _matrix_info(static)
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
+            or chunks.shape[-2] != s:
+        raise ValueError(f"need (..., {s}, C) uint8 chunks, got "
+                         f"{tuple(chunks.shape)} {chunks.dtype}")
+    if chunks.device.type == "cpu":
+        return apply_matrix_mxu_torch(chunks, static)
+    _check_cuda(chunks)
+    if chunks.stride(-1) != 1:
+        raise ValueError("chunk bytes must be contiguous (stride 1)")
+    lead, c = tuple(chunks.shape[:-2]), chunks.shape[-1]
+    out = torch.empty(lead + (r, c), dtype=torch.uint8, device=chunks.device)
+    if out.numel() == 0:
+        return out
+    batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
+    _launch_mma(apply_matrix_mxu_cuda, chunks, out, batch, c,
+                (bstride, chunks.stride(-2)), (r * c, c), static)
+    return out
+
+
+apply_matrix_mxu_cuda.launches = 0
+
+
+def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
+                                 ) -> torch.Tensor:
+    """Packed-layout twin: (..., s, R, 128) uint32 -> (..., r, R, 128),
+    the same kernel on the free uint8 view of the words.  Each chunk's
+    (R, 128) words must be contiguous; the chunk dimension may be
+    strided."""
+    static = _static(matrix_t)
+    r, s, _ = _matrix_info(static)
+    if words.dtype != torch.uint32 or words.dim() < 3 \
+            or words.shape[-3] != s or words.shape[-1] != LANE:
+        raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if words.device.type == "cpu":
+        return pack_chunks(apply_matrix_mxu_torch(unpack_chunks(words),
+                                                  static))
+    _check_cuda(words)
+    if words.stride(-1) != 1 or (words.shape[-2] > 1
+                                 and words.stride(-2) != LANE):
+        raise ValueError("each chunk's (R, 128) words must be contiguous")
+    lead, rows = tuple(words.shape[:-3]), words.shape[-2]
+    nbytes = rows * PACKED_ROW_BYTES
+    out = torch.empty(lead + (r, nbytes), dtype=torch.uint8,
+                      device=words.device)
+    if out.numel() == 0:
+        return pack_chunks(out)
+    batch, bstride = _merged_batch(words, words.dim() - 3, 4)
+    _launch_mma(apply_matrix_mxu_cuda_packed, words, out, batch, nbytes,
+                (bstride, words.stride(-3) * 4), (r * nbytes, nbytes),
+                static)
+    return pack_chunks(out)
+
+
+apply_matrix_mxu_cuda_packed.launches = 0
+
 WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed,
             apply_matrix_cuda_words, apply_bitmatrix_cuda,
             apply_bitmatrix_xor_cuda, apply_matrix_xor_cuda,
             apply_matrix_xor_cuda_packed, apply_matrix_cuda_ragged,
-            apply_matrix_cuda_packed_ragged)
+            apply_matrix_cuda_packed_ragged, apply_matrix_mxu_cuda,
+            apply_matrix_mxu_cuda_packed)
 
 
 def launch_counts() -> dict:
@@ -872,6 +1047,13 @@ def _xor_static(matrix_t):
                               mxu_min=MXU_MATRIX_MIN).static
 
 
+@functools.lru_cache(maxsize=256)
+def _matrix_nnz(matrix_t) -> int:
+    """Nonzero coefficients of a static table.  Cached: it runs in the
+    per-call dispatch, and a clay composite has 45k coefficients."""
+    return sum(1 for row in matrix_t for v in row if v)
+
+
 def select_matrix_engine(w: int = 8, device=None,
                          engine: str | None = None, *, shape=None,
                          matrix_t=None, packed: bool = False) -> str:
@@ -892,21 +1074,24 @@ def select_matrix_engine(w: int = 8, device=None,
                (``xor_program_fits``).  On a CUDA tensor the
                XOR-schedule kernel runs it, on a CPU tensor the plain
                torch schedule;
+    - "mxu":   a w=8 matrix with MXU_MATRIX_MIN nonzeros or more on a
+               CUDA tensor (clay's composites): the GF(2) bit-plane
+               product on the tensor cores (``apply_matrix_mxu_cuda``);
     - "cuda":  a hand-written kernel for every other CUDA tensor: the
-               dense w=8 bytes or packed kernel, the w=16/32 word
-               kernel, or a bitmatrix kernel;
+               dense w=8 bytes or packed kernel (any table size:
+               ``matrix_kernel_fits``), the w=16/32 word kernel, or a
+               bitmatrix kernel;
     - "torch": the plain torch tier — CPU tensors, and a forced torch
                tier on CPU tensors.
 
     The order is the reference's (``ceph_tpu/ops/pallas_gf.py``): the
-    numpy tier first, then the xor row, then the device tier.  ``engine``
-    forces a tier for this call in place of the process policy; like
-    the policy's, a forced torch or numpy tier raises for a CUDA
-    ``device``, so a card tensor never leaves the kernels.  Not ported
-    yet: the mesh row (ROADMAP Queue A item 8), the tuned pins (Queue A
-    item 10) and the mxu row (Queue B item 8) — a matrix with
-    MXU_MATRIX_MIN nonzeros or more and no preferred schedule stays on
-    the dense kernel.
+    numpy tier first, then the xor row, then the mxu row and the device
+    tier, which only a device tensor reaches (the reference's "xla" is
+    the port's "torch").  ``engine`` forces a tier for this call in
+    place of the process policy; like the policy's, a forced torch or
+    numpy tier raises for a CUDA ``device``, so a card tensor never
+    leaves the kernels.  Not ported: the mesh row (it comes with the
+    data plane) and the tuned pins and cutover (with the tuning table).
     """
     if w < 1:
         raise ValueError(f"w={w} must be positive")
@@ -914,13 +1099,16 @@ def select_matrix_engine(w: int = 8, device=None,
     eng = policy.engine(device)
     if eng == "numpy":
         return "numpy"
-    if (w == 8 and matrix_t
+    static = _static(matrix_t) if matrix_t else None
+    if (w == 8 and static
             and (packed or (shape is not None and len(shape) >= 2
                             and shape[-1] % 4 == 0))):
-        sched = preferred_schedule(_static(matrix_t), 8,
-                                   mxu_min=MXU_MATRIX_MIN)
+        sched = preferred_schedule(static, 8, mxu_min=MXU_MATRIX_MIN)
         if sched is not None and xor_program_fits(sched.static):
             return "xor"
+    if eng == "cuda" and w == 8 and static \
+            and _matrix_nnz(static) >= MXU_MATRIX_MIN:
+        return "mxu"
     return eng
 
 
@@ -935,6 +1123,8 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
                                matrix_t=matrix_t)
     if eng == "xor":
         return apply_matrix_xor_cuda(chunks, _xor_static(matrix_t))
+    if eng == "mxu":
+        return apply_matrix_mxu_cuda(chunks, matrix_t)
     if eng == "cuda":
         if w == 8:
             return apply_matrix_cuda(chunks, matrix_t)
@@ -951,6 +1141,8 @@ def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
                                matrix_t=matrix_t, packed=True)
     if eng == "xor":
         return apply_matrix_xor_cuda_packed(words, _xor_static(matrix_t))
+    if eng == "mxu":
+        return apply_matrix_mxu_cuda_packed(words, matrix_t)
     if eng == "cuda":
         return apply_matrix_cuda_packed(words, matrix_t)
     byts = unpack_chunks(words)
@@ -990,9 +1182,11 @@ def select_ragged_engine(shape, matrix_t, w: int = 8, packed: bool = False,
     projected onto the ragged tiers, as the reference's
     ``select_ragged_engine`` does (its "pallas" is the port's "cuda"):
 
-    - "cuda":  the dense table picked the device kernel (not "xor") and
-               the pool has at least tuned_ragged_cutover() pages;
-    - "mask":  mask_pages, then the dense table on the product;
+    - "cuda":  the dense table picked the dense device kernel (not
+               "xor" or "mxu") and the pool has at least
+               tuned_ragged_cutover() pages;
+    - "mask":  mask_pages, then the dense table on the product (the
+               XOR-schedule or bit-plane kernel on the card);
     - "numpy": the numpy tier was forced (CPU tensors only).
     """
     inner = select_matrix_engine(w, device, engine, shape=tuple(shape),
@@ -1108,16 +1302,19 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 
 __all__ = [
-    "MXU_MATRIX_MIN", "RAGGED_MIN_PAGES", "WRAPPERS", "XOR_SMEM_BUDGET",
+    "BY_VALUE_MAX_COEF", "MAX_TABLE_COEF", "MXU_MATRIX_MIN",
+    "RAGGED_MIN_PAGES", "WRAPPERS", "XOR_SMEM_BUDGET",
     "apply_bitmatrix_best", "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
     "apply_bitmatrix_xor_cuda", "apply_matrix_best",
     "apply_matrix_best_ragged", "apply_matrix_cuda",
     "apply_matrix_cuda_packed", "apply_matrix_cuda_packed_ragged",
     "apply_matrix_cuda_ragged", "apply_matrix_cuda_words",
+    "apply_matrix_mxu_cuda", "apply_matrix_mxu_cuda_packed",
     "apply_matrix_numpy", "apply_matrix_packed_best",
     "apply_matrix_packed_best_ragged", "apply_matrix_xor_cuda",
     "apply_matrix_xor_cuda_packed", "bitmatrix_op_count", "dense_op_count",
-    "launch_counts", "mask_pages", "pack_chunks", "pack_rows",
+    "launch_counts", "mask_pages", "matrix_kernel_fits", "pack_chunks",
+    "pack_rows",
     "pack_word_program", "reset_launch_counts", "schedule_op_count",
     "select_matrix_engine", "select_ragged_engine", "sm90_op_count",
     "tuned_ragged_cutover", "unpack_chunks", "xor_program_fits",

@@ -19,7 +19,11 @@ holds each kernel against its plain version on the card.
 - :func:`apply_matrix_ragged_torch` / :func:`apply_matrix_packed_ragged_torch`
   — the GF(2^8) matrix over a page pool under a (P,) activity mask: the
   dead pages zeroed by :func:`mask_pages`, then :func:`apply_matrix_torch`
-  (the reference's mask tier).
+  (the reference's mask tier);
+- :func:`apply_matrix_mxu_torch` — a GF(2^8) matrix as one GF(2)
+  product of its (8r, 8s) bitmatrix (:func:`mxu_bitmatrix`) with the
+  input's LSB-first bit-planes, the twin of
+  ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu``.
 
 The math is the reference's SWAR walk: four GF(2^8) field bytes (or
 two GF(2^16) halfwords, or one GF(2^32) word) packed in a 32-bit
@@ -35,10 +39,13 @@ cleared before the shift, so no bit crosses an element boundary.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..gf.bitmatrix import value_to_bitmatrix
 from ..gf.gf8 import DEFAULT_POLY
 
 # w-bit word dtype of each field width (the words view of a byte region)
@@ -340,3 +347,53 @@ def apply_bitmatrix_xor_torch(chunks: torch.Tensor, sched_static, w: int,
                             lambda: torch.zeros_like(ins[0]))
     return _from_packet_rows(outs, tuple(chunks.shape[:-2]), rw // w, w,
                              chunks.shape[-1])
+
+
+@functools.lru_cache(maxsize=1)
+def _value_bitmatrices() -> np.ndarray:
+    """(256, 8, 8): the GF(2) bitmatrix of every GF(2^8) value."""
+    return np.stack([value_to_bitmatrix(e, 8) for e in range(256)])
+
+
+@functools.lru_cache(maxsize=256)
+def mxu_bitmatrix(matrix_t) -> np.ndarray:
+    """The (8r, 8s) uint8 GF(2) bitmatrix of a (r, s) GF(2^8) table
+    (hashable tuple of tuples): block (i, j) is the bitmatrix of M[i][j]
+    (column x = the bits of M[i][j] * 2^x), as
+    ``gf.bitmatrix.matrix_to_bitmatrix(s, r, 8, M)`` lays it out, built
+    by table lookup."""
+    mat = np.asarray(matrix_t, dtype=np.int64)
+    r, s = mat.shape
+    blocks = _value_bitmatrices()[mat]              # (r, s, 8, 8)
+    return np.ascontiguousarray(blocks.transpose(0, 2, 1, 3).reshape(
+        8 * r, 8 * s))
+
+
+def apply_matrix_mxu_torch(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
+    """Apply a (r, s) GF(2^8) matrix to (..., s, C) uint8 -> (..., r, C)
+    as one GF(2) product: the (8r, 8s) bitmatrix times the LSB-first
+    bit-planes of the input (row 8j + x = bit x of chunk j), in float32
+    (exact: 0/1 operands, sums at most 8s < 2^24), then ``& 1`` and the
+    bit repack.  The same contract as
+    ``ceph_tpu.ops.xla_ops.apply_matrix_mxu``; the plain version of
+    ``gf_kernels.apply_matrix_mxu_cuda``."""
+    static = tuple(tuple(int(x) for x in row) for row in matrix_t)
+    r = len(static)
+    s = len(static[0]) if r else 0
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
+            or chunks.shape[-2] != s or r == 0:
+        raise ValueError(f"need (..., {s}, C) uint8 chunks for a ({r}, "
+                         f"{s}) matrix, got {tuple(chunks.shape)} "
+                         f"{chunks.dtype}")
+    if 8 * s >= 1 << 24:
+        raise ValueError(f"a matrix {s} columns wide overflows the exact "
+                         f"float32 sum")
+    lead, c = tuple(chunks.shape[:-2]), chunks.shape[-1]
+    bm = torch.from_numpy(mxu_bitmatrix(static)).to(chunks.device,
+                                                     torch.float32)
+    planes = torch.arange(8, dtype=torch.uint8, device=chunks.device)
+    bits = (chunks[..., :, None, :] >> planes[:, None]) & 1
+    x = bits.reshape(lead + (8 * s, c)).to(torch.float32)
+    par = (torch.matmul(bm, x).to(torch.int32) & 1).to(torch.uint8)
+    par = par.reshape(lead + (r, 8, c)) << planes[:, None]
+    return par.sum(dim=-2).to(torch.uint8)

@@ -23,8 +23,7 @@ with deadlines.  This package is the conversion layer:
 
 Host bookkeeping touches no device; the device seams are
 :func:`ceph_tpu_torch.codes.engine.serve_dispatch_call` and
-``serve_dispatch_ragged``.  ``default_spec`` is not ported yet (its mix
-names clay).
+``serve_dispatch_ragged``.
 """
 
 from .queue import OPS, AdmissionQueue, EcRequest, EcResult
@@ -44,6 +43,7 @@ from .loadgen import (
     LoadGenerator,
     ServingRun,
     TrafficSpec,
+    default_spec,
     run_serving_scenario,
     throughput_service_model,
     verify_results,
@@ -65,6 +65,7 @@ __all__ = [
     "SlaRecorder",
     "SloPolicy",
     "TrafficSpec",
+    "default_spec",
     "effective_page_size",
     "join_pages",
     "pool_selftest",

@@ -25,8 +25,8 @@ With a FakeClock + a deterministic ``service_model`` the whole run is
 a simulation: batch compositions, latencies and the SLO report are
 byte-identical across runs from one seed, and equal to the
 reference's.  With the real clock and no model, latencies are
-wall-clock truth.  Not ported yet: ``default_spec``, whose mix names
-clay (it comes with the clay slice).
+wall-clock truth.  :func:`default_spec` is the reference's canonical
+mix (RS : shec : clay = 3 : 2 : 1).
 """
 
 from __future__ import annotations
@@ -141,6 +141,28 @@ class TrafficSpec:
             tenant=d.get("tenant", ""),
             diurnal_period_s=d.get("diurnal_period_s"),
             diurnal_min_frac=d.get("diurnal_min_frac", 1.0))
+
+
+def default_spec(seed: int = 42, n_requests: int = 256,
+                 stripe_size: int = 1 << 16,
+                 arrival: str = "closed",
+                 erasures: int = 1, **overrides) -> TrafficSpec:
+    """The canonical mixed scenario: RS + shec + clay, encode-heavy
+    with a decode/repair tail — the reference's ``default_spec``, the
+    same codecs, weights, seed and defaults."""
+    codecs = [
+        CodecSpec("rs_k8_m3", "jerasure",
+                  {"technique": "reed_sol_van", "k": "8", "m": "3"},
+                  stripe_size, weight=3.0),
+        CodecSpec("shec_k6_m3_c2", "shec",
+                  {"k": "6", "m": "3", "c": "2"}, stripe_size,
+                  weight=2.0),
+        CodecSpec("clay_k8_m4_d11", "clay",
+                  {"k": "8", "m": "4", "d": "11"}, stripe_size,
+                  weight=1.0),
+    ]
+    return TrafficSpec(seed=seed, n_requests=n_requests, codecs=codecs,
+                       arrival=arrival, erasures=erasures, **overrides)
 
 
 # ----------------------------------------------------------------------

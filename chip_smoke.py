@@ -35,6 +35,16 @@ source, all started together) and then, in order:
      all-dead and an all-live mask, for the RS encode matrix and random
      r in {1, 3, 11}, also against the dense kernel on the masked pool;
      dead pages must be zero;
+   - the GF(2) bit-plane kernel (bytes and packed wrappers): the clay
+     k=8 m=4 d=11 encode composite (256 x 512) at (64, 512, 2048), a
+     (64, 704) single-erasure decode composite at (4, 704, 2048),
+     random matrices with zeros for r in {16, 64} and s in {48, 176,
+     704}, a C off the tile (2048 + 4), no batch dimension;
+   - the dense kernel's table variant (a table above 2048
+     coefficients): the four clay (64, 704) parity repair composites,
+     dense and ragged (half-live mask), bytes and packed;
+   - the roofline probes' copy and fold kernels on a (64, 8, 256, 128)
+     slab (64 MiB);
 
    and two stripes of each against the numpy ground truth;
 3. drives the paths through the entry points a user calls, each with
@@ -74,6 +84,19 @@ source, all started together) and then, in order:
      launches on the paged run and never on the dense one;
    - ``apply_matrix_packed_best_ragged``, the packed ragged ops entry,
      once;
+   - clay: ``factory("clay", k=8 m=4 d=11)`` on the card encodes 64 x
+     1 MiB stripes through ``encode_chunks_torch``,
+     ``encode_chunks_batch`` and the packed entry, decodes all 78 one-
+     and two-erasure patterns of a 4-stripe batch in both layouts (the
+     bit-plane kernel on the 74 "mxu" patterns, the dense kernel's table
+     variant on the 4 parity repairs), repairs one chunk through the
+     dict API from the sub-chunk runs of ``minimum_to_decode``, and runs
+     clay k=4 m=2 d=5 once;
+   - the serving stream above carries the reference ``default_spec``'s
+     clay share (clay k=8 m=4 d=11 at 1 MiB, weight 1 beside RS 3 and
+     shec 2), dense and paged;
+   - the roofline tool (``ceph_tpu_torch.tools.roofline``): its five
+     probes at 64 MiB slabs, loop 64;
 4. times each kernel, its plain version and a copy of the same bytes
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
@@ -83,8 +106,12 @@ source, all started together) and then, in order:
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
    under SLO and p50/p99 per op, and where one fire's time goes (copy
    in, the call, copy out, demux), paged and dense; and prints one JSON
-   line ``{"kernels": [...]}`` (nine wrappers; "ms" is the profiler's
-   device time, the event time where the trace has no kernel).
+   line ``{"kernels": [...]}`` (thirteen wrappers; "ms" is the profiler's
+   device time, the event time where the trace has no kernel); the
+   bit-plane kernel beside the dense kernel and ``torch._int_mm`` on the
+   materialised bit-planes of the same clay matrices (the library GEMM,
+   timed here and used nowhere in the port), and the host time of the
+   clay composite probes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -109,11 +136,15 @@ import time
 # gf_kernels.sm90_op_count, bitmatrix_op_count, schedule_op_count).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the dense int8 tensor-core peak (the bit-plane kernel's operand type)
+INT8_OPS_PER_S = 1979e12
 
 K, M, BATCH, CHUNK = 8, 3, 64, 128 * 1024     # 64 x 1 MiB stripes
 LRC_K, LRC_CHUNK = 4, 256 * 1024              # lrc / shec k=4: 1 MiB stripes
 DECODE_BATCH = 4
 PACKETSIZE = 2048                             # jerasure's default
+CLAY = {"k": "8", "m": "4", "d": "11"}        # the reference's clay mix
+ROOF_MIB, ROOF_LOOP = 64, 64                  # the roofline tool's defaults
 WORDS = 65536                                 # w=16/32 words per chunk
 SRC = "ceph_tpu_torch/ops/csrc/"
 
@@ -122,7 +153,8 @@ SRC = "ceph_tpu_torch/ops/csrc/"
 # and 4 MiB (RADOS's default object size), shec k=6 m=3 c=2 at 1 MiB,
 # weighted 3 : 2 between RS and shec as the reference's default_spec
 # does; pages of 4096 bytes (Ceph's default EC stripe_unit, which divides
-# every RS chunk of the mix), 512 per pool
+# every RS chunk of the mix), 512 per pool; and default_spec's clay share,
+# clay k=8 m=4 d=11 at 1 MiB, weight 1
 SERVE_REQUESTS, SERVE_CONCURRENCY = 512, 64
 PAGE, SERVE_POOL_PAGES = 4096, 512
 RAG_PAGES = 512                               # the ragged kernel's pool
@@ -141,6 +173,8 @@ def serving_spec(paged: bool):
     codecs.append(CodecSpec("shec_k6_m3_c2_1024k", "shec",
                             {"k": "6", "m": "3", "c": "2"}, 1 << 20,
                             weight=2.0))
+    codecs.append(CodecSpec("clay_k8_m4_d11_1024k", "clay", dict(CLAY),
+                            1 << 20, weight=1.0))
     return TrafficSpec(seed=0, n_requests=SERVE_REQUESTS, codecs=codecs,
                        concurrency=SERVE_CONCURRENCY, erasures=1,
                        ladder=(1, 4, 16, 64), paged=paged,
@@ -195,11 +229,13 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float | None:
     return sum(us) / 1e3 / iters if len(us) >= iters else None
 
 
-def bound_ms(moved_bytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(moved_bytes: int, ops: int, peak: float = INT32_OPS_PER_S
+             ) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over
-    HBM bandwidth and the integer ops over the INT32 peak."""
+    HBM bandwidth and the ops over their type's peak (INT32 unless
+    ``peak`` says otherwise)."""
     t_mem = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_mem, t_ops), ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -251,20 +287,27 @@ def main(argv=None) -> int:
         return 2
     # the port lives beside this script; a bare copy fails here
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
-    from ceph_tpu_torch.ops import _build, gf_kernels, regionops
+    from ceph_tpu_torch.ops import _build, gf_kernels, probe_kernels, \
+        regionops
     from ceph_tpu_torch.ops.gf_kernels import (
         MXU_MATRIX_MIN, apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda,
         apply_matrix_cuda, apply_matrix_cuda_packed,
         apply_matrix_cuda_packed_ragged, apply_matrix_cuda_ragged,
-        apply_matrix_cuda_words, apply_matrix_packed_best_ragged,
+        apply_matrix_cuda_words, apply_matrix_mxu_cuda,
+        apply_matrix_mxu_cuda_packed, apply_matrix_packed_best_ragged,
         apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed,
         bitmatrix_op_count, dense_op_count, pack_chunks, schedule_op_count,
-        sm90_op_count, unpack_chunks, xor_schedule_op_count)
+        select_matrix_engine, sm90_op_count, unpack_chunks,
+        xor_schedule_op_count)
+    from ceph_tpu_torch.ops.probe_kernels import (
+        copy_slab_cuda, copy_slab_torch, fold_slab_cuda, fold_slab_torch)
     from ceph_tpu_torch.ops.torch_ops import (
         WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
-        apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch,
-        apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
-        mask_pages, matrix_to_static)
+        apply_matrix_mxu_torch, apply_matrix_packed_ragged_torch,
+        apply_matrix_ragged_torch, apply_matrix_torch,
+        apply_matrix_xor_torch, bitmatrix_to_static, mask_pages,
+        matrix_to_static, mxu_bitmatrix)
+    from ceph_tpu_torch.tools import roofline
     from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
                                              serve_dispatch_ragged)
     from ceph_tpu_torch.serve import (EcRequest, run_serving_scenario,
@@ -561,9 +604,143 @@ def main(argv=None) -> int:
           f"{PAGE}), {len(rag_mats)} matrices x {len(rag_masks)} masks; "
           f"dead pages zero")
 
+    # the GF(2) bit-plane kernel (bytes and packed wrappers): the clay
+    # k=8 m=4 d=11 encode composite at its main shape, a (64, 704) decode
+    # composite, random matrices with zeros, a C off the tile, no batch dim
+    clay = reg.factory("clay", dict(CLAY))
+    check(clay.device.type == "cuda", f"clay runs on {clay.device}")
+    sub = clay.get_sub_chunk_count()
+    clay_chunk = clay.get_chunk_size(1 << 20)
+    check((sub, clay_chunk) == (64, CHUNK), f"clay geometry {sub} "
+          f"sub-chunks of a {clay_chunk} byte chunk")
+    sc = clay_chunk // sub
+    n_clay = clay.k + clay.m
+    t0 = time.perf_counter()
+    clay_enc, clay_enc_ms = clay._encode_composite()
+    clay_probe_s = {"encode": time.perf_counter() - t0}
+    e1_clay = (0,)
+    a1_clay = tuple(i for i in range(n_clay) if i not in e1_clay)
+    t0 = time.perf_counter()
+    clay_dec, clay_dec_ms = clay._decode_composite(a1_clay, e1_clay)
+    clay_probe_s["decode (0,)"] = time.perf_counter() - t0
+    check(clay_enc.shape == (256, 512) and clay_dec.shape == (64, 704),
+          f"clay composites {clay_enc.shape} {clay_dec.shape}")
+    clay_host = rng.integers(0, 256, (BATCH, clay.k, clay_chunk),
+                             dtype=np.uint8)
+    clay_data = torch.from_numpy(clay_host).to(dev)
+    clay_x = clay_data.reshape(BATCH, clay.k * sub, sc)     # (64, 512, 2048)
+    mxu_plain = apply_matrix_mxu_torch(clay_x, clay_enc_ms)
+    got = apply_matrix_mxu_cuda(clay_x, clay_enc_ms)
+    err.hold("apply_matrix_mxu_cuda", got, mxu_plain,
+             f"clay encode composite, {tuple(clay_x.shape)}")
+    clay_words = pack_chunks(clay_x)
+    err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
+        apply_matrix_mxu_cuda_packed(clay_words, clay_enc_ms)), mxu_plain,
+        "clay encode composite, packed")
+    check(np.array_equal(got[:2].cpu().numpy(), regionops.matrix_encode(
+        clay_host[:2].reshape(2, clay.k * sub, sc), clay_enc, 8)),
+        "bit-plane kernel == numpy ground truth, 2 stripes")
+    clay_parity = got.reshape(BATCH, clay.m, clay_chunk)
+    clay_full = torch.cat([clay_data[:DECODE_BATCH],
+                           clay_parity[:DECODE_BATCH]], dim=1)
+    dec_x = clay_full[:, list(a1_clay)].reshape(DECODE_BATCH,
+                                                len(a1_clay) * sub, sc)
+    got = apply_matrix_mxu_cuda(dec_x, clay_dec_ms)
+    err.hold("apply_matrix_mxu_cuda", got, apply_matrix_mxu_torch(
+        dec_x, clay_dec_ms), f"clay decode (0,), {tuple(dec_x.shape)}")
+    check(torch.equal(got.reshape(DECODE_BATCH, clay_chunk),
+                      clay_full[:, 0]), "the (0,) composite recovers")
+    err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
+        apply_matrix_mxu_cuda_packed(pack_chunks(dec_x), clay_dec_ms)), got,
+        "clay decode (0,), packed")
+    n_mxu = 0
+    for r, s_, c, lead in ((16, 48, 8192, (3,)), (64, 176, 2048 + 4, (2,)),
+                           (64, 704, 2048, ()), (16, 176, 4096, ()),
+                           (64, 48, 1000, (5,)), (16, 704, 512, (2,))):
+        m_r = rng.integers(0, 256, (r, s_))
+        m_r[rng.random((r, s_)) < 0.7] = 0
+        mr = matrix_to_static(m_r)
+        xh = rng.integers(0, 256, lead + (s_ + 1, c), dtype=np.uint8)
+        x = torch.from_numpy(xh).to(dev)[..., :s_, :]        # strided slice
+        want = apply_matrix_mxu_torch(x, mr)
+        err.hold("apply_matrix_mxu_cuda", apply_matrix_mxu_cuda(x, mr), want,
+                 f"bit-plane kernel r={r} s={s_} C={c} lead={lead}")
+        if c % 512 == 0:
+            err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
+                apply_matrix_mxu_cuda_packed(pack_chunks(x), mr)), want,
+                f"bit-plane kernel packed r={r} s={s_}")
+        flat = xh[..., :s_, :].reshape((-1, s_, c))[:2]
+        check(np.array_equal(want.reshape((-1, r, c))[:2].cpu().numpy(),
+                             np.stack([regionops.matrix_encode(f, m_r, 8)
+                                       for f in flat])),
+              f"bit-plane r={r} s={s_} == numpy ground truth")
+        n_mxu += 1
+    print(f"phase 2: bit-plane kernel equal in both layouts on the clay "
+          f"encode composite {tuple(clay_x.shape)}, the (64, 704) decode "
+          f"(0,) at {tuple(dec_x.shape)} and {n_mxu} random matrices (r in "
+          f"16, 64; s in 48, 176, 704; C = 2052, 1000; no batch dim; "
+          f"strided slices), and to the host ground truth")
+
+    # the dense kernel's table variant: the four (64, 704) parity repairs
+    # of clay (45056 coefficients, above the 2048 taken by value), dense
+    # and ragged, bytes and packed
+    big = []
+    for e in range(clay.k, n_clay):
+        avail = tuple(i for i in range(n_clay) if i != e)
+        dm, dm_ms = clay._decode_composite(avail, (e,))
+        check(len(dm_ms) * len(dm_ms[0]) > 2048, "a table above 2048")
+        check(select_matrix_engine(8, dev, shape=(DECODE_BATCH, 704, sc),
+                                   matrix_t=dm_ms) == "cuda",
+              f"the repair of chunk {e} routes to the dense kernel")
+        x = clay_full[:, list(avail)].reshape(DECODE_BATCH, 704, sc)
+        want = apply_matrix_torch(x, dm_ms, 8)
+        got = apply_matrix_cuda(x, dm_ms)
+        err.hold("apply_matrix_cuda", got, want, f"table variant, repair {e}")
+        check(torch.equal(got.reshape(DECODE_BATCH, clay_chunk),
+                          clay_full[:, e]), f"repair {e} recovers")
+        err.hold("apply_matrix_cuda_packed", unpack_chunks(
+            apply_matrix_cuda_packed(pack_chunks(x), dm_ms)), want,
+            f"table variant packed, repair {e}")
+        mk = torch.tensor([1, 0, 1, 1], dtype=torch.uint8, device=dev)
+        err.hold("apply_matrix_cuda_ragged", apply_matrix_cuda_ragged(
+            x, dm_ms, mk), apply_matrix_ragged_torch(x, dm_ms, mk),
+            f"table variant ragged, repair {e}")
+        err.hold("apply_matrix_cuda_packed_ragged",
+                 apply_matrix_cuda_packed_ragged(pack_chunks(x), dm_ms, mk),
+                 apply_matrix_packed_ragged_torch(pack_chunks(x), dm_ms, mk),
+                 f"table variant packed ragged, repair {e}")
+        big.append((e, dm, dm_ms, avail))
+    check(np.array_equal(got[:2].cpu().numpy(), regionops.matrix_encode(
+        clay_full[:2, list(big[-1][3])].reshape(2, 704, sc).cpu().numpy(),
+        big[-1][1], 8)), "table variant == numpy ground truth, 2 stripes")
+    print(f"phase 2: the dense kernel's table variant equal on the 4 clay "
+          f"(64, 704) parity repairs at ({DECODE_BATCH}, 704, {sc}), dense "
+          f"and ragged, bytes and packed, and to the host ground truth")
+
+    # the roofline probes' kernels on one 64 MiB slab
+    slab_host = rng.integers(0, 1 << 32, (BATCH, K, CHUNK // 512, 128),
+                             dtype=np.uint32)
+    slab = torch.from_numpy(slab_host).to(dev)
+    err.hold("copy_slab_cuda", copy_slab_cuda(slab), copy_slab_torch(slab),
+             f"copy {tuple(slab.shape)}")
+    fold_got = fold_slab_cuda(slab)
+    err.hold("fold_slab_cuda", fold_got, fold_slab_torch(slab),
+             f"fold {tuple(slab.shape)}")
+    check(np.array_equal(fold_got[:2].cpu().numpy(), np.bitwise_xor.reduce(
+        slab_host[:2], axis=1, keepdims=True)),
+        "fold == numpy ground truth, 2 stripes")
+    check(np.array_equal(copy_slab_cuda(slab)[:2].cpu().numpy(),
+                         slab_host[:2]), "copy == the slab, 2 stripes")
+    print(f"phase 2: copy and fold kernels equal their plain versions on "
+          f"{tuple(slab.shape)} and the numpy ground truth")
+
     # -- phase 3: the paths, through the user's entry points ----------------
-    counts = gf_kernels.launch_counts
-    reset = gf_kernels.reset_launch_counts
+    def counts():
+        return {**gf_kernels.launch_counts(), **probe_kernels.launch_counts()}
+
+    def reset():
+        gf_kernels.reset_launch_counts()
+        probe_kernels.reset_launch_counts()
     n = K + M
     patterns = [e for t in range(1, M + 1)
                 for e in itertools.combinations(range(n), t)]
@@ -866,6 +1043,102 @@ def main(argv=None) -> int:
         "2 layouts)", counts, reset, shec_path,
         ("apply_matrix_cuda", "apply_matrix_cuda_packed",
          "apply_matrix_xor_cuda", "apply_matrix_xor_cuda_packed"))
+
+    def clay_path():
+        parity = clay.encode_chunks_torch(clay_data)
+        torch.cuda.synchronize()
+        check(torch.equal(parity, clay_parity), "clay encode_chunks_torch")
+        check(counts()["apply_matrix_mxu_cuda"] == 1,
+              "the clay encode took the bit-plane kernel")
+        check(np.array_equal(clay.encode_chunks_batch(clay_host),
+                             parity.cpu().numpy()),
+              "clay encode_chunks_batch")
+        check(counts()["apply_matrix_mxu_cuda"] == 2,
+              "encode_chunks_batch took the bit-plane kernel")
+        parity_p = clay.encode_chunks_packed_torch(pack_chunks(clay_data))
+        torch.cuda.synchronize()
+        check(torch.equal(unpack_chunks(parity_p), parity),
+              "clay packed encode")
+        check(counts()["apply_matrix_mxu_cuda_packed"] == 1,
+              "the packed encode took the bit-plane kernel")
+        full = torch.cat([clay_data[:DECODE_BATCH], parity[:DECODE_BATCH]],
+                         dim=1)
+        t0 = time.perf_counter()
+        for erased in erasures(n_clay, 2):
+            avail = tuple(i for i in range(n_clay) if i not in erased)
+            clay._decode_composite(avail, erased)
+        clay_probe_s["all 78 decodes (2 built above)"] = \
+            time.perf_counter() - t0
+        on_mxu = on_dense = 0
+        for erased in erasures(n_clay, 2):
+            avail = tuple(i for i in range(n_clay) if i not in erased)
+            surv = full.index_select(1, torch.tensor(avail, device=dev))
+            before = counts()
+            rec = clay.decode_chunks_torch(surv, avail, erased)
+            recp = clay.decode_chunks_packed_torch(pack_chunks(surv), avail,
+                                                   erased)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in counts().items()}
+            want = full[:, list(erased)]
+            check(torch.equal(rec, want), f"clay decode {erased}")
+            check(torch.equal(unpack_chunks(recp), want),
+                  f"clay packed decode {erased}")
+            if ran["apply_matrix_mxu_cuda"] == 1 \
+                    and ran["apply_matrix_mxu_cuda_packed"] == 1:
+                on_mxu += 1
+            elif ran["apply_matrix_cuda"] >= 1 \
+                    and ran["apply_matrix_cuda_packed"] >= 1:
+                on_dense += 1
+                check(len(erased) == 1 and erased[0] >= clay.k,
+                      f"only the parity repairs take the dense kernel, "
+                      f"not {erased}")
+            else:
+                check(False, f"clay decode {erased} launched {ran}")
+        check((on_mxu, on_dense) == (74, 4),
+              f"clay decodes: {on_mxu} on the bit-plane kernel, {on_dense} "
+              f"on the dense kernel")
+        # one single-chunk repair through the dict API: the d helpers'
+        # sub-chunk runs only
+        host_full = full[:1].cpu().numpy()
+        lost = 2
+        avail = set(range(n_clay)) - {lost}
+        need = clay.minimum_to_decode({lost}, avail)
+        check(len(need) == clay.d and all(
+            sum(n for _, n in runs) == sub // clay.q
+            for runs in need.values()), f"repair reads {need}")
+        reads = {c: b"".join(host_full[0, c, off * sc:(off + n) * sc]
+                             .tobytes() for off, n in runs)
+                 for c, runs in need.items()}
+        got = clay.decode({lost}, reads, clay_chunk)
+        check(got[lost] == host_full[0, lost].tobytes(),
+              "clay dict repair from partial reads")
+        small = reg.factory("clay", {"k": "4", "m": "2", "d": "5"})
+        sh = rng.integers(0, 256, (DECODE_BATCH, 4, small.get_chunk_size(
+            1 << 20)), dtype=np.uint8)
+        sx = torch.from_numpy(sh).to(dev)
+        sp = small.encode_chunks_torch(sx)
+        check(np.array_equal(sp.cpu().numpy(),
+                             small.encode_chunks_batch(sh)),
+              "clay k=4 m=2 d=5 encode")
+        sfull = torch.cat([sx, sp], dim=1)
+        erased = (1, 4)
+        avail = (0, 2, 3, 5)
+        check(torch.equal(small.decode_chunks_torch(sfull[:, list(avail)],
+                                                    avail, erased),
+                          sfull[:, list(erased)]),
+              "clay k=4 m=2 d=5 decode (1, 4)")
+        print(f"  clay: 78 decode patterns x 2 layouts ({on_mxu} on the "
+              f"bit-plane kernel, {on_dense} on the dense kernel's table "
+              f"variant); dict repair of chunk {lost} from "
+              f"{len(need)} helpers' sub-chunk runs; k=4 m=2 d=5 ok")
+
+    results["clay"] = drive(
+        "clay k=8 m=4 d=11 (64 x 1 MiB encode via tensor, numpy and packed "
+        "entries; 78 decode patterns x 2 layouts; dict repair; k=4 m=2 "
+        "d=5)", counts, reset, clay_path,
+        ("apply_matrix_mxu_cuda", "apply_matrix_mxu_cuda_packed",
+         "apply_matrix_cuda", "apply_matrix_cuda_packed"))
+
     # the serving plane: one closed-loop stream of 512 requests, dense
     # (the rung ladder) and paged (512 pages of 4096 bytes per queue),
     # through run_serving_scenario on the real clock
@@ -890,14 +1163,15 @@ def main(argv=None) -> int:
     results["serve_dense"] = drive(
         f"serving, dense rung ladder 1/4/16/64 ({SERVE_REQUESTS} requests: "
         f"RS k=8 m=3 at 64 KiB / 1 MiB / 4 MiB, shec k=6 m=3 c=2 at "
-        f"1 MiB)", counts,
-        reset, serve_path(False), ("apply_matrix_cuda",))
+        f"1 MiB, clay k=8 m=4 d=11 at 1 MiB)", counts,
+        reset, serve_path(False), ("apply_matrix_cuda",
+                                   "apply_matrix_mxu_cuda"))
     check(results["serve_dense"]["apply_matrix_cuda_ragged"] == 0,
           "the dense run launches no ragged kernel")
     results["serve_paged"] = drive(
         f"serving, paged ({SERVE_POOL_PAGES} pages of {PAGE} bytes per "
         f"queue; same stream)", counts, reset, serve_path(True),
-        ("apply_matrix_cuda_ragged",))
+        ("apply_matrix_cuda_ragged", "apply_matrix_mxu_cuda"))
     for mode, run in serve_runs.items():
         st = run.batcher.padding_stats()
         print(f"  serving {mode}: {len(run.batcher.dispatch_log)} fires, "
@@ -917,6 +1191,18 @@ def main(argv=None) -> int:
         f"apply_matrix_packed_best_ragged (the packed ragged ops entry, "
         f"{tuple(rag_words.shape)} words, half-live)", counts, reset,
         packed_ragged_path, ("apply_matrix_cuda_packed_ragged",))
+
+    def roofline_path():
+        for name in roofline.PROBES:
+            row = roofline.probe(name, ROOF_MIB, ROOF_LOOP, "packed")
+            check(row["input_gbps"] > 0 and row["traffic_mult"]
+                  == roofline.traffic_mult(name), f"roofline row {row}")
+            print(f"  roofline {json.dumps(row)}")
+
+    results["roofline"] = drive(
+        f"roofline tool (the five probes, {ROOF_MIB} MiB slabs, loop "
+        f"{ROOF_LOOP})", counts, reset, roofline_path,
+        ("copy_slab_cuda", "fold_slab_cuda", "apply_matrix_cuda_packed"))
     launches = {name: sum(r[name] for r in results.values())
                 for name in counts()}
     for name, cnt in launches.items():
@@ -1275,6 +1561,95 @@ def main(argv=None) -> int:
               f"profiler time in the call "
               + ("not measured" if k_t is None else f"{k_t:.6f} ms"))
 
+    # the bit-plane kernel on the clay matrices, beside the dense kernel
+    # on the same matrices and the library GEMM (torch._int_mm, else a
+    # bf16 matmul) on the materialised bit-planes; its bound is the dense
+    # GEMM at the int8 tensor-core peak or the bytes, the larger
+    def planes_of(x):
+        """(b, s, C) uint8 -> (8s, b*C) int8 LSB-first bit-planes."""
+        b_, s_, c_ = x.shape
+        pl = torch.arange(8, dtype=torch.uint8, device=dev)
+        bits = (x[:, :, None, :] >> pl[:, None]) & 1
+        return bits.reshape(b_, 8 * s_, c_).permute(1, 0, 2).reshape(
+            8 * s_, b_ * c_).to(torch.int8).contiguous()
+
+    def library_gemm(bm, xp):
+        try:
+            torch._int_mm(bm, xp)
+            return (lambda: torch._int_mm(bm, xp)), "torch._int_mm"
+        except RuntimeError:
+            bf, xf = bm.to(torch.bfloat16), xp.to(torch.bfloat16)
+            return (lambda: torch.matmul(bf, xf)), "torch.matmul bf16"
+
+    mxu_times = {}
+    for label, x, mat_s in (
+            ("clay encode", clay_x, clay_enc_ms),
+            ("clay decode (0,)", dec_x, clay_dec_ms)):
+        r_, s_ = len(mat_s), len(mat_s[0])
+        b_, _, c_ = x.shape
+        xw = pack_chunks(x)
+        k_m = kernel_ms(lambda: apply_matrix_mxu_cuda(x, mat_s),
+                        "gf2_bitplane_mma")
+        k_mp = kernel_ms(lambda: apply_matrix_mxu_cuda_packed(xw, mat_s),
+                         "gf2_bitplane_mma")
+        t_m, h_m = time_ms(lambda: apply_matrix_mxu_cuda(x, mat_s), 10)
+        t_pl, h_pl = time_ms(lambda: apply_matrix_mxu_torch(x, mat_s), 3,
+                             warmup=1)
+        k_d = kernel_ms(lambda: apply_matrix_cuda(x, mat_s), "gf_matrix",
+                        iters=5)
+        bm_host = mxu_bitmatrix(mat_s)
+        bm = torch.from_numpy(bm_host.astype(np.int8)).to(dev)
+        lib_fn, lib_name = library_gemm(bm, planes_of(x))
+        k_lib = kernel_ms(lib_fn, "", iters=5)
+        ops = 2 * (8 * r_) * (8 * s_) * b_ * c_
+        b, b_by = bound_ms(b_ * (s_ + r_) * c_, ops, INT8_OPS_PER_S)
+        mxu_times[label] = (k_m or t_m, k_mp or t_m, t_pl, b, b_by, k_lib,
+                            k_d)
+        tm, tk = gf_kernels.MMA_TILE_M, gf_kernels.MMA_TILE_K
+        tiles = np.pad(bm_host, ((0, -len(bm_host) % tm),
+                                 (0, -len(bm_host[0]) % tk)))
+        tiles = tiles.reshape(len(tiles) // tm, tm, -1, tk).any(axis=(1, 3))
+        print(f"bound of the {label} {tuple(x.shape)} -> {r_} rows: "
+              f"{b_ * (s_ + r_) * c_} bytes moved, {ops} int8 operations "
+              f"as a dense GEMM ({np.count_nonzero(mat_s)} nonzero of {r_ * s_} "
+              f"coefficients; {int(tiles.sum())} of {tiles.size} "
+              f"{tm} x {tk} bitmatrix tiles nonzero, "
+              f"{int(bm_host.sum())} ones) -> {b:.6f} ms, by {b_by}")
+        for name, k_t in (("bit-plane kernel (bytes)", k_m),
+                          ("bit-plane kernel (packed)", k_mp),
+                          ("dense kernel on the same matrix", k_d),
+                          (f"{lib_name} on the materialised planes", k_lib)):
+            print(f"time {label}, {name}, profiler device time per call: "
+                  + ("not measured" if k_t is None
+                     else f"{k_t:.6f} ms, {b / k_t:.4f} of bound"))
+        print(f"time {label}, bit-plane kernel events {t_m:.6f} ms device, "
+              f"{h_m:.6f} ms host issue; plain torch {t_pl:.6f} ms")
+    for what, sec in clay_probe_s.items():
+        print(f"time clay composite probe, {what}: {sec:.6f} s host clock")
+
+    # the roofline probes' kernels on one 64 MiB slab
+    k_copy = kernel_ms(lambda: copy_slab_cuda(slab), "probe_copy")
+    k_fold = kernel_ms(lambda: fold_slab_cuda(slab), "probe_fold")
+    t_copy, _ = time_ms(lambda: copy_slab_cuda(slab), 10)
+    t_fold, _ = time_ms(lambda: fold_slab_cuda(slab), 10)
+    t_copy_pl, _ = time_ms(lambda: copy_slab_torch(slab), 10)
+    t_fold_pl, _ = time_ms(lambda: fold_slab_torch(slab), 10)
+    copy_buf = torch.empty_like(slab.view(torch.int32))
+    k_copy_lib = kernel_ms(lambda: copy_buf.copy_(slab.view(torch.int32)),
+                           "")
+    copy_b, copy_by = bound_ms(2 * slab.numel() * 4, 0)
+    fold_b, fold_by = bound_ms(slab.numel() * 4 * (K + 1) // K,
+                               slab.numel() * (K - 1) // K)
+    for name, k_t, b in (("copy kernel", k_copy, copy_b),
+                         ("fold kernel", k_fold, fold_b),
+                         ("copy_ (the library copy)", k_copy_lib, copy_b)):
+        moved = 2 * slab.numel() * 4 if "copy" in name \
+            else slab.numel() * 4 * (K + 1) // K
+        print(f"time {name} on {tuple(slab.shape)}: "
+              + ("not measured" if k_t is None else
+                 f"{k_t:.6f} ms, {moved / k_t / 1e6:.3f} GB/s moved, "
+                 f"{b / k_t:.4f} of bound"))
+
     # each kernel's "ms" is its own device time per launch from the
     # profiler (the event times above include the host's issue pace where
     # that is the slower); the event time where the trace has no kernel
@@ -1330,6 +1705,24 @@ def main(argv=None) -> int:
             "launches": launches[name], "max_abs_err": err[name],
             "ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": b_by,
             "library_ms": None, "ok": True})
+    enc_t = mxu_times["clay encode"]
+    for name, t, tp, b, b_by, lib_t, source, replaces in (
+            ("apply_matrix_mxu_cuda", enc_t[0], enc_t[2], enc_t[3],
+             enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
+             "ceph_tpu/ops/xla_ops.py:241"),
+            ("apply_matrix_mxu_cuda_packed", enc_t[1], enc_t[2], enc_t[3],
+             enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
+             "ceph_tpu/ops/xla_ops.py:241"),
+            ("copy_slab_cuda", k_copy or t_copy, t_copy_pl, copy_b,
+             copy_by, k_copy_lib, "roofline_probes.cu", "tools/roofline.py:79"),
+            ("fold_slab_cuda", k_fold or t_fold, t_fold_pl, fold_b,
+             fold_by, None, "roofline_probes.cu", "tools/roofline.py:106")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SRC + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": t, "plain_ms": tp,
+            "bound_ms": b, "bound_by": b_by, "library_ms": lib_t,
+            "ok": True})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

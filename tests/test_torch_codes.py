@@ -263,9 +263,10 @@ def test_example_plugin_and_registry_errors():
     assert (dec[0] + dec[1])[:len(payload)] == payload
     with pytest.raises(IOError):
         reg.factory("no_such_plugin", {}, device="cpu")
-    # a plugin of the reference that the port does not carry yet
-    with pytest.raises(IOError):
-        reg.factory("clay", {"k": "4", "m": "2", "d": "5"}, device="cpu")
+    # clay, the last plugin of the reference to be ported, constructs
+    clay = reg.factory("clay", {"k": "4", "m": "2", "d": "5"}, device="cpu")
+    assert (clay.k, clay.m, clay.d, clay.get_sub_chunk_count()) == \
+        (4, 2, 5, 8)
     assert reg.factory("jerasure", {"technique": "cauchy_good"},
                        device="cpu").technique == "cauchy_good"
     with pytest.raises(ValueError):
@@ -315,7 +316,7 @@ PORTED_TECHNIQUES = {"jerasure": {"reed_sol_van", "reed_sol_r6_op",
                                   "cauchy_orig", "cauchy_good",
                                   "liberation", "blaum_roth", "liber8tion"},
                      "isa": {"reed_sol_van", "cauchy"}, "example": None,
-                     "shec": None, "lrc": None}
+                     "shec": None, "lrc": None, "clay": None}
 
 
 def _ported_corpus_dirs():

@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels against their plain torch versions, on
 the card: the GF(2^8) matrix kernel (bytes, packed and the two ragged
-wrappers, and a small serving stream through them), the w=16/32 word
-kernel, the two packet-layout bitmatrix kernels (plain
-and scheduled), and the XOR-schedule kernel (bytes and packed wrappers;
-the shec, lrc and reed_sol_r6_op paths that take it).  Every test here
+wrappers, its table variant above the by-value limit, and a small
+serving stream through them), the w=16/32 word kernel, the two
+packet-layout bitmatrix kernels (plain and scheduled), the XOR-schedule
+kernel (bytes and packed wrappers; the shec, lrc and reed_sol_r6_op
+paths that take it), the GF(2) bit-plane kernel (bytes and packed; the
+clay paths that take it) and the roofline tool's copy and fold
+kernels.  Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
 
@@ -31,11 +34,13 @@ from ceph_tpu_torch.ops.gf_kernels import (
     apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
     apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed, pack_chunks,
     select_matrix_engine, unpack_chunks)
+from ceph_tpu_torch.ops.probe_kernels import (
+    copy_slab_cuda, copy_slab_torch, fold_slab_cuda, fold_slab_torch)
 from ceph_tpu_torch.ops.torch_ops import (
     WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
-    apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch,
-    apply_matrix_torch, apply_matrix_xor_torch, bitmatrix_to_static,
-    mask_pages, matrix_to_static)
+    apply_matrix_mxu_torch, apply_matrix_packed_ragged_torch,
+    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_xor_torch,
+    bitmatrix_to_static, mask_pages, matrix_to_static)
 from ceph_tpu_torch.ops.xor_schedule import (
     build_schedule, preferred_schedule, probe_bitmatrix_schedule)
 from ceph_tpu_torch.utils.errors import KernelLaunchError
@@ -449,3 +454,149 @@ def test_serving_stream_on_card(cuda_device, paged):
     ragged = gf_kernels.launch_counts()["apply_matrix_cuda_ragged"]
     assert (ragged > 0) == paged
     assert run.report["stream_compiles"] == 0
+
+
+# -- the GF(2) bit-plane kernel and the dense kernel's table variant -----------
+
+@pytest.mark.parametrize("r,s,C,lead,zeros", [
+    (256, 512, 2048, (2,), 0.95), (64, 704, 2048, (3,), 0.95),
+    (16, 48, 4096 + 4, (2,), 0.7), (64, 176, 1000, (), 0.7),
+    (3, 8, 512, (2, 2), 0.0), (1, 5, 130, (), 0.0)])
+def test_mxu_kernel_matches_plain_on_card(cuda_device, r, s, C, lead, zeros):
+    """apply_matrix_mxu_cuda (and the packed wrapper where C is whole
+    rows) equals its plain version, the dense kernel and numpy, on
+    composite-like sparse matrices, tails off the tile, strided chunk
+    slices and no batch dimension."""
+    rng = np.random.default_rng(r * s + C)
+    mat = rng.integers(0, 256, (r, s))
+    mat[rng.random((r, s)) < zeros] = 0
+    ms = matrix_to_static(mat)
+    host = rng.integers(0, 256, lead + (s + 1, C), dtype=np.uint8)
+    x = torch.from_numpy(host).to(cuda_device)[..., 1:, :]
+    before = gf_kernels.apply_matrix_mxu_cuda.launches
+    got = gf_kernels.apply_matrix_mxu_cuda(x, ms)
+    torch.cuda.synchronize()
+    assert gf_kernels.apply_matrix_mxu_cuda.launches == before + 1
+    assert torch.equal(got, apply_matrix_mxu_torch(x, ms))
+    assert torch.equal(got, apply_matrix_cuda(x, ms))
+    flat = host[..., 1:, :].reshape((-1, s, C))[0]
+    assert np.array_equal(got.reshape((-1, r, C))[0].cpu().numpy(),
+                          regionops.matrix_encode(flat, mat, 8))
+    if C % 512 == 0:
+        before = gf_kernels.apply_matrix_mxu_cuda_packed.launches
+        gotp = gf_kernels.apply_matrix_mxu_cuda_packed(pack_chunks(x), ms)
+        torch.cuda.synchronize()
+        assert gf_kernels.apply_matrix_mxu_cuda_packed.launches == before + 1
+        assert torch.equal(unpack_chunks(gotp), got)
+
+
+def test_mxu_kernel_refuses_what_it_cannot_take(cuda_device):
+    ms = matrix_to_static(np.ones((2, 3), dtype=np.int64))
+    x = torch.zeros((4, 3, 64), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gf_kernels.apply_matrix_mxu_cuda(x[:, :2], ms)
+    with pytest.raises(ValueError):
+        gf_kernels.apply_matrix_mxu_cuda(x[..., ::2], ms)
+    with pytest.raises(ValueError):
+        gf_kernels.apply_matrix_mxu_cuda_packed(x, ms)
+
+
+@pytest.mark.parametrize("r,s,C", [(64, 704, 2048), (9, 300, 4096 + 4),
+                                   (256, 512, 512)])
+def test_dense_kernel_table_variant_on_card(cuda_device, r, s, C):
+    """A table above the by-value limit (2048 coefficients) goes through
+    the device buffer: dense, packed and both ragged wrappers equal
+    their plain versions."""
+    assert r * s > gf_kernels.BY_VALUE_MAX_COEF[8]
+    rng = np.random.default_rng(r + s + C)
+    mat = rng.integers(0, 256, (r, s))
+    mat[rng.random((r, s)) < 0.5] = 0
+    ms = matrix_to_static(mat)
+    x = torch.from_numpy(rng.integers(0, 256, (4, s, C),
+                                      dtype=np.uint8)).to(cuda_device)
+    got = apply_matrix_cuda(x, ms)
+    assert torch.equal(got, apply_matrix_torch(x, ms, 8))
+    mask = torch.tensor([1, 0, 1, 1], dtype=torch.uint8, device=cuda_device)
+    assert torch.equal(gf_kernels.apply_matrix_cuda_ragged(x, ms, mask),
+                       apply_matrix_ragged_torch(x, ms, mask))
+    if C % 512 == 0:
+        words = pack_chunks(x)
+        assert torch.equal(unpack_chunks(apply_matrix_cuda_packed(words, ms)),
+                           got)
+        assert torch.equal(
+            gf_kernels.apply_matrix_cuda_packed_ragged(words, ms, mask),
+            apply_matrix_packed_ragged_torch(words, ms, mask))
+
+
+@pytest.mark.parametrize("profile", [{"k": "4", "m": "2", "d": "5"},
+                                     {"k": "8", "m": "4", "d": "11"}])
+def test_clay_round_trips_on_card(cuda_device, profile):
+    """Clay on the card: encode in both layouts, then every single
+    erasure and a few doubles; at k=8 the encode and the data-chunk
+    decodes take the bit-plane kernel, the parity repairs the dense
+    kernel's table variant."""
+    ec = ErasureCodePluginRegistry.instance().factory("clay", dict(profile))
+    assert ec.device.type == "cuda"
+    k, n = ec.k, ec.k + ec.m
+    chunk = ec.sub_chunk_no * 512
+    host = np.random.default_rng(n).integers(0, 256, (2, k, chunk),
+                                             dtype=np.uint8)
+    data = torch.from_numpy(host).to(cuda_device)
+    before = gf_kernels.launch_counts()
+    parity = ec.encode_chunks_torch(data)
+    assert torch.equal(unpack_chunks(ec.encode_chunks_packed_torch(
+        pack_chunks(data))), parity)
+    ec.min_xla_bytes = 1 << 40                     # the host tier
+    assert np.array_equal(parity.cpu().numpy(), ec.encode_chunks_batch(host))
+    full = torch.cat([data, parity], dim=1)
+    for erased in [(e,) for e in range(n)] + [(0, 1), (1, n - 1)]:
+        avail = tuple(i for i in range(n) if i not in erased)
+        surv = full[:, list(avail)]
+        rec = ec.decode_chunks_torch(surv, avail, erased)
+        recp = ec.decode_chunks_packed_torch(pack_chunks(surv), avail,
+                                             erased)
+        assert torch.equal(rec, full[:, list(erased)]), erased
+        assert torch.equal(unpack_chunks(recp), rec), erased
+    torch.cuda.synchronize()
+    after = gf_kernels.launch_counts()
+    ran = {name: after[name] - before[name] for name in after}
+    if profile["k"] == "8":
+        # encode (2 layouts) + 8 data singles + 2 doubles, both layouts
+        assert ran["apply_matrix_mxu_cuda"] == 1 + 10
+        assert ran["apply_matrix_mxu_cuda_packed"] == 1 + 10
+        assert ran["apply_matrix_cuda"] >= 4
+        assert ran["apply_matrix_cuda_packed"] >= 4
+    else:
+        assert ran["apply_matrix_mxu_cuda"] == 0
+
+
+# -- the roofline tool's probe kernels ------------------------------------------
+
+@pytest.mark.parametrize("b,s,rows", [(64, 8, 256), (3, 5, 7), (1, 1, 1)])
+def test_probe_kernels_match_plain_on_card(cuda_device, b, s, rows):
+    rng = np.random.default_rng(b + s + rows)
+    host = rng.integers(0, 1 << 32, (b, s, rows, 128), dtype=np.uint32)
+    x = torch.from_numpy(host).to(cuda_device)
+    before = (copy_slab_cuda.launches, fold_slab_cuda.launches)
+    got = copy_slab_cuda(x)
+    fold = fold_slab_cuda(x)
+    torch.cuda.synchronize()
+    assert (copy_slab_cuda.launches, fold_slab_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, copy_slab_torch(x))
+    assert torch.equal(fold, fold_slab_torch(x))
+    assert np.array_equal(fold.cpu().numpy(), np.bitwise_xor.reduce(
+        host, axis=1, keepdims=True))
+    strided = torch.zeros((2, 2, 2, 128), dtype=torch.uint32,
+                          device=cuda_device)[:, ::2]
+    for fn in (copy_slab_cuda, fold_slab_cuda):
+        with pytest.raises(ValueError):
+            fn(strided)
+
+
+def test_roofline_tool_on_card(cuda_device):
+    from ceph_tpu_torch.tools import roofline
+    for name in roofline.PROBES:
+        row = roofline.probe(name, 8, 4, "packed")
+        assert row["input_gbps"] > 0 and row["device"] != "cpu"
+        assert row["traffic_mult"] == roofline.traffic_mult(name)

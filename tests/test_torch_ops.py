@@ -193,12 +193,18 @@ def test_wrappers_on_cpu_take_plain_version_and_count_nothing():
                                         live)
     gf_kernels.apply_matrix_cuda_packed_ragged(
         pack_chunks(_t(data)), matrix_to_static(mat), live)
+    got = gf_kernels.apply_matrix_mxu_cuda(_t(data), matrix_to_static(mat))
+    assert np.array_equal(got.numpy(),
+                          ref_regionops.matrix_encode(data, mat, 8))
+    gf_kernels.apply_matrix_mxu_cuda_packed(pack_chunks(_t(data)),
+                                            matrix_to_static(mat))
     assert gf_kernels.launch_counts() == {
         "apply_matrix_cuda": 0, "apply_matrix_cuda_packed": 0,
         "apply_matrix_cuda_words": 0, "apply_bitmatrix_cuda": 0,
         "apply_bitmatrix_xor_cuda": 0, "apply_matrix_xor_cuda": 0,
         "apply_matrix_xor_cuda_packed": 0, "apply_matrix_cuda_ragged": 0,
-        "apply_matrix_cuda_packed_ragged": 0}
+        "apply_matrix_cuda_packed_ragged": 0, "apply_matrix_mxu_cuda": 0,
+        "apply_matrix_mxu_cuda_packed": 0}
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():

@@ -7,8 +7,8 @@ as its own tests run it: ``tests/test_serve.py`` drives its streams on
 a ``FakeClock`` with ``throughput_service_model``, and its ragged
 Pallas kernels run in interpret mode.  The tolerance is 0 bytes
 (GF(2^8) math is integer), and the FakeClock dispatch logs and SLO
-reports must be equal letter for letter.  The reference's mix in
-``test_serve.py`` also has clay, which the port does not have yet.
+reports must be equal letter for letter.  Streams with clay in the mix
+are in ``tests/test_torch_clay.py``.
 """
 
 import json
