@@ -30,7 +30,9 @@
 //     lies in a device buffer the wrapper uploads once per matrix; each
 //     block stages its row group's coefficients into shared memory in tiles
 //     of GF_TABLE_TILE_BYTES (gf_matrix_table_kernel), so any (r, s) fits.
-//     Both walk the same columns with the same body (fold_column).  Each
+//     Both walk the same columns with the same body (fold_column).  The
+//     by-value path stays for the small tables: on the RS k=8 m=3 encode the
+//     table variant measured 12-13 % slower on an H100 (PERF.md).  Each
 //     column's bits are walked up to its highest set bit (uniform across the
 //     warp: no divergence).
 //   - Each thread owns one 16-byte vector (4 SWAR words) of the region.  It

@@ -65,7 +65,8 @@ rows.  The matrix or schedule is kernel data, never code: one build
 serves every matrix.  On a CPU tensor a wrapper runs the plain
 torch version (``ops/torch_ops.py``), because that is where the caller
 put the tensor; on a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its kernel launches in ``.launches``.
+Each wrapper counts its kernel launches in ``.launches``; every kernel
+module's counts are read together through ``ops/launches.py``.
 
 :func:`select_matrix_engine` keeps the reference's table reduced to the
 rows this package has (xor / mxu / cuda / torch / numpy); :func:`apply_matrix_best`,
@@ -89,7 +90,9 @@ import torch
 from . import regionops
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
-from .torch_ops import WORD_DTYPE, apply_bitmatrix_torch, \
+from .launches import device_and_stream, launch_counts, register, \
+    reset_launch_counts
+from .torch_ops import WORD_DTYPE, StaticMatrix, apply_bitmatrix_torch, \
     apply_bitmatrix_xor_torch, apply_matrix_mxu_torch, \
     apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch, \
     apply_matrix_torch, apply_matrix_xor_torch, mask_pages, mxu_bitmatrix
@@ -200,7 +203,8 @@ def xor_schedule_op_count(sched_static) -> int:
 # coefficients the kernel takes as a by-value kernel parameter
 # (csrc/gf8_matrix.cu GF8_MAX_COEF / GFW_MAX_COEF), checked against the
 # library when it loads; a larger table goes to the kernel's table
-# variant through a device buffer
+# variant through a device buffer (slower on small tables, so not used
+# for them: PERF.md)
 BY_VALUE_MAX_COEF = {8: 2048, 16: 512, 32: 512}
 # the largest table either variant takes: the kernel indexes rows with
 # 32-bit ints
@@ -292,11 +296,6 @@ def _merged_batch(x: torch.Tensor, nlead: int, elem: int
     return batch, (dims[-1][1] * elem if dims else 0)
 
 
-def _device_index(x: torch.Tensor) -> int:
-    return x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-
-
 def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
             in_strides: tuple[int, int], out_strides: tuple[int, int],
             r: int, s: int, coef: bytes, w: int = 8,
@@ -315,8 +314,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
         table = _device_table(coef, x.device).data_ptr()
     args = (x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
             in_strides[1], out_strides[0], out_strides[1], r, s)
-    where = (_device_index(x),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    where = device_and_stream(x)
     if w == 8:
         err = lib.gf8_matrix_apply(
             *args, coef, table, None if mask is None else mask.data_ptr(),
@@ -340,7 +338,7 @@ def apply_matrix_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     """Apply a (r, s) GF(2^8) matrix to (..., s, C) uint8 chunks ->
     (..., r, C).  The chunk dimension may be strided (a survivor slice)
     as long as each chunk's bytes are contiguous."""
-    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    r, s, coef = _matrix_info(_static(matrix_t))
     if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
             or chunks.shape[-2] != s:
         raise ValueError(f"need (..., {s}, C) uint8 chunks, got "
@@ -362,14 +360,11 @@ def apply_matrix_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     return out
 
 
-apply_matrix_cuda.launches = 0
-
-
 def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
     """Packed-layout apply: (..., s, R, 128) uint32 -> (..., r, R, 128).
     Each chunk's (R, 128) words must be contiguous; the chunk dimension
     may be strided."""
-    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    r, s, coef = _matrix_info(_static(matrix_t))
     if words.dtype != torch.uint32 or words.dim() < 3 \
             or words.shape[-3] != s or words.shape[-1] != LANE:
         raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
@@ -394,9 +389,6 @@ def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
     return pack_chunks(out)
 
 
-apply_matrix_cuda_packed.launches = 0
-
-
 def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
                             ) -> torch.Tensor:
     """GF(2^16) / GF(2^32) apply on word views: (..., s, Ce) uint16 or
@@ -405,7 +397,7 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
     are contiguous."""
     if w not in (16, 32):
         raise ValueError(f"the word kernel takes w=16 or w=32, got w={w}")
-    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)), w)
+    r, s, coef = _matrix_info(_static(matrix_t), w)
     if words.dtype != WORD_DTYPE[w] or words.dim() < 2 \
             or words.shape[-2] != s:
         raise ValueError(f"need (..., {s}, Ce) {WORD_DTYPE[w]} words, got "
@@ -425,9 +417,6 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
         words, out, batch, ce * el, (bstride, words.stride(-2) * el),
         (r * ce * el, ce * el), r, s, coef, w)
     return out
-
-
-apply_matrix_cuda_words.launches = 0
 
 
 def _page_mask(pool: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -454,7 +443,7 @@ def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
     under a (P,) activity mask -> (P, r, page); a dead page (mask 0)
     reads nothing and comes back zero.  The mask lies on the pool's
     device, so one build serves every occupancy."""
-    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    r, s, coef = _matrix_info(_static(matrix_t))
     if pool.dtype != torch.uint8 or pool.dim() != 3 or pool.shape[1] != s:
         raise ValueError(f"need a (P, {s}, page) uint8 pool, got "
                          f"{tuple(pool.shape)} {pool.dtype}")
@@ -474,15 +463,12 @@ def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
     return out
 
 
-apply_matrix_cuda_ragged.launches = 0
-
-
 def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
                                     mask: torch.Tensor) -> torch.Tensor:
     """Packed-layout twin: a (P, s, R, 128) uint32 pool under a (P,)
     mask -> (P, r, R, 128), dead pages zero.  Each page chunk's (R, 128)
     words must be contiguous."""
-    r, s, coef = _matrix_info(tuple(map(tuple, matrix_t)))
+    r, s, coef = _matrix_info(_static(matrix_t))
     if words.dtype != torch.uint32 or words.dim() != 4 \
             or words.shape[1] != s or words.shape[-1] != LANE:
         raise ValueError(f"need a (P, {s}, R, {LANE}) uint32 pool, got "
@@ -504,9 +490,6 @@ def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
         words, out, p, nbytes, (words.stride(0) * 4, words.stride(1) * 4),
         (r * nbytes, nbytes), r, s, coef, mask=mask)
     return pack_chunks(out)
-
-
-apply_matrix_cuda_packed_ragged.launches = 0
 
 
 # -- the GF(2) bitmatrix kernel -----------------------------------------------
@@ -614,8 +597,7 @@ def _launch_rows(fn, chunks: torch.Tensor, r: int, w: int, packetsize: int,
         chunks.data_ptr(), out.data_ptr(), batch, c, bstride,
         chunks.stride(-2), r * c, c, chunks.shape[-2], r * w, w, packetsize,
         data.data_ptr(), data.numel() // 8, n_rows, n_in, n_slots,
-        _device_index(chunks),
-        torch.cuda.current_stream(chunks.device).cuda_stream)
+        *device_and_stream(chunks))
     if err:
         raise KernelLaunchError(
             f"{fn.__name__} failed: CUDA error {err} "
@@ -642,9 +624,6 @@ def apply_bitmatrix_cuda(chunks: torch.Tensor, bitmatrix_rows, w: int,
                         "plain", rows, s * w)
 
 
-apply_bitmatrix_cuda.launches = 0
-
-
 def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
                              packetsize: int) -> torch.Tensor:
     """The same product through a pure-XOR schedule
@@ -664,9 +643,6 @@ def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
     _check_cuda(chunks)
     return _launch_rows(apply_bitmatrix_xor_cuda, chunks, r, w, packetsize,
                         "schedule", sched_static, n_in)
-
-
-apply_bitmatrix_xor_cuda.launches = 0
 
 
 # -- the GF(2^8) XOR-schedule kernel ------------------------------------------
@@ -769,8 +745,7 @@ def _launch_xor(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
     err = lib.gf8x_schedule_apply(
         x.data_ptr(), out.data_ptr(), batch, nbytes, *in_strides,
         *out_strides, data.data_ptr(), data.numel() // 4, n_instr, n_slots,
-        _device_index(x),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *device_and_stream(x))
     if err:
         raise KernelLaunchError(
             f"{fn.__name__} failed: CUDA error {err} "
@@ -805,9 +780,6 @@ def apply_matrix_xor_cuda(chunks: torch.Tensor, sched_static
     return out
 
 
-apply_matrix_xor_cuda.launches = 0
-
-
 def apply_matrix_xor_cuda_packed(words: torch.Tensor, sched_static
                                  ) -> torch.Tensor:
     """Packed-layout twin: (..., s, R, 128) uint32 -> (..., r, R, 128).
@@ -837,8 +809,6 @@ def apply_matrix_xor_cuda_packed(words: torch.Tensor, sched_static
                 sched_static)
     return pack_chunks(out)
 
-
-apply_matrix_xor_cuda_packed.launches = 0
 
 # -- the GF(2) bit-plane product on the tensor cores ---------------------------
 
@@ -893,8 +863,7 @@ def _launch_mma(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
     err = lib.gf2_mma_apply(
         x.data_ptr(), out.data_ptr(), bm.data_ptr(), batch, nbytes,
         *in_strides, *out_strides, len(matrix_t), len(matrix_t[0]),
-        bm.shape[0], bm.shape[1], _device_index(x),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        bm.shape[0], bm.shape[1], *device_and_stream(x))
     if err:
         raise KernelLaunchError(
             f"{fn.__name__} failed: CUDA error {err} "
@@ -926,9 +895,6 @@ def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     _launch_mma(apply_matrix_mxu_cuda, chunks, out, batch, c,
                 (bstride, chunks.stride(-2)), (r * c, c), static)
     return out
-
-
-apply_matrix_mxu_cuda.launches = 0
 
 
 def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
@@ -963,24 +929,14 @@ def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
     return pack_chunks(out)
 
 
-apply_matrix_mxu_cuda_packed.launches = 0
-
-WRAPPERS = (apply_matrix_cuda, apply_matrix_cuda_packed,
-            apply_matrix_cuda_words, apply_bitmatrix_cuda,
-            apply_bitmatrix_xor_cuda, apply_matrix_xor_cuda,
-            apply_matrix_xor_cuda_packed, apply_matrix_cuda_ragged,
-            apply_matrix_cuda_packed_ragged, apply_matrix_mxu_cuda,
-            apply_matrix_mxu_cuda_packed)
-
-
-def launch_counts() -> dict:
-    """{wrapper name: kernel launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
+# this module's wrappers; launches.launch_counts reads them with every
+# other kernel module's
+WRAPPERS = register(
+    apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
+    apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda, apply_matrix_xor_cuda,
+    apply_matrix_xor_cuda_packed, apply_matrix_cuda_ragged,
+    apply_matrix_cuda_packed_ragged, apply_matrix_mxu_cuda,
+    apply_matrix_mxu_cuda_packed)
 
 
 # -- layouts ------------------------------------------------------------------
@@ -1033,11 +989,13 @@ MXU_MATRIX_MIN = 2048
 
 def _static(matrix_t) -> tuple:
     """A coefficient table as the hashable tuple of tuples the schedule
-    caches key on."""
-    if isinstance(matrix_t, tuple) and all(isinstance(row, tuple)
-                                           for row in matrix_t):
+    and kernel-data caches key on: a StaticMatrix as it is (its hash is
+    kept), a tuple of tuples as it is, anything else converted."""
+    if isinstance(matrix_t, StaticMatrix) or (
+            isinstance(matrix_t, tuple)
+            and all(isinstance(row, tuple) for row in matrix_t)):
         return matrix_t
-    return tuple(tuple(int(x) for x in row) for row in matrix_t)
+    return StaticMatrix(tuple(int(x) for x in row) for row in matrix_t)
 
 
 def _xor_static(matrix_t):

@@ -12,7 +12,8 @@ uint32 slab, the packed layout of ``gf_kernels.pack_chunks``:
 
 On a CPU tensor a wrapper runs its plain version (:func:`copy_slab_torch`,
 :func:`fold_slab_torch`); on a CUDA tensor it launches the kernel or
-raises.  Each wrapper counts its launches in ``.launches``.
+raises.  Each wrapper counts its launches in ``.launches``, read with
+every other kernel wrapper's through ``ops/launches.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import ctypes
 import torch
 
 from ._build import load
+from .launches import device_and_stream, register
 from ..utils.errors import KernelLaunchError
 
 LANE = 128
@@ -49,12 +51,6 @@ def _check_slab(tiles: torch.Tensor) -> None:
             or tiles.shape[-1] != LANE:
         raise ValueError(f"need a (b, s, R, {LANE}) uint32 slab, got "
                          f"{tuple(tiles.shape)} {tiles.dtype}")
-
-
-def _where(x: torch.Tensor) -> tuple[int, int]:
-    index = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _raise_on(fn, lib, err: int) -> None:
@@ -96,12 +92,9 @@ def copy_slab_cuda(tiles: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     _raise_on(copy_slab_cuda, lib, lib.probe_copy(
         tiles.data_ptr(), out.data_ptr(), tiles.numel() // 4,
-        *_where(tiles)))
+        *device_and_stream(tiles)))
     copy_slab_cuda.launches += 1
     return out
-
-
-copy_slab_cuda.launches = 0
 
 
 def fold_slab_cuda(tiles: torch.Tensor) -> torch.Tensor:
@@ -121,25 +114,12 @@ def fold_slab_cuda(tiles: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     _raise_on(fold_slab_cuda, lib, lib.probe_fold(
         tiles.data_ptr(), out.data_ptr(), b, s, rows * LANE // 4,
-        *_where(tiles)))
+        *device_and_stream(tiles)))
     fold_slab_cuda.launches += 1
     return out
 
 
-fold_slab_cuda.launches = 0
-
-WRAPPERS = (copy_slab_cuda, fold_slab_cuda)
-
-
-def launch_counts() -> dict:
-    """{wrapper name: kernel launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-
+WRAPPERS = register(copy_slab_cuda, fold_slab_cuda)
 
 __all__ = ["WRAPPERS", "copy_slab_cuda", "copy_slab_torch", "fold_slab_cuda",
-           "fold_slab_torch", "launch_counts", "reset_launch_counts"]
+           "fold_slab_torch"]

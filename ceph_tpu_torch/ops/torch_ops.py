@@ -52,10 +52,27 @@ from ..gf.gf8 import DEFAULT_POLY
 WORD_DTYPE = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
 
 
-def matrix_to_static(matrix) -> tuple[tuple[int, ...], ...]:
+class StaticMatrix(tuple):
+    """A coefficient table as a tuple of row tuples that hashes once.
+
+    The schedule and kernel-data caches key on the table on every call,
+    and a tuple does not keep its hash: a clay composite of 131072
+    coefficients would be hashed anew by each lookup.  Equal to, and
+    hashing as, the plain tuple of tuples."""
+
+    def __hash__(self) -> int:
+        try:
+            return self._hash
+        except AttributeError:
+            self._hash = tuple.__hash__(self)
+            return self._hash
+
+
+def matrix_to_static(matrix) -> StaticMatrix:
     """Numpy (r, k) matrix -> hashable tuple-of-tuples (cache keys, and
     the coefficient list the kernel wrappers take)."""
-    return tuple(tuple(int(x) for x in row) for row in np.asarray(matrix))
+    return StaticMatrix(tuple(int(x) for x in row)
+                        for row in np.asarray(matrix))
 
 
 def bitmatrix_to_static(bitmatrix) -> tuple[int, ...]:

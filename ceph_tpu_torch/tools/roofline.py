@@ -22,6 +22,13 @@ These probes separate the terms:
   kernel     encode, one-element carry  -> 1.375x  (the kernel alone)
   harness    encode, full parity carry  -> 2.5x    (what the bench runs)
 
+``traffic_mult`` keeps the reference's values, so the rows compare with
+its own.  In eager torch the ``cuda-fold`` chain moves more than its
+1 + 2/k: the kernel writes 1/k of the input, and the carry XOR then
+reads that output, reads the carry and writes it, 1 + 4/k in all (1.5
+at k=8), so its ``implied_hbm_gbps`` reads low by (k + 4) / (k + 2)
+(a sixth at k=8).
+
 ``cuda-fold`` and ``cuda-copy`` run the two hand-written kernels of
 ``ops/csrc/roofline_probes.cu`` (``ops/probe_kernels.py``); ``kernel``
 and ``harness`` run the port's RS k=8 m=3 ``encode_chunks_packed_torch``
@@ -54,7 +61,9 @@ PROBES = ("cuda-fold", "cuda-copy", "xor3", "kernel", "harness")
 
 
 def traffic_mult(name: str) -> float:
-    """Memory bytes moved per input byte of one chain step."""
+    """Memory bytes moved per input byte of one chain step, as the
+    reference counts them (cuda-fold moves 1 + 4/k here: see the module
+    docstring)."""
     return {"cuda-fold": 1.0 + 2.0 / K, "cuda-copy": 2.0, "xor3": 3.0,
             "kernel": 1.0 + M / K, "harness": 1.0 + 4.0 * M / K}[name]
 

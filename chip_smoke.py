@@ -101,7 +101,10 @@ source, all started together) and then, in order:
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
    trace, against the bound (the larger of the bytes over HBM bandwidth
-   and the integer ops over the INT32 peak); the ragged kernel at 25,
+   and the integer ops over the INT32 peak; for the bit-plane kernel
+   too, the dense GEMM at the int8 peak printed beside it as
+   ``gemm_bound_ms``); the dense kernel's by-value and table variants
+   on the RS k=8 m=3 encode (w=8 and w=16); the ragged kernel at 25,
    50 and 100 % live pages beside the dense kernel on the same bytes;
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
    under SLO and p50/p99 per op, and where one fire's time goes (copy
@@ -110,8 +113,9 @@ source, all started together) and then, in order:
    device time, the event time where the trace has no kernel); the
    bit-plane kernel beside the dense kernel and ``torch._int_mm`` on the
    materialised bit-planes of the same clay matrices (the library GEMM,
-   timed here and used nowhere in the port), and the host time of the
-   clay composite probes.
+   timed here and used nowhere in the port), the host issue per call of
+   clay's encode and decode entry points, and the host time of the clay
+   composite probes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -287,8 +291,9 @@ def main(argv=None) -> int:
         return 2
     # the port lives beside this script; a bare copy fails here
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
-    from ceph_tpu_torch.ops import _build, gf_kernels, probe_kernels, \
-        regionops
+    from ceph_tpu_torch.ops import _build, gf_kernels, regionops
+    from ceph_tpu_torch.ops.launches import (
+        device_and_stream, launch_counts, reset_launch_counts)
     from ceph_tpu_torch.ops.gf_kernels import (
         MXU_MATRIX_MIN, apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda,
         apply_matrix_cuda, apply_matrix_cuda_packed,
@@ -735,12 +740,7 @@ def main(argv=None) -> int:
           f"{tuple(slab.shape)} and the numpy ground truth")
 
     # -- phase 3: the paths, through the user's entry points ----------------
-    def counts():
-        return {**gf_kernels.launch_counts(), **probe_kernels.launch_counts()}
-
-    def reset():
-        gf_kernels.reset_launch_counts()
-        probe_kernels.reset_launch_counts()
+    counts, reset = launch_counts, reset_launch_counts
     n = K + M
     patterns = [e for t in range(1, M + 1)
                 for e in itertools.combinations(range(n), t)]
@@ -1317,6 +1317,51 @@ def main(argv=None) -> int:
               f"{w_pos}"
               f" -> {wb:.6f} ms, by {wb_by}")
 
+    # the dense kernel's two ways of taking its matrix, on the RS k=8 m=3
+    # encodes at the main shape (w=8 bytes, w=16 words): by value (a kernel
+    # parameter, up to 2048 / 512 coefficients) and from a device table
+    # staged into shared memory (any size, the clay repairs' way).  One
+    # call of the library each, timed in the order value, table, table,
+    # value; both outputs held against the plain version first
+    lib_gf, _ = gf_kernels._lib()
+    for w, x, wms, want in (
+            (8, data, ms, plain),
+            (16, word_data[16][1], matrix_to_static(wide_codes[16].matrix),
+             None)):
+        _, _, coef = gf_kernels._matrix_info(wms, w)
+        table = gf_kernels._device_table(coef, dev).data_ptr()
+        nb = x.shape[-1] * x.element_size()
+        out_w = torch.empty((x.shape[0], M) + x.shape[2:], dtype=x.dtype,
+                            device=dev)
+        geom = (x.data_ptr(), out_w.data_ptr(), x.shape[0], nb, K * nb, nb,
+                M * nb, nb, M, K)
+
+        def via(tab, w=w, geom=geom, coef=coef, x=x):
+            def fn():
+                e = (lib_gf.gf8_matrix_apply(*geom, coef, tab, None,
+                                             *device_and_stream(x))
+                     if w == 8 else
+                     lib_gf.gfw_matrix_apply(*geom, w, coef, tab,
+                                             *device_and_stream(x)))
+                check(e == 0, f"the dense kernel launched (error {e})")
+            return fn
+        if want is None:
+            want = apply_matrix_torch(x, wms, w)
+        for tab in (None, table):
+            out_w.zero_()
+            via(tab)()
+            check(torch.equal(out_w, want),
+                  f"w={w} dense kernel, {'table' if tab else 'by value'}")
+        got_t = {"by value": [], "table": []}
+        for name, tab in (("by value", None), ("table", table),
+                          ("table", table), ("by value", None)):
+            got_t[name].append((kernel_ms(via(tab), "gf_matrix", iters=50),
+                                time_ms(via(tab), 50)[0]))
+        print(f"time RS k=8 m=3 encode w={w} at {tuple(x.shape)}, dense "
+              f"kernel per call (profiler ms, events ms), in the order "
+              f"value, table, table, value: by value {got_t['by value']}, "
+              f"table {got_t['table']}")
+
     for name, t, h, b, nbytes in (
             ("bytes kernel", t_bytes, h_bytes, bound, in_bytes),
             ("packed kernel", t_packed, h_packed, bound, in_bytes),
@@ -1563,8 +1608,11 @@ def main(argv=None) -> int:
 
     # the bit-plane kernel on the clay matrices, beside the dense kernel
     # on the same matrices and the library GEMM (torch._int_mm, else a
-    # bf16 matmul) on the materialised bit-planes; its bound is the dense
-    # GEMM at the int8 tensor-core peak or the bytes, the larger
+    # bf16 matmul) on the materialised bit-planes.  Its bound is the
+    # function's: the same GF(2^8) matrix apply the dense kernel bounds,
+    # the bytes or sm90_op_count at the INT32 peak, the larger; the dense
+    # GEMM over the whole bitmatrix at the int8 tensor-core peak is
+    # printed beside it as gemm_bound_ms (what this kernel's form costs)
     def planes_of(x):
         """(b, s, C) uint8 -> (8s, b*C) int8 LSB-first bit-planes."""
         b_, s_, c_ = x.shape
@@ -1581,10 +1629,13 @@ def main(argv=None) -> int:
             bf, xf = bm.to(torch.bfloat16), xp.to(torch.bfloat16)
             return (lambda: torch.matmul(bf, xf)), "torch.matmul bf16"
 
+    rep_e, rep_dm, rep_ms, rep_avail = big[0]
+    rep_x = clay_full[:, list(rep_avail)].reshape(DECODE_BATCH, 704, sc)
     mxu_times = {}
     for label, x, mat_s in (
             ("clay encode", clay_x, clay_enc_ms),
-            ("clay decode (0,)", dec_x, clay_dec_ms)):
+            ("clay decode (0,)", dec_x, clay_dec_ms),
+            (f"clay repair ({rep_e},)", rep_x, rep_ms)):
         r_, s_ = len(mat_s), len(mat_s[0])
         b_, _, c_ = x.shape
         xw = pack_chunks(x)
@@ -1601,29 +1652,50 @@ def main(argv=None) -> int:
         bm = torch.from_numpy(bm_host.astype(np.int8)).to(dev)
         lib_fn, lib_name = library_gemm(bm, planes_of(x))
         k_lib = kernel_ms(lib_fn, "", iters=5)
-        ops = 2 * (8 * r_) * (8 * s_) * b_ * c_
-        b, b_by = bound_ms(b_ * (s_ + r_) * c_, ops, INT8_OPS_PER_S)
+        fn_ops = sm90_op_count(mat_s)
+        moved_x = b_ * (s_ + r_) * c_
+        b, b_by = bound_ms(moved_x, fn_ops * (b_ * c_ // 4))
+        gemm_ops = 2 * (8 * r_) * (8 * s_) * b_ * c_
+        gemm_b, _ = bound_ms(moved_x, gemm_ops, INT8_OPS_PER_S)
         mxu_times[label] = (k_m or t_m, k_mp or t_m, t_pl, b, b_by, k_lib,
-                            k_d)
+                            k_d, gemm_b)
         tm, tk = gf_kernels.MMA_TILE_M, gf_kernels.MMA_TILE_K
         tiles = np.pad(bm_host, ((0, -len(bm_host) % tm),
                                  (0, -len(bm_host[0]) % tk)))
         tiles = tiles.reshape(len(tiles) // tm, tm, -1, tk).any(axis=(1, 3))
         print(f"bound of the {label} {tuple(x.shape)} -> {r_} rows: "
-              f"{b_ * (s_ + r_) * c_} bytes moved, {ops} int8 operations "
-              f"as a dense GEMM ({np.count_nonzero(mat_s)} nonzero of {r_ * s_} "
-              f"coefficients; {int(tiles.sum())} of {tiles.size} "
+              f"{moved_x} bytes moved, {fn_ops} int32 ops per word position "
+              f"x {b_ * c_ // 4} word positions -> {b:.6f} ms, by {b_by}; "
+              f"as a dense GEMM {gemm_ops} int8 operations -> "
+              f"{gemm_b:.6f} ms ({np.count_nonzero(mat_s)} nonzero of "
+              f"{r_ * s_} coefficients; {int(tiles.sum())} of {tiles.size} "
               f"{tm} x {tk} bitmatrix tiles nonzero, "
-              f"{int(bm_host.sum())} ones) -> {b:.6f} ms, by {b_by}")
+              f"{int(bm_host.sum())} ones)")
         for name, k_t in (("bit-plane kernel (bytes)", k_m),
                           ("bit-plane kernel (packed)", k_mp),
                           ("dense kernel on the same matrix", k_d),
                           (f"{lib_name} on the materialised planes", k_lib)):
             print(f"time {label}, {name}, profiler device time per call: "
                   + ("not measured" if k_t is None
-                     else f"{k_t:.6f} ms, {b / k_t:.4f} of bound"))
+                     else f"{k_t:.6f} ms, {b / k_t:.4f} of bound, "
+                          f"{gemm_b / k_t:.4f} of the GEMM bound"))
         print(f"time {label}, bit-plane kernel events {t_m:.6f} ms device, "
               f"{h_m:.6f} ms host issue; plain torch {t_pl:.6f} ms")
+    # the host's issue time per call through the entry points a user
+    # calls (the engine table, the kernel-data caches, the launch)
+    rep_surv = clay_full[:, list(rep_avail)]
+    dec_surv = clay_full[:, list(a1_clay)]
+    for name, fn in (
+            ("encode_chunks_torch (64 x 1 MiB)",
+             lambda: clay.encode_chunks_torch(clay_data)),
+            ("decode_chunks_torch (0,) (4 stripes)",
+             lambda: clay.decode_chunks_torch(dec_surv, a1_clay, e1_clay)),
+            (f"decode_chunks_torch ({rep_e},) (4 stripes)",
+             lambda: clay.decode_chunks_torch(rep_surv, rep_avail,
+                                              (rep_e,)))):
+        t_e, h_e = time_ms(fn, 20)
+        print(f"time clay {name}: {t_e:.6f} ms device, {h_e:.6f} ms host "
+              f"issue per call")
     for what, sec in clay_probe_s.items():
         print(f"time clay composite probe, {what}: {sec:.6f} s host clock")
 
@@ -1706,23 +1778,25 @@ def main(argv=None) -> int:
             "ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": b_by,
             "library_ms": None, "ok": True})
     enc_t = mxu_times["clay encode"]
-    for name, t, tp, b, b_by, lib_t, source, replaces in (
+    for name, t, tp, b, b_by, lib_t, source, replaces, extra in (
             ("apply_matrix_mxu_cuda", enc_t[0], enc_t[2], enc_t[3],
              enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
-             "ceph_tpu/ops/xla_ops.py:241"),
+             "ceph_tpu/ops/xla_ops.py:241", {"gemm_bound_ms": enc_t[7]}),
             ("apply_matrix_mxu_cuda_packed", enc_t[1], enc_t[2], enc_t[3],
              enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
-             "ceph_tpu/ops/xla_ops.py:241"),
+             "ceph_tpu/ops/xla_ops.py:241", {"gemm_bound_ms": enc_t[7]}),
             ("copy_slab_cuda", k_copy or t_copy, t_copy_pl, copy_b,
-             copy_by, k_copy_lib, "roofline_probes.cu", "tools/roofline.py:79"),
+             copy_by, k_copy_lib, "roofline_probes.cu", "tools/roofline.py:79",
+             {}),
             ("fold_slab_cuda", k_fold or t_fold, t_fold_pl, fold_b,
-             fold_by, None, "roofline_probes.cu", "tools/roofline.py:106")):
+             fold_by, None, "roofline_probes.cu", "tools/roofline.py:106",
+             {})):
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": t, "plain_ms": tp,
             "bound_ms": b, "bound_by": b_by, "library_ms": lib_t,
-            "ok": True})
+            "ok": True, **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -451,14 +451,9 @@ def test_launch_passes_a_table_above_the_by_value_limit(monkeypatch, r, s):
         uploads.append(coef)
         return torch.frombuffer(bytearray(coef), dtype=torch.uint8)
 
-    class _Stream:
-        cuda_stream = 0
-
     monkeypatch.setattr(gf_kernels, "_lib", lambda: (fake, 8))
     monkeypatch.setattr(gf_kernels, "_device_table", device_table)
-    monkeypatch.setattr(gf_kernels, "_device_index", lambda x: 0)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: _Stream())
+    monkeypatch.setattr(gf_kernels, "device_and_stream", lambda x: (0, 0))
     rng = np.random.default_rng(r * s)
     ms = matrix_to_static(rng.integers(0, 256, (r, s)))
     _, _, coef = gf_kernels._matrix_info(ms)

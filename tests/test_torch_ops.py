@@ -204,7 +204,39 @@ def test_wrappers_on_cpu_take_plain_version_and_count_nothing():
         "apply_bitmatrix_xor_cuda": 0, "apply_matrix_xor_cuda": 0,
         "apply_matrix_xor_cuda_packed": 0, "apply_matrix_cuda_ragged": 0,
         "apply_matrix_cuda_packed_ragged": 0, "apply_matrix_mxu_cuda": 0,
-        "apply_matrix_mxu_cuda_packed": 0}
+        "apply_matrix_mxu_cuda_packed": 0, "copy_slab_cuda": 0,
+        "fold_slab_cuda": 0}
+
+
+def test_one_launch_registry_reads_every_kernel_module():
+    """ops/launches.py reads and resets the counts of every wrapper of
+    every kernel module, whatever the caller imported."""
+    from ceph_tpu_torch.ops import launches, probe_kernels
+    every = launches.wrappers()
+    assert set(every) == set(gf_kernels.WRAPPERS) | set(
+        probe_kernels.WRAPPERS)
+    assert len(every) == len(gf_kernels.WRAPPERS) + len(
+        probe_kernels.WRAPPERS) == 13
+    assert gf_kernels.launch_counts is launches.launch_counts
+    probe_kernels.fold_slab_cuda.launches = 3
+    assert launches.launch_counts()["fold_slab_cuda"] == 3
+    launches.reset_launch_counts()
+    assert set(launches.launch_counts().values()) == {0}
+
+
+def test_static_matrix_keeps_its_hash_and_equals_the_plain_table():
+    """matrix_to_static's table hashes once and keys the same cache
+    entries as the plain tuple of tuples."""
+    mat = np.random.default_rng(5).integers(0, 256, (64, 704))
+    ms = matrix_to_static(mat)
+    plain = tuple(tuple(int(x) for x in row) for row in mat)
+    assert ms == plain and hash(ms) == hash(plain)
+    assert ms._hash == hash(plain)               # kept after the first hash
+    assert gf_kernels._static(ms) is ms
+    assert isinstance(gf_kernels._static(mat), torch_ops.StaticMatrix)
+    assert gf_kernels._static(mat) == ms
+    info = gf_kernels._matrix_info(ms)
+    assert gf_kernels._matrix_info(plain) is info  # one cache entry
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():

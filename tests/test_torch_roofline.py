@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from ceph_tpu_torch.bench.erasure_code_benchmark import _xor, build_chain
-from ceph_tpu_torch.ops import probe_kernels
+from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
 from ceph_tpu_torch.ops.probe_kernels import (copy_slab_cuda, copy_slab_torch,
                                               fold_slab_cuda, fold_slab_torch)
 from ceph_tpu_torch.tools import roofline
@@ -51,7 +51,7 @@ def test_probe_plain_versions_match_numpy(b, s, rows):
     equal numpy; a CPU tensor launches no kernel."""
     host = _slab(b * s + rows, b, s, rows)
     x = torch.from_numpy(host)
-    probe_kernels.reset_launch_counts()
+    reset_launch_counts()
     fold = np.bitwise_xor.reduce(host, axis=1, keepdims=True)
     for fn in (copy_slab_torch, copy_slab_cuda):
         got = fn(x)
@@ -60,8 +60,9 @@ def test_probe_plain_versions_match_numpy(b, s, rows):
     for fn in (fold_slab_torch, fold_slab_cuda):
         got = fn(x)
         assert got.dtype == torch.uint32 and np.array_equal(got.numpy(), fold)
-    assert probe_kernels.launch_counts() == {"copy_slab_cuda": 0,
-                                             "fold_slab_cuda": 0}
+    counts = launch_counts()
+    assert counts["copy_slab_cuda"] == counts["fold_slab_cuda"] == 0
+    assert not any(counts.values())
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take():
