@@ -21,8 +21,8 @@ matrix, cached per profile and pattern in ``engine.PatternCache``; the
 batched and device paths run ONE matrix apply over (batch, chunks *
 sub, chunk / sub).  On the card the engine table sends the large
 composites (MXU_MATRIX_MIN nonzeros or more: the k=8 m=4 d=11 encode
-and every decode but the four parity repairs) to the GF(2) bit-plane
-kernel (``gf_kernels.apply_matrix_mxu_cuda``) and the rest to the
+and every decode but the four parity repairs) to the sparse
+column-walk kernel (``gf_kernels.apply_matrix_mxu_cuda``) and the rest to the
 dense GF(2^8) kernel, as the reference's table does.
 
 Device surfaces (the reference's ``*_jax``): ``encode_chunks_torch``,
@@ -623,7 +623,7 @@ class ErasureCodeClay(_DeviceCode, ErasureCode):
     def encode_chunks_torch(self, data: torch.Tensor) -> torch.Tensor:
         """(batch, k, chunk) uint8 tensor -> (batch, m, chunk) parity on
         the code's device: ONE composite-matrix apply through the engine
-        table (the bit-plane kernel on the card for the large
+        table (the column-walk kernel on the card for the large
         composites, the dense kernel otherwise)."""
         self._check_device(data)
         _, ms = self._encode_composite()
@@ -752,6 +752,10 @@ class ErasureCodeClay(_DeviceCode, ErasureCode):
             self._linear_cache[("encode",)] = hit
         return hit
 
+    def _probe_encode_matrix(self) -> np.ndarray:
+        """(m*sub, k*sub) composite encode matrix via impulse probing."""
+        return self._encode_composite()[0]
+
     def _decode_composite(self, available: Tuple[int, ...],
                           erased: Tuple[int, ...]):
         key = ("decode", available, erased)
@@ -778,6 +782,11 @@ class ErasureCodeClay(_DeviceCode, ErasureCode):
                             erased), build)
             self._linear_cache[key] = hit
         return hit
+
+    def _probe_decode_matrix(self, available: Tuple[int, ...],
+                             erased: Tuple[int, ...]) -> np.ndarray:
+        """(len(erased)*sub, len(available)*sub) composite decode matrix."""
+        return self._decode_composite(available, erased)[0]
 
 
 class ErasureCodePluginClay(ErasureCodePlugin):

@@ -491,6 +491,10 @@ class ErasureCodeLrc(_DeviceCode, ErasureCode):
             self._linear_cache[key] = hit
         return hit
 
+    def _probe_decode_matrix(self, available: tuple, erased: tuple):
+        """(len(erased), len(available)) composite decode matrix."""
+        return self._decode_composite(available, erased)[0]
+
     def decode_chunks_batch(self, chunks: np.ndarray, available: tuple,
                             erased: tuple) -> np.ndarray:
         M, ms = self._decode_composite(tuple(available), tuple(erased))

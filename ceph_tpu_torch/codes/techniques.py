@@ -21,7 +21,10 @@ Surfaces of both:
   when the probe prefers one, the regionops ground truth otherwise), for
   a bitmatrix code the regionops packet product; above it the chunks go
   to the code's device and through the dispatch.  Both paths are
-  counted in the perf counters (``ec_host_*`` / ``ec_device_*``).
+  counted in the perf counters (``ec_host_*`` / ``ec_device_*``) and
+  timed in the metrics plane (``ec_apply{path=host|device}``); with
+  ``CEPH_TPU_VERIFY=1`` a device result is re-checked against the
+  regionops ground truth (``utils.debug``).
 - ``encode_chunks_torch`` / ``decode_chunks_torch``: a tensor on the
   code's device in, a tensor on that device out (the counterparts of
   ``*_jax``).
@@ -55,6 +58,8 @@ from ..ops.torch_ops import bitmatrix_to_static, mask_pages, \
     matrix_to_static, torch_bytes_view, torch_words_view
 from ..ops.xor_schedule import host_matrix_apply, \
     probe_bitmatrix_schedule
+from ..telemetry.metrics import record_dispatch
+from ..utils.debug import DeviceVerificationError, verification_enabled
 from ..utils.perf import global_perf
 from .engine import global_pattern_cache, pattern_key
 
@@ -97,15 +102,26 @@ class MatrixCodeMixin(_DeviceCode):
                 or global_policy().engine(self.device) == "numpy"):
             perf.inc("ec_host_calls")
             perf.inc("ec_host_bytes", chunks.nbytes)
-            # the XOR schedule the device runs when the probe prefers
-            # one, the regionops ground truth otherwise
-            return host_matrix_apply(chunks, matrix, matrix_static, self.w)
+            with record_dispatch("ec_apply", path="host"):
+                # the XOR schedule the device runs when the probe prefers
+                # one, the regionops ground truth otherwise
+                return host_matrix_apply(chunks, matrix, matrix_static,
+                                         self.w)
         perf.inc("ec_device_calls")
         perf.inc("ec_device_bytes", chunks.nbytes)
-        with perf.timed("ec_device_time"):
+        with perf.timed("ec_device_time"), \
+                record_dispatch("ec_apply", path="device"):
             out = apply_matrix_best(torch.from_numpy(words).to(self.device),
                                     matrix_static, self.w)
-            return out.cpu().numpy().view(np.uint8)
+            out = out.cpu().numpy().view(np.uint8)
+        if verification_enabled():
+            ref = regionops.matrix_encode(words, matrix,
+                                          self.w).view(np.uint8)
+            if not np.array_equal(out, ref):
+                raise DeviceVerificationError(
+                    "device matrix path diverged from host ground truth "
+                    f"(w={self.w}, shape={chunks.shape})")
+        return out
 
     def encode_chunks_batch(self, data: np.ndarray) -> np.ndarray:
         return self._apply(data, self.matrix, self._matrix_static)
@@ -239,15 +255,24 @@ class BitmatrixCodeMixin(_DeviceCode):
                 or global_policy().engine(self.device) == "numpy"):
             perf.inc("ec_host_calls")
             perf.inc("ec_host_bytes", chunks.nbytes)
-            return regionops.bitmatrix_encode(chunks, bitmatrix, self.w,
-                                              self.packetsize)
+            with record_dispatch("ec_apply", path="host"):
+                return regionops.bitmatrix_encode(chunks, bitmatrix, self.w,
+                                                  self.packetsize)
         perf.inc("ec_device_calls")
         perf.inc("ec_device_bytes", chunks.nbytes)
-        with perf.timed("ec_device_time"):
+        with perf.timed("ec_device_time"), \
+                record_dispatch("ec_apply", path="device"):
             out = apply_bitmatrix_best(
                 torch.from_numpy(chunks).to(self.device), bitmatrix_static,
-                self.w, self.packetsize, sched)
-            return out.cpu().numpy()
+                self.w, self.packetsize, sched).cpu().numpy()
+        if verification_enabled():
+            ref = regionops.bitmatrix_encode(chunks, bitmatrix, self.w,
+                                             self.packetsize)
+            if not np.array_equal(out, ref):
+                raise DeviceVerificationError(
+                    "device bitmatrix path diverged from host ground "
+                    f"truth (w={self.w}, shape={chunks.shape})")
+        return out
 
     def encode_chunks_batch(self, data: np.ndarray) -> np.ndarray:
         return self._apply(data, self.bitmatrix, self._bitmatrix_static,

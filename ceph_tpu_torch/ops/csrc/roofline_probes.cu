@@ -6,9 +6,15 @@
 // write it back) and _pallas_fold_fn (the pure-read probe: XOR-fold each
 // stripe's s chunks into one, (b, s, R, 128) -> (b, 1, R, 128)).  There the
 // block geometry mirrors the TPU GF(2^8) kernel's (_row_tile8); that is a
-// fact of the TPU's tiling and is not copied: here each thread moves
-// 16-byte vectors, neighbouring threads on neighbouring addresses, over a
-// grid-stride loop, which is what a streaming kernel on this card needs.
+// fact of the TPU's tiling and is not copied: here each thread moves one
+// 16-byte vector of the output, neighbouring threads on neighbouring
+// addresses, with streaming loads and stores (__ldcs / __stcs: read once,
+// not kept in L1), and the grid has one block of PROBE_THREADS threads per
+// PROBE_THREADS vectors (the last block masks the tail).  On an H100 a
+// grid capped at 8 blocks per SM over a grid-stride loop, four loads in
+// flight per thread, whole waves of contiguous block ranges, and a TMA
+// bulk ring through shared memory all ran behind torch's copy_ on the same
+// slab; this form keeps up with it.
 //
 // What bounds them: bytes.  The copy moves 2x the slab, the fold (1 + 1/s)x;
 // each does at most one XOR per word read, far below the INT32 rate, so the
@@ -20,48 +26,42 @@
 
 #include "on_device.cuh"
 
-#define PROBE_THREADS 256
+#define PROBE_THREADS 512
 
 __global__ void __launch_bounds__(PROBE_THREADS)
 probe_copy_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                   long long nvec) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       v < nvec; v += step) {
-    out[v] = in[v];
-  }
+  const long long v =
+      static_cast<long long>(blockIdx.x) * PROBE_THREADS + threadIdx.x;
+  if (v < nvec) __stcs(out + v, __ldcs(in + v));
 }
 
 // in: (b, s, lvec) 16-byte vectors, contiguous; out: (b, lvec)
 __global__ void __launch_bounds__(PROBE_THREADS)
 probe_fold_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                   long long b, int s, long long lvec) {
-  const long long n = b * lvec;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       idx < n; idx += step) {
-    const long long bb = idx / lvec;
-    const long long v = idx - bb * lvec;
-    const uint4* p = in + bb * s * lvec + v;
-    uint4 acc = p[0];
-    for (int j = 1; j < s; ++j) {
-      const uint4 x = p[j * lvec];
-      acc.x ^= x.x;
-      acc.y ^= x.y;
-      acc.z ^= x.z;
-      acc.w ^= x.w;
-    }
-    out[idx] = acc;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * PROBE_THREADS + threadIdx.x;
+  if (idx >= b * lvec) return;
+  const long long bb = idx / lvec;
+  const long long v = idx - bb * lvec;
+  const uint4* p = in + bb * s * lvec + v;
+  uint4 acc = __ldcs(p);
+  for (int j = 1; j < s; ++j) {
+    const uint4 x = __ldcs(p + j * lvec);
+    acc.x ^= x.x;
+    acc.y ^= x.y;
+    acc.z ^= x.z;
+    acc.w ^= x.w;
   }
+  __stcs(out + idx, acc);
 }
 
-static unsigned probe_grid(long long work) {
-  // enough blocks to cover the work, at most 8 per SM of a 132-SM card;
-  // the grid-stride loop takes the rest
-  const long long blocks = (work + PROBE_THREADS - 1) / PROBE_THREADS;
-  return static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8);
+// One block per PROBE_THREADS of `n` output vectors; 0 when that exceeds
+// a grid.
+static unsigned probe_blocks(long long n) {
+  const long long blocks = (n + PROBE_THREADS - 1) / PROBE_THREADS;
+  return blocks <= 0x7FFFFFFFLL ? static_cast<unsigned>(blocks) : 0u;
 }
 
 extern "C" {
@@ -74,9 +74,10 @@ const char* probe_error_string(int err) {
 // aligned).  One launch on `stream`; returns its CUDA error.
 int probe_copy(const void* in, void* out, long long nvec, int device,
                void* stream) {
-  if (nvec < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = probe_blocks(nvec);
+  if (nvec < 1 || blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   return on_device(device, [&] {
-    probe_copy_kernel<<<probe_grid(nvec), PROBE_THREADS, 0,
+    probe_copy_kernel<<<blocks, PROBE_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(in), static_cast<uint4*>(out), nvec);
     return cudaGetLastError();
@@ -88,11 +89,12 @@ int probe_copy(const void* in, void* out, long long nvec, int device,
 // CUDA error.
 int probe_fold(const void* in, void* out, long long b, int s, long long lvec,
                int device, void* stream) {
-  if (b < 1 || s < 1 || lvec < 1) {
+  const unsigned blocks = probe_blocks(b * lvec);
+  if (b < 1 || s < 1 || lvec < 1 || blocks == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return on_device(device, [&] {
-    probe_fold_kernel<<<probe_grid(b * lvec), PROBE_THREADS, 0,
+    probe_fold_kernel<<<blocks, PROBE_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(in), static_cast<uint4*>(out), b, s, lvec);
     return cudaGetLastError();

@@ -48,14 +48,19 @@ wrappers:
   - :func:`apply_matrix_xor_cuda_packed` — packed layout.  Replaces
     ``apply_matrix_xor_packed``.
 
-- ``csrc/gf2_bitplane_mma.cu`` (a GF(2^8) matrix as a GF(2) product of
-  its (8r, 8s) bitmatrix with the input's bit-planes, int8 ``mma.sync``
-  on the tensor cores; the bitmatrix is kernel data cached per matrix):
+- ``csrc/gf8_column_walk.cu`` (a GF(2^8) matrix as a sparse column
+  walk: each input column's doubling chain once, folded into the rows
+  its nonzero coefficients feed; the column-compressed matrix,
+  :func:`walk_data`, is kernel data cached per matrix):
 
   - :func:`apply_matrix_mxu_cuda` — bytes layout.  Replaces
-    ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu``.
+    ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu`` (the reference's MXU
+    tier; the name of the row stays).
   - :func:`apply_matrix_mxu_cuda_packed` — packed layout (the same
     kernel on the words' uint8 view).
+
+  Any r (:func:`walk_row_tile`: a matrix of more rows than one tile's
+  accumulators hold is walked in row tiles).
 
 A uint8 buffer read as little-endian uint32 is already the packed
 layout (and a uint16/uint32 word view is the same bytes), so the matrix
@@ -93,9 +98,9 @@ from .fallback import FallbackPolicy, global_policy
 from .launches import device_and_stream, launch_counts, register, \
     reset_launch_counts
 from .torch_ops import WORD_DTYPE, StaticMatrix, apply_bitmatrix_torch, \
-    apply_bitmatrix_xor_torch, apply_matrix_mxu_torch, \
-    apply_matrix_packed_ragged_torch, apply_matrix_ragged_torch, \
-    apply_matrix_torch, apply_matrix_xor_torch, mask_pages, mxu_bitmatrix
+    apply_bitmatrix_xor_torch, apply_matrix_packed_ragged_torch, \
+    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_walk_torch, \
+    apply_matrix_xor_torch, column_walk_data, mask_pages
 from .xor_schedule import XorSchedule, host_matrix_apply, \
     preferred_schedule, row_program, word_program
 from ..telemetry import metrics as tel
@@ -810,72 +815,121 @@ def apply_matrix_xor_cuda_packed(words: torch.Tensor, sched_static
     return pack_chunks(out)
 
 
-# -- the GF(2) bit-plane product on the tensor cores ---------------------------
+# -- the GF(2^8) sparse column walk (the mxu row) -------------------------------
 
-_mmalib_state = None
+# words per block, warps per block and the accumulators' shared memory of
+# csrc/gf8_column_walk.cu (CW_WORDS, CW_WARPS, CW_SMEM_BUDGET), checked
+# against the library when it loads
+WALK_WORDS, WALK_WARPS, WALK_SMEM_BUDGET = 64, 16, 64 * 1024
+
+_walklib_state = None
 
 
-def _mmalib():
-    global _mmalib_state
-    if _mmalib_state is None:
-        lib = load("gf2_bitplane_mma")
+def _walklib():
+    global _walklib_state
+    if _walklib_state is None:
+        lib = load("gf8_column_walk")
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.gf2_mma_apply.argtypes = [
-            vp, vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, i, i, vp]
-        lib.gf2_mma_apply.restype = i
-        lib.gf2_mma_error_string.argtypes = [i]
-        lib.gf2_mma_error_string.restype = ctypes.c_char_p
-        lib.gf2_mma_tile_m.restype = i
-        lib.gf2_mma_tile_k.restype = i
-        tiles = (lib.gf2_mma_tile_m(), lib.gf2_mma_tile_k())
-        if tiles != (MMA_TILE_M, MMA_TILE_K):
+        lib.gf8cw_apply.argtypes = [
+            vp, vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, i, i, i, i, i, vp]
+        lib.gf8cw_apply.restype = i
+        lib.gf8cw_splits.argtypes = [ll, ll, i, i, i, i, i,
+                                     ctypes.POINTER(i)]
+        lib.gf8cw_splits.restype = i
+        lib.gf8cw_error_string.argtypes = [i]
+        lib.gf8cw_error_string.restype = ctypes.c_char_p
+        for name in ("gf8cw_words", "gf8cw_warps", "gf8cw_smem_budget"):
+            getattr(lib, name).restype = i
+        have = (lib.gf8cw_words(), lib.gf8cw_warps(), lib.gf8cw_smem_budget())
+        if have != (WALK_WORDS, WALK_WARPS, WALK_SMEM_BUDGET):
             raise KernelLaunchError(
-                f"the bit-plane kernel takes tiles of {tiles}; the wrapper "
-                f"pads the bitmatrix to {(MMA_TILE_M, MMA_TILE_K)}")
-        _mmalib_state = lib
-    return _mmalib_state
+                f"the column-walk kernel takes (words, warps, shared "
+                f"memory) {have}; the wrapper plans for "
+                f"{(WALK_WORDS, WALK_WARPS, WALK_SMEM_BUDGET)}")
+        _walklib_state = lib
+    return _walklib_state
 
 
-MMA_TILE_M, MMA_TILE_K = 64, 32   # bitmatrix rows / columns per kernel tile
+def walk_row_tile(r: int) -> int:
+    """The column-walk kernel's capacity rule, a pure function of r: the
+    rows of one row tile, whose accumulators (rows x WALK_WORDS words)
+    fit WALK_SMEM_BUDGET bytes of shared memory.  Any r is taken: a
+    matrix of more rows is walked in ceil(r / walk_row_tile(r)) tiles,
+    each re-walking its own columns (clay's (256, 512) encode is one)."""
+    if r < 1:
+        raise ValueError(f"a matrix of {r} rows")
+    return min(r, WALK_SMEM_BUDGET // (4 * WALK_WORDS))
 
 
 @functools.lru_cache(maxsize=256)
-def _device_bitmatrix(matrix_t, device: torch.device) -> torch.Tensor:
-    """The (8r, 8s) GF(2) bitmatrix of ``matrix_t`` as int8 0/1 on
-    ``device``, zero-padded to whole (MMA_TILE_M, MMA_TILE_K) tiles:
-    built once per matrix, then kernel data."""
-    bm = mxu_bitmatrix(matrix_t)
-    rows = -(-bm.shape[0] // MMA_TILE_M) * MMA_TILE_M
-    cols = -(-bm.shape[1] // MMA_TILE_K) * MMA_TILE_K
-    padded = np.zeros((rows, cols), dtype=np.int8)
-    padded[:bm.shape[0], :bm.shape[1]] = bm
+def walk_data(matrix_t) -> np.ndarray:
+    """The column-walk kernel's data for a static table (built once per
+    matrix: clay's 78 decode composites are 78 entries)."""
+    return column_walk_data(matrix_t, walk_row_tile(len(matrix_t)))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_walk(matrix_t, device: torch.device
+                 ) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """(walk_data on ``device``, its launch arguments: rows per tile,
+    tiles, tile pointers', records' and entries' offsets, nonzero columns
+    of the sparsest tile): uploaded once per matrix, then kernel data."""
+    data = walk_data(matrix_t)
+    tiles, rows_per_tile, rec_base, ent_base = (int(x) for x in data[:4])
+    min_cols = int(np.diff(data[4:5 + tiles]).min()) - 1
     tel.note_kernel_setup()
-    return torch.from_numpy(padded).to(device)
+    return torch.from_numpy(data).to(device), (
+        rows_per_tile, tiles, 4, rec_base, ent_base, min_cols)
 
 
-def _launch_mma(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
-                nbytes: int, in_strides: tuple[int, int],
-                out_strides: tuple[int, int], matrix_t) -> None:
-    """Run the bit-plane kernel on the current stream, counted on
+def _walk_error(lib, fn, err: int) -> KernelLaunchError:
+    return KernelLaunchError(f"{fn.__name__} failed: CUDA error {err} "
+                             f"({lib.gf8cw_error_string(err).decode()})")
+
+
+def _launch_walk(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
+                 nbytes: int, in_strides: tuple[int, int],
+                 out_strides: tuple[int, int], matrix_t) -> None:
+    """Run the column-walk kernel on the current stream, counted on
     ``fn``."""
-    lib = _mmalib()
-    bm = _device_bitmatrix(matrix_t, x.device)
-    err = lib.gf2_mma_apply(
-        x.data_ptr(), out.data_ptr(), bm.data_ptr(), batch, nbytes,
-        *in_strides, *out_strides, len(matrix_t), len(matrix_t[0]),
-        bm.shape[0], bm.shape[1], *device_and_stream(x))
+    lib = _walklib()
+    data, args = _device_walk(matrix_t, x.device)
+    err = lib.gf8cw_apply(
+        x.data_ptr(), out.data_ptr(), data.data_ptr(), batch, nbytes,
+        *in_strides, *out_strides, len(matrix_t), *args,
+        *device_and_stream(x))
     if err:
-        raise KernelLaunchError(
-            f"{fn.__name__} failed: CUDA error {err} "
-            f"({lib.gf2_mma_error_string(err).decode()})")
+        raise _walk_error(lib, fn, err)
     fn.launches += 1
+
+
+def walk_splits(batch: int, nbytes: int, matrix_t,
+                device: torch.device) -> int:
+    """The column splits the column-walk kernel takes for ``batch``
+    stripes of ``nbytes``-byte chunks of ``matrix_t`` on ``device``
+    (into an output the wrappers allocate): more than one only where the
+    blocks fill less than a wave of the card.  A query; it launches
+    nothing."""
+    static = _static(matrix_t)
+    lib = _walklib()
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    rows_per_tile, tiles, _, _, _, min_cols = _device_walk(
+        static, torch.device("cuda", index))[1]
+    got = ctypes.c_int(0)
+    err = lib.gf8cw_splits(batch, nbytes, len(static), rows_per_tile, tiles,
+                           min_cols, index, ctypes.byref(got))
+    if err:
+        raise _walk_error(lib, walk_splits, err)
+    return got.value
 
 
 def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     """Apply a (r, s) GF(2^8) matrix to (..., s, C) uint8 chunks ->
-    (..., r, C) as a GF(2) bit-plane product on the tensor cores (the
-    reference's MXU tier).  Any C; the chunk dimension may be strided
-    as long as each chunk's bytes are contiguous."""
+    (..., r, C) through the sparse column-walk kernel (the reference's
+    MXU tier).  Any C; the chunk dimension may be strided as long as
+    each chunk's bytes are contiguous.  The kernel splits the columns
+    only to fill the card (:func:`walk_splits`)."""
     static = _static(matrix_t)
     r, s, _ = _matrix_info(static)
     if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
@@ -883,7 +937,7 @@ def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
         raise ValueError(f"need (..., {s}, C) uint8 chunks, got "
                          f"{tuple(chunks.shape)} {chunks.dtype}")
     if chunks.device.type == "cpu":
-        return apply_matrix_mxu_torch(chunks, static)
+        return apply_matrix_walk_torch(chunks, walk_data(static), r)
     _check_cuda(chunks)
     if chunks.stride(-1) != 1:
         raise ValueError("chunk bytes must be contiguous (stride 1)")
@@ -892,8 +946,8 @@ def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     if out.numel() == 0:
         return out
     batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
-    _launch_mma(apply_matrix_mxu_cuda, chunks, out, batch, c,
-                (bstride, chunks.stride(-2)), (r * c, c), static)
+    _launch_walk(apply_matrix_mxu_cuda, chunks, out, batch, c,
+                 (bstride, chunks.stride(-2)), (r * c, c), static)
     return out
 
 
@@ -910,8 +964,8 @@ def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
         raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
                          f"{tuple(words.shape)} {words.dtype}")
     if words.device.type == "cpu":
-        return pack_chunks(apply_matrix_mxu_torch(unpack_chunks(words),
-                                                  static))
+        return pack_chunks(apply_matrix_walk_torch(
+            unpack_chunks(words), walk_data(static), r))
     _check_cuda(words)
     if words.stride(-1) != 1 or (words.shape[-2] > 1
                                  and words.stride(-2) != LANE):
@@ -923,9 +977,9 @@ def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
     if out.numel() == 0:
         return pack_chunks(out)
     batch, bstride = _merged_batch(words, words.dim() - 3, 4)
-    _launch_mma(apply_matrix_mxu_cuda_packed, words, out, batch, nbytes,
-                (bstride, words.stride(-3) * 4), (r * nbytes, nbytes),
-                static)
+    _launch_walk(apply_matrix_mxu_cuda_packed, words, out, batch, nbytes,
+                 (bstride, words.stride(-3) * 4), (r * nbytes, nbytes),
+                 static)
     return pack_chunks(out)
 
 
@@ -1033,8 +1087,9 @@ def select_matrix_engine(w: int = 8, device=None,
                XOR-schedule kernel runs it, on a CPU tensor the plain
                torch schedule;
     - "mxu":   a w=8 matrix with MXU_MATRIX_MIN nonzeros or more on a
-               CUDA tensor (clay's composites): the GF(2) bit-plane
-               product on the tensor cores (``apply_matrix_mxu_cuda``);
+               CUDA tensor (clay's composites): the sparse column-walk
+               kernel (``apply_matrix_mxu_cuda``; the row keeps the
+               reference's name);
     - "cuda":  a hand-written kernel for every other CUDA tensor: the
                dense w=8 bytes or packed kernel (any table size:
                ``matrix_kernel_fits``), the w=16/32 word kernel, or a
@@ -1070,15 +1125,10 @@ def select_matrix_engine(w: int = 8, device=None,
     return eng
 
 
-def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
+def _run_matrix_bytes(chunks: torch.Tensor, matrix_t, w: int, eng: str
                       ) -> torch.Tensor:
-    """Bytes/words-layout dispatch through select_matrix_engine;
-    byte-identical in every branch."""
-    if w not in WORD_DTYPE:
-        raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
-                         f"got w={w}")
-    eng = select_matrix_engine(w, chunks.device, shape=tuple(chunks.shape),
-                               matrix_t=matrix_t)
+    """Execute ONE engine tier on bytes/words-layout chunks (the body of
+    apply_matrix_best, and of the ragged mask tier, unrecorded)."""
     if eng == "xor":
         return apply_matrix_xor_cuda(chunks, _xor_static(matrix_t))
     if eng == "mxu":
@@ -1092,11 +1142,9 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
     return apply_matrix_numpy(chunks, matrix_t, w)
 
 
-def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
-    """Packed-layout dispatch: (..., s, R, 128) uint32 ->
-    (..., r, R, 128); byte-identical in every branch."""
-    eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
-                               matrix_t=matrix_t, packed=True)
+def _run_matrix_packed(words: torch.Tensor, matrix_t, eng: str
+                       ) -> torch.Tensor:
+    """Packed-layout twin of _run_matrix_bytes."""
     if eng == "xor":
         return apply_matrix_xor_cuda_packed(words, _xor_static(matrix_t))
     if eng == "mxu":
@@ -1107,6 +1155,33 @@ def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
     if eng == "torch":
         return pack_chunks(apply_matrix_torch(byts, matrix_t, 8))
     return pack_chunks(apply_matrix_numpy(byts, matrix_t, 8))
+
+
+def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
+                      ) -> torch.Tensor:
+    """Bytes/words-layout dispatch through select_matrix_engine;
+    byte-identical in every branch.  Each call is timed and counted in
+    ``ops_apply_matrix_{seconds,calls}{engine,layout=bytes}``, as the
+    reference's eager dispatch is."""
+    if w not in WORD_DTYPE:
+        raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
+                         f"got w={w}")
+    eng = select_matrix_engine(w, chunks.device, shape=tuple(chunks.shape),
+                               matrix_t=matrix_t)
+    with tel.record_dispatch("ops_apply_matrix", engine=eng,
+                             layout="bytes"):
+        return _run_matrix_bytes(chunks, matrix_t, w, eng)
+
+
+def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
+    """Packed-layout dispatch: (..., s, R, 128) uint32 ->
+    (..., r, R, 128); byte-identical in every branch.  Recorded in
+    ``ops_apply_matrix_*{engine,layout=packed}``."""
+    eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
+                               matrix_t=matrix_t, packed=True)
+    with tel.record_dispatch("ops_apply_matrix", engine=eng,
+                             layout="packed"):
+        return _run_matrix_packed(words, matrix_t, eng)
 
 
 # -- the ragged (paged) tier ---------------------------------------------------
@@ -1144,7 +1219,7 @@ def select_ragged_engine(shape, matrix_t, w: int = 8, packed: bool = False,
                "xor" or "mxu") and the pool has at least
                tuned_ragged_cutover() pages;
     - "mask":  mask_pages, then the dense table on the product (the
-               XOR-schedule or bit-plane kernel on the card);
+               XOR-schedule or column-walk kernel on the card);
     - "numpy": the numpy tier was forced (CPU tensors only).
     """
     inner = select_matrix_engine(w, device, engine, shape=tuple(shape),
@@ -1188,7 +1263,9 @@ def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
                          f"{tuple(pool.shape)}")
     mask = _page_mask(pool, mask)
     if w != 8:
-        return apply_matrix_best(mask_pages(pool, mask), matrix_t, w)
+        x = mask_pages(pool, mask)
+        return _run_matrix_bytes(x, matrix_t, w, select_matrix_engine(
+            w, x.device, shape=tuple(x.shape), matrix_t=matrix_t))
     eng = select_ragged_engine(pool.shape, matrix_t, 8, device=pool.device)
     with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
                              layout="bytes"):
@@ -1196,7 +1273,9 @@ def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
             return apply_matrix_cuda_ragged(pool, matrix_t, mask)
         if eng == "numpy":
             return _host_apply_bytes_ragged(pool, matrix_t, mask)
-        return apply_matrix_best(mask_pages(pool, mask), matrix_t, 8)
+        x = mask_pages(pool, mask)
+        return _run_matrix_bytes(x, matrix_t, 8, select_matrix_engine(
+            8, x.device, shape=tuple(x.shape), matrix_t=matrix_t))
 
 
 def apply_matrix_packed_best_ragged(words: torch.Tensor, matrix_t,
@@ -1215,7 +1294,10 @@ def apply_matrix_packed_best_ragged(words: torch.Tensor, matrix_t,
             return apply_matrix_cuda_packed_ragged(words, matrix_t, mask)
         if eng == "numpy":
             return _host_apply_packed_ragged(words, matrix_t, mask)
-        return apply_matrix_packed_best(mask_pages(words, mask), matrix_t)
+        x = mask_pages(words, mask)
+        return _run_matrix_packed(x, matrix_t, select_matrix_engine(
+            8, x.device, shape=tuple(x.shape), matrix_t=matrix_t,
+            packed=True))
 
 
 def apply_bitmatrix_numpy(chunks: torch.Tensor, bitmatrix_rows, w: int,
@@ -1261,7 +1343,8 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 __all__ = [
     "BY_VALUE_MAX_COEF", "MAX_TABLE_COEF", "MXU_MATRIX_MIN",
-    "RAGGED_MIN_PAGES", "WRAPPERS", "XOR_SMEM_BUDGET",
+    "RAGGED_MIN_PAGES", "WALK_SMEM_BUDGET", "WALK_WARPS", "WALK_WORDS",
+    "WRAPPERS", "XOR_SMEM_BUDGET",
     "apply_bitmatrix_best", "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
     "apply_bitmatrix_xor_cuda", "apply_matrix_best",
     "apply_matrix_best_ragged", "apply_matrix_cuda",
@@ -1275,6 +1358,7 @@ __all__ = [
     "pack_rows",
     "pack_word_program", "reset_launch_counts", "schedule_op_count",
     "select_matrix_engine", "select_ragged_engine", "sm90_op_count",
-    "tuned_ragged_cutover", "unpack_chunks", "xor_program_fits",
+    "tuned_ragged_cutover", "unpack_chunks", "walk_data", "walk_row_tile",
+    "walk_splits", "xor_program_fits",
     "xor_schedule_op_count",
 ]

@@ -23,7 +23,11 @@ holds each kernel against its plain version on the card.
 - :func:`apply_matrix_mxu_torch` — a GF(2^8) matrix as one GF(2)
   product of its (8r, 8s) bitmatrix (:func:`mxu_bitmatrix`) with the
   input's LSB-first bit-planes, the twin of
-  ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu``.
+  ``ceph_tpu/ops/xla_ops.py::apply_matrix_mxu``;
+- :func:`apply_matrix_walk_torch` — the same function as the sparse
+  column walk of ``csrc/gf8_column_walk.cu``, over the same kernel data
+  (:func:`column_walk_data`): the plain version of
+  ``gf_kernels.apply_matrix_mxu_cuda``.
 
 The math is the reference's SWAR walk: four GF(2^8) field bytes (or
 two GF(2^16) halfwords, or one GF(2^32) word) packed in a 32-bit
@@ -414,3 +418,76 @@ def apply_matrix_mxu_torch(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     par = (torch.matmul(bm, x).to(torch.int32) & 1).to(torch.uint8)
     par = par.reshape(lead + (r, 8, c)) << planes[:, None]
     return par.sum(dim=-2).to(torch.uint8)
+
+
+def column_walk_data(matrix_t, rows_per_tile: int) -> np.ndarray:
+    """The column-walk kernel's data for a (r, s) GF(2^8) table, int32:
+
+    - a header ``(tiles, rows_per_tile, rec_base, ent_base)``;
+    - ``tiles + 1`` tile pointers (from index 4): the records of row
+      tile T are ``[ptr[T], ptr[T + 1] - 1)``, then its sentinel;
+    - from ``rec_base`` (even: the kernel reads records as int2), two
+      words per record: ``j | top << 24`` for a column j with a nonzero
+      coefficient in the tile, ``top`` the bit length of its largest
+      coefficient there (its doubling chain), and the index of its first
+      entry; a tile's sentinel record holds the tile's end;
+    - from ``ent_base``, one word per nonzero coefficient c of row i:
+      ``(i - tile start) << 8 | c``, a column's entries in row order.
+    """
+    mat = np.asarray(matrix_t, dtype=np.int64)
+    r, s = mat.shape
+    if r < 1 or s < 1 or s >= 1 << 24 or rows_per_tile < 1 \
+            or rows_per_tile > 1 << 23:
+        raise ValueError(f"no column-walk data for a ({r}, {s}) matrix in "
+                         f"tiles of {rows_per_tile} rows")
+    tiles = -(-r // rows_per_tile)
+    ptr, recs, ents = [0], [], []
+    n_ent = 0
+    for t in range(tiles):
+        sub = mat[t * rows_per_tile:(t + 1) * rows_per_tile]
+        for j in np.flatnonzero(sub.any(axis=0)):
+            col = sub[:, j]
+            rows = np.flatnonzero(col)
+            recs += [int(j) | int(col.max()).bit_length() << 24, n_ent]
+            ents.append((rows << 8) | col[rows])
+            n_ent += rows.size
+        recs += [0, n_ent]
+        ptr.append(len(recs) // 2)
+    rec_base = 4 + len(ptr) + (len(ptr) % 2)
+    head = [tiles, rows_per_tile, rec_base, rec_base + len(recs)]
+    return np.concatenate([
+        np.asarray(head + ptr + [0] * (len(ptr) % 2) + recs, np.int64),
+        *ents]).astype(np.int32)
+
+
+def apply_matrix_walk_torch(chunks: torch.Tensor, data: np.ndarray,
+                            r: int) -> torch.Tensor:
+    """Apply the (r, s) GF(2^8) matrix that column-walk ``data``
+    (:func:`column_walk_data`) describes to (..., s, C) uint8 chunks ->
+    (..., r, C), on the chunks' device: per row tile, per nonzero column
+    the xtime chain up to the column's top bit, then each entry's planes
+    XORed into its row."""
+    if chunks.dtype != torch.uint8 or chunks.dim() < 2:
+        raise ValueError(f"need (..., s, C) uint8 chunks, got "
+                         f"{tuple(chunks.shape)} {chunks.dtype}")
+    data = np.asarray(data, dtype=np.int64)
+    tiles, rows_per_tile, rec_base, ent_base = (int(x) for x in data[:4])
+    c = chunks.shape[-1]
+    lanes = _lanes(chunks)
+    accs: list = [None] * r
+    for t in range(tiles):
+        for k in range(int(data[4 + t]), int(data[5 + t]) - 1):
+            head, e0 = data[rec_base + 2 * k:rec_base + 2 * k + 2]
+            e1 = int(data[rec_base + 2 * k + 3])
+            planes = [lanes[..., int(head) & 0xFFFFFF, :]]
+            for _ in range(1, int(head) >> 24):
+                planes.append(xtime_swar8(planes[-1]))
+            for ent in data[ent_base + int(e0):ent_base + e1]:
+                i, coef = t * rows_per_tile + (int(ent) >> 8), int(ent) & 0xFF
+                for b, plane in enumerate(planes):
+                    if coef >> b & 1:
+                        accs[i] = plane if accs[i] is None \
+                            else accs[i] ^ plane
+    zero = torch.zeros_like(lanes[..., 0, :])
+    out = torch.stack([zero if a is None else a for a in accs], dim=-2)
+    return out.view(torch.uint8)[..., :c].contiguous()

@@ -35,11 +35,17 @@ source, all started together) and then, in order:
      all-dead and an all-live mask, for the RS encode matrix and random
      r in {1, 3, 11}, also against the dense kernel on the masked pool;
      dead pages must be zero;
-   - the GF(2) bit-plane kernel (bytes and packed wrappers): the clay
-     k=8 m=4 d=11 encode composite (256 x 512) at (64, 512, 2048), a
-     (64, 704) single-erasure decode composite at (4, 704, 2048),
-     random matrices with zeros for r in {16, 64} and s in {48, 176,
-     704}, a C off the tile (2048 + 4), no batch dimension;
+   - the "mxu" row's column-walk kernel (bytes and packed wrappers),
+     against its plain version over the same kernel data
+     (``apply_matrix_walk_torch``) and the reference's MXU twin
+     (``apply_matrix_mxu_torch``): the clay k=8 m=4 d=11 encode
+     composite (256 x 512) at (64, 512, 2048), a (64, 704)
+     single-erasure decode composite at (4, 704, 2048), where the kernel
+     splits the columns, and at (64, 704, 2048), where it does not,
+     random matrices with zeros for r in {16, 64, 300, 513, 600} (up to
+     three row tiles) and s from 24 to 704, C off the tile and the word
+     (2048 + 4, 1000, 1003), no batch dimension, with and without the
+     split;
    - the dense kernel's table variant (a table above 2048
      coefficients): the four clay (64, 704) parity repair composites,
      dense and ragged (half-live mask), bytes and packed;
@@ -88,7 +94,7 @@ source, all started together) and then, in order:
      1 MiB stripes through ``encode_chunks_torch``,
      ``encode_chunks_batch`` and the packed entry, decodes all 78 one-
      and two-erasure patterns of a 4-stripe batch in both layouts (the
-     bit-plane kernel on the 74 "mxu" patterns, the dense kernel's table
+     column-walk kernel on the 74 "mxu" patterns, the dense kernel's table
      variant on the 4 parity repairs), repairs one chunk through the
      dict API from the sub-chunk runs of ``minimum_to_decode``, and runs
      clay k=4 m=2 d=5 once;
@@ -101,9 +107,9 @@ source, all started together) and then, in order:
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
    trace, against the bound (the larger of the bytes over HBM bandwidth
-   and the integer ops over the INT32 peak; for the bit-plane kernel
-   too, the dense GEMM at the int8 peak printed beside it as
-   ``gemm_bound_ms``); the dense kernel's by-value and table variants
+   and the integer ops over the INT32 peak; for the "mxu" row the dense
+   GEMM at the int8 peak, the reference's MXU form, printed beside it as
+   the GEMM bound); the dense kernel's by-value and table variants
    on the RS k=8 m=3 encode (w=8 and w=16); the ragged kernel at 25,
    50 and 100 % live pages beside the dense kernel on the same bytes;
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
@@ -111,11 +117,16 @@ source, all started together) and then, in order:
    in, the call, copy out, demux), paged and dense; and prints one JSON
    line ``{"kernels": [...]}`` (thirteen wrappers; "ms" is the profiler's
    device time, the event time where the trace has no kernel); the
-   bit-plane kernel beside the dense kernel and ``torch._int_mm`` on the
-   materialised bit-planes of the same clay matrices (the library GEMM,
-   timed here and used nowhere in the port), the host issue per call of
-   clay's encode and decode entry points, and the host time of the clay
-   composite probes.
+   column-walk kernel on the three clay shapes (the encode, the (0,)
+   decode and the (8,) repair; the two decodes split their columns at
+   4 stripes and are also timed at 64, where they do not split),
+   beside the dense kernel and ``torch._int_mm`` on the materialised
+   bit-planes of the same matrices (the library GEMM, timed here and
+   used nowhere in the port) and the bit-plane kernel's earlier times,
+   each with its share of the floor; the copy kernel, ``copy_`` into a
+   buffer allocated once and ``clone`` in turns on the same slab; the
+   host issue per call of clay's encode and decode entry points, and the
+   host time of the clay composite probes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -165,6 +176,11 @@ RAG_PAGES = 512                               # the ragged kernel's pool
 # the dense encode's profiler time before the page mask was added to its
 # kernel, and the card it was read on
 EARLIER_DENSE_MS, EARLIER_CARD = 0.059812, "H100 80GB HBM3, 700 W"
+# the bit-plane tensor-core kernel's profiler times on the three clay
+# shapes before the column walk replaced it (the same card), printed
+# beside this run's times
+EARLIER_MXU_MS = {"clay encode": 9.498964, "clay decode (0,)": 0.235018,
+                  "clay repair (8,)": 0.239114}
 
 
 def serving_spec(paged: bool):
@@ -213,24 +229,40 @@ def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host
 
 
-def kernel_ms(fn, kernel: str, iters: int = 20) -> float | None:
-    """Device time per call of the CUDA kernels named ``kernel`` that
-    ``fn`` launches, from a profiler trace of ``iters`` calls (CUPTI
-    records each kernel's own start and end, so the host's issue pace
-    does not enter).  None when the trace holds no such kernel."""
+def kernel_ms(fn, kernel: str | tuple[str, ...], iters: int = 20,
+              tries: int = 3) -> float | None:
+    """Device time per call of the CUDA kernels that ``fn`` launches,
+    from a profiler trace of ``iters`` calls (CUPTI records each
+    kernel's own start and end, so the host's issue pace does not
+    enter): the kernels whose names hold ``kernel``, or each name of a
+    tuple, every call launching one kernel of each name.  A trace that
+    lost some of the launches (fewer than ``iters`` of a name) is taken
+    again, up to ``tries`` traces; None when none holds them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.device_time_total for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(us) / 1e3 / iters if len(us) >= iters else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        us = [[e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name]
+              for name in names]
+        if all(len(u) >= iters for u in us):
+            return sum(map(sum, us)) / 1e3 / iters
+    return None
+
+
+def walk_kernels(splits: int) -> tuple[str, ...]:
+    """The kernels one column-walk call launches: the walk, and the
+    zeroing kernel before it where the columns are split."""
+    return ("gf8_column_walk_kernel",) + (
+        ("gf8_column_walk_zero",) if splits > 1 else ())
 
 
 def bound_ms(moved_bytes: int, ops: int, peak: float = INT32_OPS_PER_S
@@ -302,16 +334,16 @@ def main(argv=None) -> int:
         apply_matrix_mxu_cuda_packed, apply_matrix_packed_best_ragged,
         apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed,
         bitmatrix_op_count, dense_op_count, pack_chunks, schedule_op_count,
-        select_matrix_engine, sm90_op_count, unpack_chunks,
-        xor_schedule_op_count)
+        select_matrix_engine, sm90_op_count, unpack_chunks, walk_data,
+        walk_splits, xor_schedule_op_count)
     from ceph_tpu_torch.ops.probe_kernels import (
         copy_slab_cuda, copy_slab_torch, fold_slab_cuda, fold_slab_torch)
     from ceph_tpu_torch.ops.torch_ops import (
         WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
         apply_matrix_mxu_torch, apply_matrix_packed_ragged_torch,
         apply_matrix_ragged_torch, apply_matrix_torch,
-        apply_matrix_xor_torch, bitmatrix_to_static, mask_pages,
-        matrix_to_static, mxu_bitmatrix)
+        apply_matrix_walk_torch, apply_matrix_xor_torch,
+        bitmatrix_to_static, mask_pages, matrix_to_static, mxu_bitmatrix)
     from ceph_tpu_torch.tools import roofline
     from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
                                              serve_dispatch_ragged)
@@ -609,9 +641,13 @@ def main(argv=None) -> int:
           f"{PAGE}), {len(rag_mats)} matrices x {len(rag_masks)} masks; "
           f"dead pages zero")
 
-    # the GF(2) bit-plane kernel (bytes and packed wrappers): the clay
-    # k=8 m=4 d=11 encode composite at its main shape, a (64, 704) decode
-    # composite, random matrices with zeros, a C off the tile, no batch dim
+    # the "mxu" row's column-walk kernel (bytes and packed wrappers),
+    # held to its plain version over the same kernel data
+    # (apply_matrix_walk_torch) and to the reference's MXU twin
+    # (apply_matrix_mxu_torch): the clay k=8 m=4 d=11 encode composite at
+    # its main shape, a (64, 704) decode composite at 4 stripes, with and
+    # without the column split, random matrices with zeros, r over one row
+    # tile, C off the word and the tile, no batch dim, strided slices
     clay = reg.factory("clay", dict(CLAY))
     check(clay.device.type == "cuda", f"clay runs on {clay.device}")
     sub = clay.get_sub_chunk_count()
@@ -634,57 +670,81 @@ def main(argv=None) -> int:
                              dtype=np.uint8)
     clay_data = torch.from_numpy(clay_host).to(dev)
     clay_x = clay_data.reshape(BATCH, clay.k * sub, sc)     # (64, 512, 2048)
-    mxu_plain = apply_matrix_mxu_torch(clay_x, clay_enc_ms)
-    got = apply_matrix_mxu_cuda(clay_x, clay_enc_ms)
-    err.hold("apply_matrix_mxu_cuda", got, mxu_plain,
-             f"clay encode composite, {tuple(clay_x.shape)}")
-    clay_words = pack_chunks(clay_x)
-    err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
-        apply_matrix_mxu_cuda_packed(clay_words, clay_enc_ms)), mxu_plain,
-        "clay encode composite, packed")
+
+    def hold_walk(x, mat_s, what, packed=True):
+        """The column walk on x (both layouts when C is whole rows)
+        against its plain version and the MXU twin; returns it and the
+        column splits it took."""
+        z = walk_splits(int(np.prod(x.shape[:-2])), x.shape[-1], mat_s, dev)
+        got = apply_matrix_mxu_cuda(x, mat_s)
+        want = apply_matrix_walk_torch(x, walk_data(mat_s), len(mat_s))
+        err.hold("apply_matrix_mxu_cuda", got, want, f"{what}, plain walk")
+        err.hold("apply_matrix_mxu_cuda", got, apply_matrix_mxu_torch(
+            x, mat_s), f"{what}, MXU twin")
+        if packed and x.shape[-1] % 512 == 0:
+            err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
+                apply_matrix_mxu_cuda_packed(pack_chunks(x), mat_s)), want,
+                f"{what}, packed")
+        return got, z
+
+    got, z = hold_walk(clay_x, clay_enc_ms,
+                       f"clay encode composite, {tuple(clay_x.shape)}")
+    taken = {"clay encode": z}
     check(np.array_equal(got[:2].cpu().numpy(), regionops.matrix_encode(
         clay_host[:2].reshape(2, clay.k * sub, sc), clay_enc, 8)),
-        "bit-plane kernel == numpy ground truth, 2 stripes")
+        "column walk == numpy ground truth, 2 stripes")
     clay_parity = got.reshape(BATCH, clay.m, clay_chunk)
     clay_full = torch.cat([clay_data[:DECODE_BATCH],
                            clay_parity[:DECODE_BATCH]], dim=1)
     dec_x = clay_full[:, list(a1_clay)].reshape(DECODE_BATCH,
                                                 len(a1_clay) * sub, sc)
-    got = apply_matrix_mxu_cuda(dec_x, clay_dec_ms)
-    err.hold("apply_matrix_mxu_cuda", got, apply_matrix_mxu_torch(
-        dec_x, clay_dec_ms), f"clay decode (0,), {tuple(dec_x.shape)}")
+    got, z = hold_walk(dec_x, clay_dec_ms,
+                       f"clay decode (0,), {tuple(dec_x.shape)}")
+    taken["clay decode (0,)"] = z
+    check(z > 1, "the 4-stripe decode splits its columns")
     check(torch.equal(got.reshape(DECODE_BATCH, clay_chunk),
                       clay_full[:, 0]), "the (0,) composite recovers")
-    err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
-        apply_matrix_mxu_cuda_packed(pack_chunks(dec_x), clay_dec_ms)), got,
-        "clay decode (0,), packed")
-    n_mxu = 0
-    for r, s_, c, lead in ((16, 48, 8192, (3,)), (64, 176, 2048 + 4, (2,)),
-                           (64, 704, 2048, ()), (16, 176, 4096, ()),
-                           (64, 48, 1000, (5,)), (16, 704, 512, (2,))):
+    # the same decode at BATCH stripes fills the card: no split
+    dec_wide = torch.cat([clay_x, torch.flip(clay_x, (0,))[:, :192]], dim=1)
+    _, z = hold_walk(dec_wide, clay_dec_ms,
+                     f"clay decode (0,), {tuple(dec_wide.shape)}")
+    taken[f"clay decode (0,) at {BATCH} stripes"] = z
+    check(z == 1, f"the {BATCH}-stripe decode takes no column split")
+    n_mxu, rand_splits = 0, []
+    for r, s_, c, lead in (
+            (16, 48, 8192, (3,)),
+            (64, 176, 2048 + 4, (2,)),
+            (64, 704, 2048, ()),
+            (16, 176, 4096, ()),
+            (64, 48, 1000, (5,)),
+            (16, 704, 512, (2,)),
+            (300, 40, 1003, (2,)),                    # 2 row tiles, C % 4
+            (513, 24, 4096, (2,)),                    # 3 row tiles
+            (600, 256, 4096, (2,))):                  # 3 row tiles, split
         m_r = rng.integers(0, 256, (r, s_))
         m_r[rng.random((r, s_)) < 0.7] = 0
         mr = matrix_to_static(m_r)
         xh = rng.integers(0, 256, lead + (s_ + 1, c), dtype=np.uint8)
         x = torch.from_numpy(xh).to(dev)[..., :s_, :]        # strided slice
-        want = apply_matrix_mxu_torch(x, mr)
-        err.hold("apply_matrix_mxu_cuda", apply_matrix_mxu_cuda(x, mr), want,
-                 f"bit-plane kernel r={r} s={s_} C={c} lead={lead}")
-        if c % 512 == 0:
-            err.hold("apply_matrix_mxu_cuda_packed", unpack_chunks(
-                apply_matrix_mxu_cuda_packed(pack_chunks(x), mr)), want,
-                f"bit-plane kernel packed r={r} s={s_}")
+        want, z = hold_walk(x, mr, f"column walk r={r} s={s_} C={c} "
+                            f"lead={lead}")
+        rand_splits.append(z)
         flat = xh[..., :s_, :].reshape((-1, s_, c))[:2]
         check(np.array_equal(want.reshape((-1, r, c))[:2].cpu().numpy(),
                              np.stack([regionops.matrix_encode(f, m_r, 8)
                                        for f in flat])),
-              f"bit-plane r={r} s={s_} == numpy ground truth")
+              f"column walk r={r} s={s_} == numpy ground truth")
         n_mxu += 1
-    print(f"phase 2: bit-plane kernel equal in both layouts on the clay "
-          f"encode composite {tuple(clay_x.shape)}, the (64, 704) decode "
-          f"(0,) at {tuple(dec_x.shape)} and {n_mxu} random matrices (r in "
-          f"16, 64; s in 48, 176, 704; C = 2052, 1000; no batch dim; "
-          f"strided slices), and to the host ground truth")
+    check(min(rand_splits) == 1 < max(rand_splits),
+          f"random matrices with and without the column split: "
+          f"{rand_splits}")
+    print(f"phase 2: column-walk kernel equal to its plain walk and the MXU "
+          f"twin in both layouts on the clay encode composite and the "
+          f"(64, 704) decode (0,), column splits taken {taken}, and "
+          f"{n_mxu} random matrices (r in 16, 64, 300, 513, 600: up to 3 "
+          f"row tiles; s in 24 to 704; C = 2052, 1000, 1003; no batch dim; "
+          f"strided slices; column splits {rand_splits}), and to the host "
+          f"ground truth")
 
     # the dense kernel's table variant: the four (64, 704) parity repairs
     # of clay (45056 coefficients, above the 2048 taken by value), dense
@@ -1049,18 +1109,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         check(torch.equal(parity, clay_parity), "clay encode_chunks_torch")
         check(counts()["apply_matrix_mxu_cuda"] == 1,
-              "the clay encode took the bit-plane kernel")
+              "the clay encode took the column-walk kernel")
         check(np.array_equal(clay.encode_chunks_batch(clay_host),
                              parity.cpu().numpy()),
               "clay encode_chunks_batch")
         check(counts()["apply_matrix_mxu_cuda"] == 2,
-              "encode_chunks_batch took the bit-plane kernel")
+              "encode_chunks_batch took the column-walk kernel")
         parity_p = clay.encode_chunks_packed_torch(pack_chunks(clay_data))
         torch.cuda.synchronize()
         check(torch.equal(unpack_chunks(parity_p), parity),
               "clay packed encode")
         check(counts()["apply_matrix_mxu_cuda_packed"] == 1,
-              "the packed encode took the bit-plane kernel")
+              "the packed encode took the column-walk kernel")
         full = torch.cat([clay_data[:DECODE_BATCH], parity[:DECODE_BATCH]],
                          dim=1)
         t0 = time.perf_counter()
@@ -1095,7 +1155,7 @@ def main(argv=None) -> int:
             else:
                 check(False, f"clay decode {erased} launched {ran}")
         check((on_mxu, on_dense) == (74, 4),
-              f"clay decodes: {on_mxu} on the bit-plane kernel, {on_dense} "
+              f"clay decodes: {on_mxu} on the column-walk kernel, {on_dense} "
               f"on the dense kernel")
         # one single-chunk repair through the dict API: the d helpers'
         # sub-chunk runs only
@@ -1128,7 +1188,7 @@ def main(argv=None) -> int:
                           sfull[:, list(erased)]),
               "clay k=4 m=2 d=5 decode (1, 4)")
         print(f"  clay: 78 decode patterns x 2 layouts ({on_mxu} on the "
-              f"bit-plane kernel, {on_dense} on the dense kernel's table "
+              f"column-walk kernel, {on_dense} on the dense kernel's table "
               f"variant); dict repair of chunk {lost} from "
               f"{len(need)} helpers' sub-chunk runs; k=4 m=2 d=5 ok")
 
@@ -1606,13 +1666,18 @@ def main(argv=None) -> int:
               f"profiler time in the call "
               + ("not measured" if k_t is None else f"{k_t:.6f} ms"))
 
-    # the bit-plane kernel on the clay matrices, beside the dense kernel
+    # the column-walk kernel on the clay matrices, beside the dense kernel
     # on the same matrices and the library GEMM (torch._int_mm, else a
     # bf16 matmul) on the materialised bit-planes.  Its bound is the
     # function's: the same GF(2^8) matrix apply the dense kernel bounds,
     # the bytes or sm90_op_count at the INT32 peak, the larger; the dense
-    # GEMM over the whole bitmatrix at the int8 tensor-core peak is
-    # printed beside it as gemm_bound_ms (what this kernel's form costs)
+    # GEMM over the whole bitmatrix at the int8 tensor-core peak (the
+    # reference MXU form's cost) is printed beside it as the GEMM bound.
+    # The (8,) repair routes to the dense kernel; the walk is timed on it
+    # too.  "earlier" is the bit-plane kernel this one replaced (a constant
+    # from its last run, printed beside this run's times).  A shape whose
+    # blocks fill less than a wave splits its columns; the same matrix at
+    # BATCH stripes, which takes no split, is timed beside it.
     def planes_of(x):
         """(b, s, C) uint8 -> (8s, b*C) int8 LSB-first bit-planes."""
         b_, s_, c_ = x.shape
@@ -1639,13 +1704,22 @@ def main(argv=None) -> int:
         r_, s_ = len(mat_s), len(mat_s[0])
         b_, _, c_ = x.shape
         xw = pack_chunks(x)
+        z_m = walk_splits(b_, c_, mat_s, dev)
         k_m = kernel_ms(lambda: apply_matrix_mxu_cuda(x, mat_s),
-                        "gf2_bitplane_mma")
+                        walk_kernels(z_m))
         k_mp = kernel_ms(lambda: apply_matrix_mxu_cuda_packed(xw, mat_s),
-                         "gf2_bitplane_mma")
+                         walk_kernels(z_m))
+        k_m1 = None
+        if z_m > 1:
+            xb = x.repeat(BATCH // b_, 1, 1)
+            check(walk_splits(BATCH, c_, mat_s, dev) == 1,
+                  f"{label} at {BATCH} stripes takes no column split")
+            k_m1 = kernel_ms(lambda: apply_matrix_mxu_cuda(xb, mat_s),
+                             walk_kernels(1))
+            del xb
         t_m, h_m = time_ms(lambda: apply_matrix_mxu_cuda(x, mat_s), 10)
-        t_pl, h_pl = time_ms(lambda: apply_matrix_mxu_torch(x, mat_s), 3,
-                             warmup=1)
+        t_pl, h_pl = time_ms(lambda: apply_matrix_walk_torch(
+            x, walk_data(mat_s), r_), 1, warmup=1)
         k_d = kernel_ms(lambda: apply_matrix_cuda(x, mat_s), "gf_matrix",
                         iters=5)
         bm_host = mxu_bitmatrix(mat_s)
@@ -1659,28 +1733,36 @@ def main(argv=None) -> int:
         gemm_b, _ = bound_ms(moved_x, gemm_ops, INT8_OPS_PER_S)
         mxu_times[label] = (k_m or t_m, k_mp or t_m, t_pl, b, b_by, k_lib,
                             k_d, gemm_b)
-        tm, tk = gf_kernels.MMA_TILE_M, gf_kernels.MMA_TILE_K
-        tiles = np.pad(bm_host, ((0, -len(bm_host) % tm),
-                                 (0, -len(bm_host[0]) % tk)))
-        tiles = tiles.reshape(len(tiles) // tm, tm, -1, tk).any(axis=(1, 3))
+        wd = walk_data(mat_s)
         print(f"bound of the {label} {tuple(x.shape)} -> {r_} rows: "
               f"{moved_x} bytes moved, {fn_ops} int32 ops per word position "
               f"x {b_ * c_ // 4} word positions -> {b:.6f} ms, by {b_by}; "
               f"as a dense GEMM {gemm_ops} int8 operations -> "
               f"{gemm_b:.6f} ms ({np.count_nonzero(mat_s)} nonzero of "
-              f"{r_ * s_} coefficients; {int(tiles.sum())} of {tiles.size} "
-              f"{tm} x {tk} bitmatrix tiles nonzero, "
-              f"{int(bm_host.sum())} ones)")
-        for name, k_t in (("bit-plane kernel (bytes)", k_m),
-                          ("bit-plane kernel (packed)", k_mp),
-                          ("dense kernel on the same matrix", k_d),
-                          (f"{lib_name} on the materialised planes", k_lib)):
+              f"{r_ * s_} coefficients; column-walk data {wd.size * 4} "
+              f"bytes, {int(wd[0])} row tile(s), "
+              f"{int(np.count_nonzero(np.asarray(mat_s).any(axis=0)))} "
+              f"nonzero columns; {int(bm_host.sum())} ones of the "
+              f"bitmatrix)")
+        for name, k_t in (
+                (f"column-walk kernel (bytes, {z_m} column splits)", k_m),
+                ("column-walk kernel (packed)", k_mp),
+                ("dense kernel on the same matrix", k_d),
+                (f"{lib_name} on the materialised planes", k_lib)):
             print(f"time {label}, {name}, profiler device time per call: "
                   + ("not measured" if k_t is None
                      else f"{k_t:.6f} ms, {b / k_t:.4f} of bound, "
                           f"{gemm_b / k_t:.4f} of the GEMM bound"))
-        print(f"time {label}, bit-plane kernel events {t_m:.6f} ms device, "
-              f"{h_m:.6f} ms host issue; plain torch {t_pl:.6f} ms")
+        if z_m > 1:
+            print(f"time {label} at {BATCH} stripes, column-walk kernel "
+                  f"(bytes, no column split), profiler device time per "
+                  f"call: " + ("not measured" if k_m1 is None else
+                               f"{k_m1:.6f} ms, {k_m1 * b_ / BATCH:.6f} ms "
+                               f"per {b_} stripes"))
+        print(f"time {label}, column-walk kernel events {t_m:.6f} ms "
+              f"device, {h_m:.6f} ms host issue; plain walk {t_pl:.6f} ms; "
+              f"earlier (the bit-plane kernel, {EARLIER_CARD}) "
+              f"{EARLIER_MXU_MS[label]} ms")
     # the host's issue time per call through the entry points a user
     # calls (the engine table, the kernel-data caches, the launch)
     rep_surv = clay_full[:, list(rep_avail)]
@@ -1699,22 +1781,38 @@ def main(argv=None) -> int:
     for what, sec in clay_probe_s.items():
         print(f"time clay composite probe, {what}: {sec:.6f} s host clock")
 
-    # the roofline probes' kernels on one 64 MiB slab
-    k_copy = kernel_ms(lambda: copy_slab_cuda(slab), "probe_copy")
+    # the roofline probes' kernels on one 64 MiB slab.  The copy kernel
+    # beside copy_ into a buffer allocated once (the library copy) and
+    # clone (copy_ into a fresh tensor, as the wrapper allocates its
+    # output), in turns: copy_, clone, kernel, kernel, clone, copy_
+    copy_buf = torch.empty_like(slab.view(torch.int32))
+    copies = {"copy_": (lambda: copy_buf.copy_(slab.view(torch.int32)), ""),
+              "clone": (lambda: slab.view(torch.int32).clone(), ""),
+              "copy kernel": (lambda: copy_slab_cuda(slab), "probe_copy")}
+    turns = {name: [] for name in copies}
+    for name in ("copy_", "clone", "copy kernel", "copy kernel", "clone",
+                 "copy_"):
+        turns[name].append(kernel_ms(*copies[name], iters=50))
+    for name, ts in turns.items():
+        print(f"time {name} on {tuple(slab.shape)}, profiler ms in turns: "
+              + ", ".join("not measured" if t is None else f"{t:.6f}"
+                          for t in ts))
+    k_copy, k_copy_lib, k_clone = (
+        None if None in turns[n] else sum(turns[n]) / len(turns[n])
+        for n in ("copy kernel", "copy_", "clone"))
     k_fold = kernel_ms(lambda: fold_slab_cuda(slab), "probe_fold")
     t_copy, _ = time_ms(lambda: copy_slab_cuda(slab), 10)
     t_fold, _ = time_ms(lambda: fold_slab_cuda(slab), 10)
     t_copy_pl, _ = time_ms(lambda: copy_slab_torch(slab), 10)
     t_fold_pl, _ = time_ms(lambda: fold_slab_torch(slab), 10)
-    copy_buf = torch.empty_like(slab.view(torch.int32))
-    k_copy_lib = kernel_ms(lambda: copy_buf.copy_(slab.view(torch.int32)),
-                           "")
     copy_b, copy_by = bound_ms(2 * slab.numel() * 4, 0)
     fold_b, fold_by = bound_ms(slab.numel() * 4 * (K + 1) // K,
                                slab.numel() * (K - 1) // K)
     for name, k_t, b in (("copy kernel", k_copy, copy_b),
                          ("fold kernel", k_fold, fold_b),
-                         ("copy_ (the library copy)", k_copy_lib, copy_b)):
+                         ("copy_ (the library copy)", k_copy_lib, copy_b),
+                         ("clone (copy_ into a fresh tensor)", k_clone,
+                          copy_b)):
         moved = 2 * slab.numel() * 4 if "copy" in name \
             else slab.numel() * 4 * (K + 1) // K
         print(f"time {name} on {tuple(slab.shape)}: "
@@ -1778,25 +1876,24 @@ def main(argv=None) -> int:
             "ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": b_by,
             "library_ms": None, "ok": True})
     enc_t = mxu_times["clay encode"]
-    for name, t, tp, b, b_by, lib_t, source, replaces, extra in (
+    for name, t, tp, b, b_by, lib_t, source, replaces in (
             ("apply_matrix_mxu_cuda", enc_t[0], enc_t[2], enc_t[3],
-             enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
-             "ceph_tpu/ops/xla_ops.py:241", {"gemm_bound_ms": enc_t[7]}),
+             enc_t[4], enc_t[5], "gf8_column_walk.cu",
+             "ceph_tpu/ops/xla_ops.py:241"),
             ("apply_matrix_mxu_cuda_packed", enc_t[1], enc_t[2], enc_t[3],
-             enc_t[4], enc_t[5], "gf2_bitplane_mma.cu",
-             "ceph_tpu/ops/xla_ops.py:241", {"gemm_bound_ms": enc_t[7]}),
+             enc_t[4], enc_t[5], "gf8_column_walk.cu",
+             "ceph_tpu/ops/xla_ops.py:241"),
             ("copy_slab_cuda", k_copy or t_copy, t_copy_pl, copy_b,
-             copy_by, k_copy_lib, "roofline_probes.cu", "tools/roofline.py:79",
-             {}),
+             copy_by, k_copy_lib, "roofline_probes.cu",
+             "tools/roofline.py:79"),
             ("fold_slab_cuda", k_fold or t_fold, t_fold_pl, fold_b,
-             fold_by, None, "roofline_probes.cu", "tools/roofline.py:106",
-             {})):
+             fold_by, None, "roofline_probes.cu", "tools/roofline.py:106")):
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": t, "plain_ms": tp,
             "bound_ms": b, "bound_by": b_by, "library_ms": lib_t,
-            "ok": True, **extra})
+            "ok": True})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

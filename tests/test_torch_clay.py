@@ -185,6 +185,24 @@ def test_composites_match_reference(profile):
         assert np.array_equal(m_o, m_r) and s_o == s_r, erased
 
 
+@pytest.mark.parametrize("profile", PROFILES, ids=IDS)
+def test_probe_matrices_match_reference(profile):
+    """``_probe_encode_matrix`` and ``_probe_decode_matrix`` (the
+    surfaces ``tune/sweep.py`` and ``tests/test_mxu.py`` call) exist and
+    equal the reference's, for the encode and a data, a parity and a
+    two-chunk erasure."""
+    ours, ref = _pair(profile)
+    assert np.array_equal(ours._probe_encode_matrix(),
+                          ref._probe_encode_matrix())
+    n = ours.k + ours.m
+    for erased in ((0,), (n - 1,), (1, n - 2)):
+        avail = _avail(n, erased)
+        got = ours._probe_decode_matrix(avail, erased)
+        assert got.shape == (len(erased) * ours.sub_chunk_no,
+                             len(avail) * ours.sub_chunk_no)
+        assert np.array_equal(got, ref._probe_decode_matrix(avail, erased))
+
+
 # -- decode ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("profile", PROFILES, ids=IDS)

@@ -145,6 +145,32 @@ def test_every_pattern_decodes_like_reference(plugin, profile):
         assert refused == 0
 
 
+@pytest.mark.parametrize("profile", [
+    {"k": "4", "m": "2", "l": "3"},
+    {"mapping": "__DD__DD", "layers": LRC_LAYERS}], ids=["k4m2l3", "layers"])
+def test_lrc_probe_decode_matrix_matches_reference(profile):
+    """lrc's ``_probe_decode_matrix`` exists and equals the reference's
+    for the two lrc corpus profiles, every 1- and 2-erasure pattern it
+    can decode (the encode probe beside it)."""
+    ours, ref = _pair("lrc", profile)
+    assert np.array_equal(ours._probe_encode_matrix()[0],
+                          ref._probe_encode_matrix()[0])
+    n = ref.get_chunk_count()
+    decoded = 0
+    for erased in _patterns(ref):
+        avail = tuple(i for i in range(n) if i not in erased)
+        try:
+            want = ref._probe_decode_matrix(avail, erased)
+        except IOError:
+            with pytest.raises(IOError):
+                ours._probe_decode_matrix(avail, erased)
+            continue
+        assert np.array_equal(ours._probe_decode_matrix(avail, erased),
+                              want), erased
+        decoded += 1
+    assert decoded > n
+
+
 @pytest.mark.parametrize("plugin,profile", PROFILES, ids=IDS)
 def test_dict_api_round_trips(plugin, profile):
     ours, ref = _pair(plugin, profile)

@@ -4,9 +4,9 @@ wrappers, its table variant above the by-value limit, and a small
 serving stream through them), the w=16/32 word kernel, the two
 packet-layout bitmatrix kernels (plain and scheduled), the XOR-schedule
 kernel (bytes and packed wrappers; the shec, lrc and reed_sol_r6_op
-paths that take it), the GF(2) bit-plane kernel (bytes and packed; the
-clay paths that take it) and the roofline tool's copy and fold
-kernels.  Every test here
+paths that take it), the "mxu" row's column-walk kernel (bytes and
+packed, column splits, row tiles; the clay paths that take it)
+and the roofline tool's copy and fold kernels.  Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
 
@@ -39,8 +39,9 @@ from ceph_tpu_torch.ops.probe_kernels import (
 from ceph_tpu_torch.ops.torch_ops import (
     WORD_DTYPE, apply_bitmatrix_torch, apply_bitmatrix_xor_torch,
     apply_matrix_mxu_torch, apply_matrix_packed_ragged_torch,
-    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_xor_torch,
-    bitmatrix_to_static, mask_pages, matrix_to_static)
+    apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_walk_torch,
+    apply_matrix_xor_torch, bitmatrix_to_static, mask_pages,
+    matrix_to_static)
 from ceph_tpu_torch.ops.xor_schedule import (
     build_schedule, preferred_schedule, probe_bitmatrix_schedule)
 from ceph_tpu_torch.utils.errors import KernelLaunchError
@@ -456,17 +457,20 @@ def test_serving_stream_on_card(cuda_device, paged):
     assert run.report["stream_compiles"] == 0
 
 
-# -- the GF(2) bit-plane kernel and the dense kernel's table variant -----------
+# -- the "mxu" row's column-walk kernel and the dense kernel's table variant ---
 
 @pytest.mark.parametrize("r,s,C,lead,zeros", [
     (256, 512, 2048, (2,), 0.95), (64, 704, 2048, (3,), 0.95),
     (16, 48, 4096 + 4, (2,), 0.7), (64, 176, 1000, (), 0.7),
-    (3, 8, 512, (2, 2), 0.0), (1, 5, 130, (), 0.0)])
+    (3, 8, 512, (2, 2), 0.0), (1, 5, 130, (), 0.0),
+    (300, 40, 1003, (2,), 0.7)])
 def test_mxu_kernel_matches_plain_on_card(cuda_device, r, s, C, lead, zeros):
     """apply_matrix_mxu_cuda (and the packed wrapper where C is whole
-    rows) equals its plain version, the dense kernel and numpy, on
-    composite-like sparse matrices, tails off the tile, strided chunk
-    slices and no batch dimension."""
+    rows) equals its plain version over the same kernel data
+    (apply_matrix_walk_torch), the reference's MXU twin, the dense kernel
+    and numpy, on composite-like sparse matrices, tails off the tile and
+    the word, more rows than one tile, strided chunk slices and no batch
+    dimension."""
     rng = np.random.default_rng(r * s + C)
     mat = rng.integers(0, 256, (r, s))
     mat[rng.random((r, s)) < zeros] = 0
@@ -477,6 +481,8 @@ def test_mxu_kernel_matches_plain_on_card(cuda_device, r, s, C, lead, zeros):
     got = gf_kernels.apply_matrix_mxu_cuda(x, ms)
     torch.cuda.synchronize()
     assert gf_kernels.apply_matrix_mxu_cuda.launches == before + 1
+    assert torch.equal(got, apply_matrix_walk_torch(
+        x, gf_kernels.walk_data(ms), r))
     assert torch.equal(got, apply_matrix_mxu_torch(x, ms))
     assert torch.equal(got, apply_matrix_cuda(x, ms))
     flat = host[..., 1:, :].reshape((-1, s, C))[0]
@@ -490,6 +496,32 @@ def test_mxu_kernel_matches_plain_on_card(cuda_device, r, s, C, lead, zeros):
         assert torch.equal(unpack_chunks(gotp), got)
 
 
+@pytest.mark.parametrize("r,s,C,batch,split", [
+    (64, 704, 2048, 4, True), (64, 704, 2048, 64, False),
+    (600, 256, 4096, 2, True), (300, 200, 2052, 3, True),
+    (40, 150, 1003, 2, False)])
+def test_mxu_kernel_column_splits_and_row_tiles(cuda_device, r, s, C, batch,
+                                                split):
+    """The column split the kernel picks (the partials XORed into a
+    zeroed output) at batches under a wave, none at a batch that fills
+    one, and matrices of two and three row tiles equal the plain
+    product; a C that is not a whole number of words takes no split."""
+    rng = np.random.default_rng(r + s + batch)
+    mat = rng.integers(0, 256, (r, s))
+    mat[rng.random((r, s)) < 0.8] = 0
+    ms = matrix_to_static(mat)
+    x = torch.from_numpy(rng.integers(0, 256, (batch, s, C),
+                                      dtype=np.uint8)).to(cuda_device)
+    assert (gf_kernels.walk_splits(batch, C, ms, x.device) > 1) == split
+    got = gf_kernels.apply_matrix_mxu_cuda(x, ms)
+    torch.cuda.synchronize()
+    assert torch.equal(got, apply_matrix_walk_torch(
+        x, gf_kernels.walk_data(ms), r))
+    assert torch.equal(got, apply_matrix_torch(x, ms, 8))
+    assert -(-r // gf_kernels.walk_row_tile(r)) == (1 if r <= 256 else
+                                                    -(-r // 256))
+
+
 def test_mxu_kernel_refuses_what_it_cannot_take(cuda_device):
     ms = matrix_to_static(np.ones((2, 3), dtype=np.int64))
     x = torch.zeros((4, 3, 64), dtype=torch.uint8, device=cuda_device)
@@ -499,6 +531,15 @@ def test_mxu_kernel_refuses_what_it_cannot_take(cuda_device):
         gf_kernels.apply_matrix_mxu_cuda(x[..., ::2], ms)
     with pytest.raises(ValueError):
         gf_kernels.apply_matrix_mxu_cuda_packed(x, ms)
+    # 2^31 stripes of one word each: more blocks than a grid holds, so
+    # the launch is refused and the wrapper raises (the output, 8 GiB,
+    # is allocated first; the input is one stripe broadcast)
+    one = matrix_to_static(np.ones((1, 3), dtype=np.int64))
+    wide = x[:1, :, :4].expand(1 << 31, 3, 4)
+    before = gf_kernels.apply_matrix_mxu_cuda.launches
+    with pytest.raises(KernelLaunchError):
+        gf_kernels.apply_matrix_mxu_cuda(wide, one)
+    assert gf_kernels.apply_matrix_mxu_cuda.launches == before
 
 
 @pytest.mark.parametrize("r,s,C", [(64, 704, 2048), (9, 300, 4096 + 4),
@@ -533,7 +574,7 @@ def test_dense_kernel_table_variant_on_card(cuda_device, r, s, C):
 def test_clay_round_trips_on_card(cuda_device, profile):
     """Clay on the card: encode in both layouts, then every single
     erasure and a few doubles; at k=8 the encode and the data-chunk
-    decodes take the bit-plane kernel, the parity repairs the dense
+    decodes take the column-walk kernel, the parity repairs the dense
     kernel's table variant."""
     ec = ErasureCodePluginRegistry.instance().factory("clay", dict(profile))
     assert ec.device.type == "cuda"
@@ -572,8 +613,12 @@ def test_clay_round_trips_on_card(cuda_device, profile):
 
 # -- the roofline tool's probe kernels ------------------------------------------
 
-@pytest.mark.parametrize("b,s,rows", [(64, 8, 256), (3, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("b,s,rows", [(64, 8, 256), (3, 5, 7), (1, 1, 1),
+                                      (7, 3, 1001)])
 def test_probe_kernels_match_plain_on_card(cuda_device, b, s, rows):
+    """Copy and fold equal their plain versions; (7, 3, 1001) is 672672
+    vectors, not a whole number of the copy's 512-vector blocks, nor of
+    the card's waves of them."""
     rng = np.random.default_rng(b + s + rows)
     host = rng.integers(0, 1 << 32, (b, s, rows, 128), dtype=np.uint32)
     x = torch.from_numpy(host).to(cuda_device)
