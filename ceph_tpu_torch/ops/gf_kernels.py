@@ -7,7 +7,9 @@ sources stand in for nine TPU kernels and the MXU path, behind eleven
 wrappers:
 
 - ``csrc/gf8_matrix.cu`` (GF(2^w) matrix, field width a template
-  parameter):
+  parameter; the doubling chain per output row over inputs staged in
+  shared memory, every row in one launch; the row program,
+  :func:`dense_program`, is kernel data cached per matrix):
 
   - :func:`apply_matrix_cuda` — w=8 bytes layout, (..., s, C) uint8 ->
     (..., r, C); any C (a tail that is not a whole 16-byte vector is
@@ -25,8 +27,8 @@ wrappers:
   - :func:`apply_matrix_cuda_packed_ragged` — the same on a (P, s, R,
     128) uint32 pool.  Replaces ``apply_matrix_pallas_packed_ragged``.
 
-  Any table size (:func:`matrix_kernel_fits`): up to BY_VALUE_MAX_COEF
-  coefficients the matrix is a kernel parameter, above that a device
+  Any table size (:func:`matrix_kernel_fits`): up to BY_VALUE_MAX_PROG
+  words the row program is a kernel parameter, above that a device
   buffer cached per matrix (clay's 64 x 704 repair composites).
 
 - ``csrc/gf2_bitmatrix.cu`` (jerasure packet layout, any packetsize; one
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 
 import numpy as np
@@ -158,6 +161,30 @@ def sm90_op_count(matrix_t, w: int = 8) -> int:
     return cost
 
 
+def sm90_row_op_count(matrix_t, w: int = 8) -> int:
+    """The same count for the doubling chain per output row (Horner:
+    out_i = (...(y_i,top-1 * x) ^ ...) ^ y_i,0, y_i,t the XOR of the
+    inputs whose coefficient has bit t set): each row's chain costs
+    SM90_XT_COST[w] per xtime below its highest bit, and its set bits
+    fold two per LOP3."""
+    xt_cost = SM90_XT_COST[w]
+    cost = 0
+    for row in matrix_t:
+        top = max(int(c).bit_length() for c in row)
+        if top > 1:
+            cost += xt_cost * (top - 1)
+        cost += sum(int(c).bit_count() for c in row) // 2
+    return cost
+
+
+def sm90_op_floor(matrix_t, w: int = 8) -> int:
+    """The least integer instructions per 32-bit word position of a
+    GF(2^w) matrix apply on sm_90: the cheaper of the chain per input
+    column (``sm90_op_count``) and the chain per output row
+    (``sm90_row_op_count``); the ops side of the function's bound."""
+    return min(sm90_op_count(matrix_t, w), sm90_row_op_count(matrix_t, w))
+
+
 def bitmatrix_op_count(bitmatrix_rows) -> int:
     """INT32 instructions per 32-bit word position that the plain packet
     product needs at least on sm_90: each output row's n ones fold in
@@ -205,18 +232,22 @@ def xor_schedule_op_count(sched_static) -> int:
 
 # -- the GF(2^w) matrix kernel -----------------------------------------------
 
-# coefficients the kernel takes as a by-value kernel parameter
-# (csrc/gf8_matrix.cu GF8_MAX_COEF / GFW_MAX_COEF), checked against the
-# library when it loads; a larger table goes to the kernel's table
-# variant through a device buffer (slower on small tables, so not used
-# for them: PERF.md)
-BY_VALUE_MAX_COEF = {8: 2048, 16: 512, 32: 512}
-# the largest table either variant takes: the kernel indexes rows with
-# 32-bit ints
-MAX_TABLE_COEF = (1 << 31) - 1
+# csrc/gf8_matrix.cu's limits, checked against the library when it loads:
+# the int32 row-program words it takes as a by-value kernel parameter
+# (GF_PROG_MAX; a longer program goes to the table variant through a
+# device buffer), the output rows of a row block (GF_ROWS_MAX), the
+# threads of a block, one 16-byte unit each (GF_UNITS), and the input
+# columns of one staged tile (GF_TILE_COLS: a block's two buffers of
+# tiles and their zero slots fill 48 KB)
+BY_VALUE_MAX_PROG = 960
+DENSE_ROWS_MAX = 8
+DENSE_UNITS = 128
+DENSE_TILE_COLS = 11
+# the largest table the kernel takes: its row program (at most
+# r * s * (2w + 6) + 3 words) is indexed with 32-bit ints
+MAX_TABLE_COEF = 1 << 24
 
-# (library, output rows per launch), set on first use; the per-call path
-# reads it without a lock
+# the library, set on first use; the per-call path reads it without a lock
 _lib_state = None
 
 
@@ -226,62 +257,185 @@ def _lib():
         lib = load("gf8_matrix")
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         lib.gf8_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, ctypes.c_char_p, vp, vp,
-            i, vp]
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, vp, vp, vp, i, vp]
         lib.gf8_matrix_apply.restype = i
         lib.gfw_matrix_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, ctypes.c_char_p, vp, i,
-            vp]
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, vp, vp, i, vp]
         lib.gfw_matrix_apply.restype = i
-        lib.gf8_max_coef.restype = i
-        lib.gfw_max_coef.restype = i
-        lib.gf8_row_group.restype = i
+        lib.gf8_matrix_plan.argtypes = [ll, ll, i, i, i, i,
+                                        ctypes.POINTER(i)]
+        lib.gf8_matrix_plan.restype = i
+        lib.gf8_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.gf8_geometry.restype = None
+        lib.gf8_max_prog.restype = i
         lib.gf8_error_string.argtypes = [i]
         lib.gf8_error_string.restype = ctypes.c_char_p
-        have = (lib.gf8_max_coef(), lib.gfw_max_coef())
-        if have != (BY_VALUE_MAX_COEF[8], BY_VALUE_MAX_COEF[16]):
+        if lib.gf8_max_prog() != BY_VALUE_MAX_PROG:
             raise KernelLaunchError(
-                f"the GF(2^w) matrix kernel takes {have} coefficients by "
-                f"value; the wrapper plans for {BY_VALUE_MAX_COEF}")
-        _lib_state = (lib, lib.gf8_row_group())
+                f"the GF(2^w) matrix kernel takes {lib.gf8_max_prog()} "
+                f"program words by value; the wrapper plans for "
+                f"{BY_VALUE_MAX_PROG}")
+        got = (ctypes.c_int * 4)()
+        for r, s in itertools.product(range(1, 4 * DENSE_ROWS_MAX + 2),
+                                      (1, DENSE_TILE_COLS,
+                                       DENSE_TILE_COLS + 1)):
+            lib.gf8_geometry(r, s, got)
+            if tuple(got) != dense_geometry(r, s):
+                raise KernelLaunchError(
+                    f"the GF(2^w) matrix kernel lays out ({r}, {s}) as "
+                    f"{tuple(got)}; the wrapper plans "
+                    f"{dense_geometry(r, s)}")
+        _lib_state = lib
     return _lib_state
 
 
 def matrix_kernel_fits(r: int, s: int, w: int = 8) -> bool:
     """The dense GF(2^w) kernel's capacity rule, a pure function of the
-    shape: any (r, s) table up to MAX_TABLE_COEF coefficients.  Up to
-    BY_VALUE_MAX_COEF[w] it travels as a kernel parameter, above that
-    through a device buffer staged into shared memory."""
-    return w in BY_VALUE_MAX_COEF and r >= 1 and s >= 1 \
-        and r * s <= MAX_TABLE_COEF
+    shape: any (r, s) table up to MAX_TABLE_COEF coefficients.  Its row
+    program travels as a kernel parameter up to BY_VALUE_MAX_PROG words,
+    above that through a device buffer."""
+    return w in SM90_XT_COST and r >= 1 and s >= 1 \
+        and r * s <= MAX_TABLE_COEF and dense_geometry(r, s)[0] <= 65535
 
 
 @functools.lru_cache(maxsize=512)
-def _matrix_info(matrix_t, w: int = 8) -> tuple[int, int, bytes]:
-    """(r, s, row-major coefficient bytes) of a GF(2^w) coefficient
-    table: one byte per coefficient for w=8, little-endian uint32 for
-    w=16/32; raises on a ragged or empty table or a coefficient outside
-    [0, 2^w).  Cached: a code applies the same few matrices on every
-    call (its encode matrix and one decode matrix per pattern)."""
+def _matrix_info(matrix_t, w: int = 8) -> tuple[int, int]:
+    """(r, s) of a GF(2^w) coefficient table; raises on a ragged or
+    empty table or a coefficient outside [0, 2^w).  Cached: a code
+    applies the same few matrices on every call (its encode matrix and
+    one decode matrix per pattern)."""
     r = len(matrix_t)
     s = len(matrix_t[0]) if r else 0
     if r == 0 or s == 0 or any(len(row) != s for row in matrix_t):
         raise ValueError("matrix must be a non-empty (r, s) table")
-    flat = [int(x) for row in matrix_t for x in row]
-    if any(not 0 <= x < (1 << w) for x in flat):
+    if any(not 0 <= int(x) < (1 << w) for row in matrix_t for x in row):
         raise ValueError(f"GF(2^{w}) coefficients must lie in "
                          f"[0, {(1 << w) - 1}]")
-    if w == 8:
-        return r, s, bytes(flat)
-    return r, s, np.asarray(flat, dtype="<u4").tobytes()
+    return r, s
+
+
+def dense_geometry(r: int, s: int) -> tuple[int, int, int, int]:
+    """The dense kernel's launch geometry, a pure function of the shape
+    (as csrc/gf8_matrix.cu's gf_geometry): (row blocks, rows per block,
+    units per block, input columns per staged tile).  Rows go in
+    balanced blocks of at most DENSE_ROWS_MAX when the s columns fit one
+    tile, else one row per block (a block stages only its rows' nonzero
+    columns); a block is DENSE_UNITS threads, each thread one unit and
+    every row of its row block."""
+    if r < 1 or s < 1:
+        raise ValueError(f"a ({r}, {s}) matrix")
+    nrb = r if s > DENSE_TILE_COLS else -(-r // DENSE_ROWS_MAX)
+    return nrb, -(-r // nrb), DENSE_UNITS, DENSE_TILE_COLS
+
+
+def _pairs(slots, zero: int) -> list[int]:
+    """A level's tile slots as the kernel folds them, two at a time: the
+    byte offsets of their 16-byte units (slot * DENSE_UNITS * 16), an
+    odd one paired with the zero slot ``zero``."""
+    slots = [int(c) for c in slots]
+    if len(slots) % 2:
+        slots.append(zero)
+    return [c * DENSE_UNITS * 16 for c in slots]
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_program(matrix_t, w: int = 8) -> np.ndarray:
+    """The dense kernel's data for a static GF(2^w) table: its row
+    program, int32, built once per matrix (csrc/gf8_matrix.cu describes
+    the layout).  Each row block's nonzero columns, in tiles of
+    ``dense_geometry(r, s)[3]``; per row and tile the highest coefficient
+    bit, then from it down to bit 0 the pairs of tile slots whose
+    coefficient has that bit set (``_pairs``; the zero slot follows the
+    widest tile, at min(s, tile columns))."""
+    r, s = _matrix_info(matrix_t, w)
+    nrb, rows, _, tile_cols = dense_geometry(r, s)
+    zero = min(s, tile_cols)
+    m = np.array([[int(v) for v in row] for row in matrix_t],
+                 dtype=np.int64)
+    head = [0, nrb, rows] + [0] * (nrb + r)
+    tile_streams, row_streams = [], [[] for _ in range(r)]
+    for rb in range(nrb):
+        block = range(rb * rows, min(r, (rb + 1) * rows))
+        cols = np.flatnonzero(m[block.start:block.stop].any(axis=0))
+        tiles = [cols[k:k + tile_cols]
+                 for k in range(0, len(cols), tile_cols)]
+        stream = [len(tiles)]
+        for tile in tiles:
+            stream += [len(tile)] + [int(j) for j in tile]
+            for i in block:
+                sub = m[i, tile]
+                top = int(sub.max()).bit_length() if len(sub) else 0
+                prog = [top]
+                for t in range(top - 1, -1, -1):
+                    pairs = _pairs(np.flatnonzero((sub >> t) & 1), zero)
+                    prog += [len(pairs) // 2] + pairs
+                row_streams[i] += prog
+        tile_streams.append(stream)
+    flat = head
+    for rb, stream in enumerate(tile_streams):
+        flat[3 + rb] = len(flat)
+        flat += stream
+    for i, stream in enumerate(row_streams):
+        flat[3 + nrb + i] = len(flat)
+        flat += stream
+    flat[0] = len(flat)
+    return np.asarray(flat, dtype=np.int32)
+
+
+def program_op_count(matrix_t, w: int = 8) -> int:
+    """Integer instructions per 32-bit word position that the dense
+    kernel spends on its row program (``dense_program``): per row and
+    tile, SM90_XT_COST[w] per xtime below the tile's top bit, one
+    three-input XOR per pair of a level's set bits (an odd one paired
+    with zero), and the XOR of the tile's partial row into the
+    accumulator."""
+    prog = dense_program(_static(matrix_t), w)
+    nrb, r = int(prog[1]), len(matrix_t)
+    cost = 0
+    for i in range(r):
+        rb = i // int(prog[2])
+        ntiles = int(prog[int(prog[3 + rb])])
+        at = int(prog[3 + nrb + i])
+        for _ in range(ntiles):
+            top = int(prog[at])
+            at += 1
+            cost += SM90_XT_COST[w] * max(top - 1, 0) + 1
+            for _ in range(top):
+                n = int(prog[at])
+                cost += n
+                at += 1 + 2 * n
+    return cost
 
 
 @functools.lru_cache(maxsize=256)
-def _device_table(coef: bytes, device: torch.device) -> torch.Tensor:
-    """A coefficient table above the by-value limit, on ``device``:
-    uploaded once per matrix, then kernel data."""
+def _device_program(matrix_t, w: int, device: torch.device) -> torch.Tensor:
+    """A row program above the by-value limit, on ``device``: uploaded
+    once per matrix, then kernel data."""
     tel.note_kernel_setup()
-    return torch.frombuffer(bytearray(coef), dtype=torch.uint8).to(device)
+    return torch.from_numpy(dense_program(matrix_t, w)).to(device)
+
+
+def dense_plan(batch: int, nbytes: int, matrix_t,
+               device: torch.device) -> tuple[int, int, int]:
+    """The grid the dense kernel launches for ``batch`` stripes of
+    ``nbytes``-byte chunks of the w=8 ``matrix_t`` on ``device``: (blocks
+    of DENSE_UNITS 16-byte units of a chunk, blocks along the stripes,
+    row blocks).  The stripes spread evenly over at most one wave of the
+    card beside the other two, so below a wave each block takes one
+    stripe.  A query; it launches nothing."""
+    static = _static(matrix_t)
+    r, s = _matrix_info(static)
+    lib = _lib()
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    grid = (ctypes.c_int * 3)()
+    table = int(len(dense_program(static, 8)) > BY_VALUE_MAX_PROG)
+    err = lib.gf8_matrix_plan(batch, nbytes, r, s, table, index, grid)
+    if err:
+        raise KernelLaunchError(
+            f"dense_plan failed: CUDA error {err} "
+            f"({lib.gf8_error_string(err).decode()})")
+    return tuple(grid)
 
 
 def _merged_batch(x: torch.Tensor, nlead: int, elem: int
@@ -303,34 +457,36 @@ def _merged_batch(x: torch.Tensor, nlead: int, elem: int
 
 def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
             in_strides: tuple[int, int], out_strides: tuple[int, int],
-            r: int, s: int, coef: bytes, w: int = 8,
-            mask: torch.Tensor | None = None) -> int:
-    """Launch the GF(2^w) matrix kernel on the current stream; return how
-    many launches it took (one per group of output rows).  A table above
-    BY_VALUE_MAX_COEF[w] goes through its cached device buffer.
-    ``mask`` (w=8 only): a (batch,) uint8 page mask on the card, the
-    ragged variant."""
+            matrix_t, w: int = 8, mask: torch.Tensor | None = None) -> int:
+    """Launch the GF(2^w) matrix kernel on the current stream for every
+    row of the static table ``matrix_t``; return how many launches it
+    took (one).  A row program above BY_VALUE_MAX_PROG words goes
+    through its cached device buffer.  ``mask`` (w=8 only): a (batch,)
+    uint8 page mask on the card, the ragged variant."""
+    r, s = len(matrix_t), len(matrix_t[0])
     if not matrix_kernel_fits(r, s, w):
         raise ValueError(f"({r}, {s}) matrix exceeds the kernel's "
                          f"{MAX_TABLE_COEF} coefficients")
-    lib, row_group = _lib()
+    lib = _lib()
+    prog = dense_program(matrix_t, w)
     table = None
-    if r * s > BY_VALUE_MAX_COEF[w]:
-        table = _device_table(coef, x.device).data_ptr()
+    if len(prog) > BY_VALUE_MAX_PROG:
+        table = _device_program(matrix_t, w, x.device).data_ptr()
     args = (x.data_ptr(), out.data_ptr(), batch, nbytes, in_strides[0],
             in_strides[1], out_strides[0], out_strides[1], r, s)
     where = device_and_stream(x)
     if w == 8:
         err = lib.gf8_matrix_apply(
-            *args, coef, table, None if mask is None else mask.data_ptr(),
-            *where)
+            *args, prog.ctypes.data, table,
+            None if mask is None else mask.data_ptr(), *where)
     else:
-        err = lib.gfw_matrix_apply(*args, w, coef, table, *where)
+        err = lib.gfw_matrix_apply(*args, w, prog.ctypes.data, table,
+                                   *where)
     if err:
         raise KernelLaunchError(
             f"GF(2^{w}) matrix kernel failed: CUDA error {err} "
             f"({lib.gf8_error_string(err).decode()})")
-    return -(-r // row_group)
+    return 1
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -343,7 +499,8 @@ def apply_matrix_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     """Apply a (r, s) GF(2^8) matrix to (..., s, C) uint8 chunks ->
     (..., r, C).  The chunk dimension may be strided (a survivor slice)
     as long as each chunk's bytes are contiguous."""
-    r, s, coef = _matrix_info(_static(matrix_t))
+    static = _static(matrix_t)
+    r, s = _matrix_info(static)
     if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
             or chunks.shape[-2] != s:
         raise ValueError(f"need (..., {s}, C) uint8 chunks, got "
@@ -361,7 +518,7 @@ def apply_matrix_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
     apply_matrix_cuda.launches += _launch(
         chunks, out, batch, c, (bstride, chunks.stride(-2)), (r * c, c),
-        r, s, coef)
+        static)
     return out
 
 
@@ -369,7 +526,8 @@ def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
     """Packed-layout apply: (..., s, R, 128) uint32 -> (..., r, R, 128).
     Each chunk's (R, 128) words must be contiguous; the chunk dimension
     may be strided."""
-    r, s, coef = _matrix_info(_static(matrix_t))
+    static = _static(matrix_t)
+    r, s = _matrix_info(static)
     if words.dtype != torch.uint32 or words.dim() < 3 \
             or words.shape[-3] != s or words.shape[-1] != LANE:
         raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
@@ -390,7 +548,7 @@ def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
     batch, bstride = _merged_batch(words, words.dim() - 3, 4)
     apply_matrix_cuda_packed.launches += _launch(
         words, out, batch, nbytes, (bstride, words.stride(-3) * 4),
-        (r * nbytes, nbytes), r, s, coef)
+        (r * nbytes, nbytes), static)
     return pack_chunks(out)
 
 
@@ -402,7 +560,8 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
     are contiguous."""
     if w not in (16, 32):
         raise ValueError(f"the word kernel takes w=16 or w=32, got w={w}")
-    r, s, coef = _matrix_info(_static(matrix_t), w)
+    static = _static(matrix_t)
+    r, s = _matrix_info(static, w)
     if words.dtype != WORD_DTYPE[w] or words.dim() < 2 \
             or words.shape[-2] != s:
         raise ValueError(f"need (..., {s}, Ce) {WORD_DTYPE[w]} words, got "
@@ -420,7 +579,7 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
     batch, bstride = _merged_batch(words, words.dim() - 2, el)
     apply_matrix_cuda_words.launches += _launch(
         words, out, batch, ce * el, (bstride, words.stride(-2) * el),
-        (r * ce * el, ce * el), r, s, coef, w)
+        (r * ce * el, ce * el), static, w)
     return out
 
 
@@ -448,7 +607,8 @@ def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
     under a (P,) activity mask -> (P, r, page); a dead page (mask 0)
     reads nothing and comes back zero.  The mask lies on the pool's
     device, so one build serves every occupancy."""
-    r, s, coef = _matrix_info(_static(matrix_t))
+    static = _static(matrix_t)
+    r, s = _matrix_info(static)
     if pool.dtype != torch.uint8 or pool.dim() != 3 or pool.shape[1] != s:
         raise ValueError(f"need a (P, {s}, page) uint8 pool, got "
                          f"{tuple(pool.shape)} {pool.dtype}")
@@ -463,8 +623,8 @@ def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
     if out.numel() == 0:
         return out
     apply_matrix_cuda_ragged.launches += _launch(
-        pool, out, p, c, (pool.stride(0), pool.stride(1)), (r * c, c), r, s,
-        coef, mask=mask)
+        pool, out, p, c, (pool.stride(0), pool.stride(1)), (r * c, c),
+        static, mask=mask)
     return out
 
 
@@ -473,7 +633,8 @@ def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
     """Packed-layout twin: a (P, s, R, 128) uint32 pool under a (P,)
     mask -> (P, r, R, 128), dead pages zero.  Each page chunk's (R, 128)
     words must be contiguous."""
-    r, s, coef = _matrix_info(_static(matrix_t))
+    static = _static(matrix_t)
+    r, s = _matrix_info(static)
     if words.dtype != torch.uint32 or words.dim() != 4 \
             or words.shape[1] != s or words.shape[-1] != LANE:
         raise ValueError(f"need a (P, {s}, R, {LANE}) uint32 pool, got "
@@ -493,7 +654,7 @@ def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
         return pack_chunks(out)
     apply_matrix_cuda_packed_ragged.launches += _launch(
         words, out, p, nbytes, (words.stride(0) * 4, words.stride(1) * 4),
-        (r * nbytes, nbytes), r, s, coef, mask=mask)
+        (r * nbytes, nbytes), static, mask=mask)
     return pack_chunks(out)
 
 
@@ -931,7 +1092,7 @@ def apply_matrix_mxu_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     each chunk's bytes are contiguous.  The kernel splits the columns
     only to fill the card (:func:`walk_splits`)."""
     static = _static(matrix_t)
-    r, s, _ = _matrix_info(static)
+    r, s = _matrix_info(static)
     if chunks.dtype != torch.uint8 or chunks.dim() < 2 \
             or chunks.shape[-2] != s:
         raise ValueError(f"need (..., {s}, C) uint8 chunks, got "
@@ -958,7 +1119,7 @@ def apply_matrix_mxu_cuda_packed(words: torch.Tensor, matrix_t
     (R, 128) words must be contiguous; the chunk dimension may be
     strided."""
     static = _static(matrix_t)
-    r, s, _ = _matrix_info(static)
+    r, s = _matrix_info(static)
     if words.dtype != torch.uint32 or words.dim() < 3 \
             or words.shape[-3] != s or words.shape[-1] != LANE:
         raise ValueError(f"need (..., {s}, R, {LANE}) uint32 words, got "
@@ -1342,7 +1503,8 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 
 __all__ = [
-    "BY_VALUE_MAX_COEF", "MAX_TABLE_COEF", "MXU_MATRIX_MIN",
+    "BY_VALUE_MAX_PROG", "DENSE_ROWS_MAX", "DENSE_TILE_COLS", "DENSE_UNITS",
+    "MAX_TABLE_COEF", "MXU_MATRIX_MIN",
     "RAGGED_MIN_PAGES", "WALK_SMEM_BUDGET", "WALK_WARPS", "WALK_WORDS",
     "WRAPPERS", "XOR_SMEM_BUDGET",
     "apply_bitmatrix_best", "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",
@@ -1353,11 +1515,13 @@ __all__ = [
     "apply_matrix_mxu_cuda", "apply_matrix_mxu_cuda_packed",
     "apply_matrix_numpy", "apply_matrix_packed_best",
     "apply_matrix_packed_best_ragged", "apply_matrix_xor_cuda",
-    "apply_matrix_xor_cuda_packed", "bitmatrix_op_count", "dense_op_count",
+    "apply_matrix_xor_cuda_packed", "bitmatrix_op_count", "dense_geometry",
+    "dense_op_count", "dense_plan", "dense_program",
     "launch_counts", "mask_pages", "matrix_kernel_fits", "pack_chunks",
     "pack_rows",
-    "pack_word_program", "reset_launch_counts", "schedule_op_count",
-    "select_matrix_engine", "select_ragged_engine", "sm90_op_count",
+    "pack_word_program", "program_op_count", "reset_launch_counts",
+    "schedule_op_count", "select_matrix_engine", "select_ragged_engine",
+    "sm90_op_count", "sm90_op_floor", "sm90_row_op_count",
     "tuned_ragged_cutover", "unpack_chunks", "walk_data", "walk_row_tile",
     "walk_splits", "xor_program_fits",
     "xor_schedule_op_count",

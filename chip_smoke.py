@@ -16,7 +16,9 @@ source, all started together) and then, in order:
    - the GF(2^8) kernel (bytes and packed wrappers): the jerasure RS k=8
      m=3 matrix at (64, 8, 131072), random matrices with zero entries for
      r in {1, 3, 8, 11}, a chunk size off the 16-byte vector (4096 + 4),
-     no leading batch dimension, a strided survivor slice;
+     no leading batch dimension, a strided survivor slice; the RS decode
+     e=2 matrix at 1, 4 and 64 stripes, on both sides of the kernel's
+     one-wave rule (``gf_kernels.dense_plan`` reports the grid);
    - the w=16/32 word kernel: the reed_sol_van k=8 m=3 matrices at (64,
      8, 65536) words, random matrices, a tail, a strided slice;
    - the packet-layout bitmatrix kernel through both its wrappers (the
@@ -107,10 +109,17 @@ source, all started together) and then, in order:
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
    trace, against the bound (the larger of the bytes over HBM bandwidth
-   and the integer ops over the INT32 peak; for the "mxu" row the dense
-   GEMM at the int8 peak, the reference's MXU form, printed beside it as
-   the GEMM bound); the dense kernel's by-value and table variants
-   on the RS k=8 m=3 encode (w=8 and w=16); the ragged kernel at 25,
+   and the integer ops over the INT32 peak, the GF(2^w) matrices' ops
+   the floor of the chain per column and per row,
+   ``gf_kernels.sm90_op_floor``; for the "mxu" row the dense GEMM at the
+   int8 peak, the reference's MXU form, printed beside it as the GEMM
+   bound); the dense kernel's by-value and table variants on the RS k=8
+   m=3 encode (w=8 and w=16); the dense kernel at the shapes of
+   ``ceph_tpu_torch/tools/dense_times.py`` (the RS encode, the decode
+   e=2 at 4 and 64 stripes, e=1 at 4, clay's (64, 704) repair through
+   the device program, w=16/32, the ragged pool) with the instructions
+   per word position its row program spends and its grid; the RS path's
+   launches per decode call (phase 3); the ragged kernel at 25,
    50 and 100 % live pages beside the dense kernel on the same bytes;
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
    under SLO and p50/p99 per op, and where one fire's time goes (copy
@@ -148,7 +157,8 @@ import time
 # boost clock.  The SWAR xtime/XOR walks and the packet XORs are INT32
 # work, counted at the least they need on sm_90 (4 instructions per
 # xtime at w=8 and w=16, 3 at w=32, XORs folded three at a time by LOP3:
-# gf_kernels.sm90_op_count, bitmatrix_op_count, schedule_op_count).
+# gf_kernels.sm90_op_floor, the cheaper of the doubling chain per input
+# column and per output row; bitmatrix_op_count, schedule_op_count).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # the dense int8 tensor-core peak (the bit-plane kernel's operand type)
@@ -173,9 +183,9 @@ SRC = "ceph_tpu_torch/ops/csrc/"
 SERVE_REQUESTS, SERVE_CONCURRENCY = 512, 64
 PAGE, SERVE_POOL_PAGES = 4096, 512
 RAG_PAGES = 512                               # the ragged kernel's pool
-# the dense encode's profiler time before the page mask was added to its
-# kernel, and the card it was read on
-EARLIER_DENSE_MS, EARLIER_CARD = 0.059812, "H100 80GB HBM3, 700 W"
+# the dense encode's profiler time under the chain per input column, the
+# form the row form replaced, and the card it was read on
+EARLIER_DENSE_MS, EARLIER_CARD = 0.060692, "H100 80GB HBM3, 700 W"
 # the bit-plane tensor-core kernel's profiler times on the three clay
 # shapes before the column walk replaced it (the same card), printed
 # beside this run's times
@@ -227,35 +237,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host
-
-
-def kernel_ms(fn, kernel: str | tuple[str, ...], iters: int = 20,
-              tries: int = 3) -> float | None:
-    """Device time per call of the CUDA kernels that ``fn`` launches,
-    from a profiler trace of ``iters`` calls (CUPTI records each
-    kernel's own start and end, so the host's issue pace does not
-    enter): the kernels whose names hold ``kernel``, or each name of a
-    tuple, every call launching one kernel of each name.  A trace that
-    lost some of the launches (fewer than ``iters`` of a name) is taken
-    again, up to ``tries`` traces; None when none holds them all."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        names = (kernel,) if isinstance(kernel, str) else kernel
-        us = [[e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name]
-              for name in names]
-        if all(len(u) >= iters for u in us):
-            return sum(map(sum, us)) / 1e3 / iters
-    return None
 
 
 def walk_kernels(splits: int) -> tuple[str, ...]:
@@ -334,7 +315,9 @@ def main(argv=None) -> int:
         apply_matrix_mxu_cuda_packed, apply_matrix_packed_best_ragged,
         apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed,
         bitmatrix_op_count, dense_op_count, pack_chunks, schedule_op_count,
-        select_matrix_engine, sm90_op_count, unpack_chunks, walk_data,
+        dense_plan, dense_program, program_op_count, select_matrix_engine,
+        sm90_op_count, sm90_op_floor, sm90_row_op_count, unpack_chunks,
+        walk_data,
         walk_splits, xor_schedule_op_count)
     from ceph_tpu_torch.ops.probe_kernels import (
         copy_slab_cuda, copy_slab_torch, fold_slab_cuda, fold_slab_torch)
@@ -344,7 +327,8 @@ def main(argv=None) -> int:
         apply_matrix_ragged_torch, apply_matrix_torch,
         apply_matrix_walk_torch, apply_matrix_xor_torch,
         bitmatrix_to_static, mask_pages, matrix_to_static, mxu_bitmatrix)
-    from ceph_tpu_torch.tools import roofline
+    from ceph_tpu_torch.tools import dense_times, roofline
+    from ceph_tpu_torch.tools.dense_times import kernel_ms
     from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
                                              serve_dispatch_ragged)
     from ceph_tpu_torch.serve import (EcRequest, run_serving_scenario,
@@ -425,6 +409,30 @@ def main(argv=None) -> int:
                 wide[..., :s, :], mr), want, f"strided slice r={r} s={s}")
     print(f"phase 2: {len(cases)} random GF(2^8) cases equal (r in 1,3,8,"
           f"11; tail C=4100; no batch dim; strided slices)")
+
+    # the dense kernel on either side of its one-wave rule: the RS decode
+    # e=2 (3, 9) matrix at 1, 4 and 64 stripes (below a wave of the card
+    # each block takes one stripe; above, a block walks several), both
+    # layouts
+    e2_avail = [i for i in range(K + M) if i not in (3, 9)]
+    dm_e2 = matrix_to_static(regionops.matrix_decode_matrix(
+        mat, K, e2_avail[:K], [3, 9]))
+    plans = {}
+    for nb_ in (1, DECODE_BATCH, BATCH):
+        x = data[:nb_]
+        plans[nb_] = dense_plan(nb_, CHUNK, dm_e2, dev)
+        want = apply_matrix_torch(x, dm_e2, 8)
+        err.hold("apply_matrix_cuda", apply_matrix_cuda(x, dm_e2), want,
+                 f"decode e=2 at {nb_} stripes")
+        err.hold("apply_matrix_cuda_packed", unpack_chunks(
+            apply_matrix_cuda_packed(pack_chunks(x), dm_e2)), want,
+            f"packed decode e=2 at {nb_} stripes")
+    check(plans[1][1] == 1 and plans[DECODE_BATCH][1] == DECODE_BATCH
+          and plans[BATCH][1] < BATCH,
+          f"grids on both sides of the one-wave rule: {plans}")
+    print(f"phase 2: dense kernel equal on the decode e=2 matrix at 1, "
+          f"{DECODE_BATCH} and {BATCH} stripes in both layouts; grids "
+          f"(unit tiles, stripe blocks, row blocks) {plans}")
 
     # the w=16/32 word kernel: the reed_sol_van matrices at the main shape
     wide_codes = {w: reg.factory("jerasure", {
@@ -838,6 +846,15 @@ def main(argv=None) -> int:
                 pack_chunks(full.index_select(1, idx)), avail, erased)
             check(torch.equal(unpack_chunks(recp), want),
                   f"packed decode {erased}")
+        mid = counts()
+        per_call = {name: (mid[name] - before[name]) / len(patterns)
+                    for name in ("apply_matrix_cuda",
+                                 "apply_matrix_cuda_packed")}
+        print(f"  RS decodes: {len(patterns)} calls per layout at "
+              f"{DECODE_BATCH} stripes, launches per call {per_call}")
+        check(per_call == {"apply_matrix_cuda": 1.0,
+                           "apply_matrix_cuda_packed": 1.0},
+              f"one dense launch per decode call: {per_call}")
         for erased in ((3,), (0, 9), (1, 5, 10)):
             avail = tuple(i for i in range(n) if i not in erased)
             host_full = full.cpu().numpy()
@@ -1283,11 +1300,14 @@ def main(argv=None) -> int:
     in_bytes = data.numel()
     words_per_chunk = in_bytes // K // 4
     moved = in_bytes * (K + M) // K
-    bound, bound_by = bound_ms(moved, sm90_op_count(ms) * words_per_chunk)
+    bound, bound_by = bound_ms(moved, sm90_op_floor(ms) * words_per_chunk)
     print(f"bound of the encode: {moved} bytes moved, "
-          f"{sm90_op_count(ms)} int32 ops per word position (reference "
-          f"dense cost model: {dense_op_count(ms)}) x {words_per_chunk} "
-          f"word positions -> {bound:.6f} ms, by {bound_by}")
+          f"{sm90_op_floor(ms)} int32 ops per word position (the floor: "
+          f"chain per column {sm90_op_count(ms)}, per row "
+          f"{sm90_row_op_count(ms)}; the dense kernel's program "
+          f"{program_op_count(ms)}; reference dense cost model: "
+          f"{dense_op_count(ms)}) x {words_per_chunk} word positions -> "
+          f"{bound:.6f} ms, by {bound_by}")
 
     # decode e=2 at the main shape, through the user's entry point: the
     # survivors of all 64 stripes (a strided slice) -> the 2 lost chunks
@@ -1300,9 +1320,11 @@ def main(argv=None) -> int:
     t_dec, h_dec = time_ms(
         lambda: ec.decode_chunks_torch(surv, avail, erased), 50)
     dbound, dbound_by = bound_ms(in_bytes * (K + len(erased)) // K,
-                                 sm90_op_count(dm) * words_per_chunk)
-    print(f"bound of decode e=2 {erased}: {sm90_op_count(dm)} int32 ops "
-          f"per word position (reference dense cost model: "
+                                 sm90_op_floor(dm) * words_per_chunk)
+    print(f"bound of decode e=2 {erased}: {sm90_op_floor(dm)} int32 ops "
+          f"per word position (chain per column {sm90_op_count(dm)}, per "
+          f"row {sm90_row_op_count(dm)}; the dense kernel's program "
+          f"{program_op_count(dm)}; reference dense cost model: "
           f"{dense_op_count(dm)}) -> {dbound:.6f} ms, by {dbound_by}")
     # the numpy entry point end to end (host clock: copies included), and
     # one 1 MiB stripe through the tensor entry point (dispatch-bound)
@@ -1369,39 +1391,42 @@ def main(argv=None) -> int:
         w_bytes = x.numel() * (w // 8)
         w_pos = w_bytes // K // 4
         wb, wb_by = bound_ms(w_bytes * (K + M) // K,
-                             sm90_op_count(wms, w) * w_pos)
+                             sm90_op_floor(wms, w) * w_pos)
         word_times[w] = (t_w, h_w, t_wp, h_wp, wb, wb_by)
         print(f"bound of reed_sol_van w={w} encode at (64, 8, {WORDS}) "
               f"words: {w_bytes * (K + M) // K} bytes moved, "
-              f"{sm90_op_count(wms, w)} int32 ops per word position x "
+              f"{sm90_op_floor(wms, w)} int32 ops per word position (per "
+              f"column {sm90_op_count(wms, w)}, per row "
+              f"{sm90_row_op_count(wms, w)}; the kernel's program "
+              f"{program_op_count(wms, w)}) x "
               f"{w_pos}"
               f" -> {wb:.6f} ms, by {wb_by}")
 
-    # the dense kernel's two ways of taking its matrix, on the RS k=8 m=3
-    # encodes at the main shape (w=8 bytes, w=16 words): by value (a kernel
-    # parameter, up to 2048 / 512 coefficients) and from a device table
-    # staged into shared memory (any size, the clay repairs' way).  One
-    # call of the library each, timed in the order value, table, table,
-    # value; both outputs held against the plain version first
-    lib_gf, _ = gf_kernels._lib()
+    # the dense kernel's two ways of taking its row program, on the RS k=8
+    # m=3 encodes at the main shape (w=8 bytes, w=16 words): by value (a
+    # kernel parameter, up to BY_VALUE_MAX_PROG words) and from a device
+    # buffer (any size, the clay repairs' way).  One call of the library
+    # each, timed in the order value, table, table, value; both outputs
+    # held against the plain version first
+    lib_gf = gf_kernels._lib()
     for w, x, wms, want in (
             (8, data, ms, plain),
             (16, word_data[16][1], matrix_to_static(wide_codes[16].matrix),
              None)):
-        _, _, coef = gf_kernels._matrix_info(wms, w)
-        table = gf_kernels._device_table(coef, dev).data_ptr()
+        prog = dense_program(wms, w)
+        table = gf_kernels._device_program(wms, w, dev).data_ptr()
         nb = x.shape[-1] * x.element_size()
         out_w = torch.empty((x.shape[0], M) + x.shape[2:], dtype=x.dtype,
                             device=dev)
         geom = (x.data_ptr(), out_w.data_ptr(), x.shape[0], nb, K * nb, nb,
                 M * nb, nb, M, K)
 
-        def via(tab, w=w, geom=geom, coef=coef, x=x):
+        def via(tab, w=w, geom=geom, prog=prog, x=x):
             def fn():
-                e = (lib_gf.gf8_matrix_apply(*geom, coef, tab, None,
-                                             *device_and_stream(x))
+                e = (lib_gf.gf8_matrix_apply(*geom, prog.ctypes.data, tab,
+                                             None, *device_and_stream(x))
                      if w == 8 else
-                     lib_gf.gfw_matrix_apply(*geom, w, coef, tab,
+                     lib_gf.gfw_matrix_apply(*geom, w, prog.ctypes.data, tab,
                                              *device_and_stream(x)))
                 check(e == 0, f"the dense kernel launched (error {e})")
             return fn
@@ -1421,6 +1446,23 @@ def main(argv=None) -> int:
               f"kernel per call (profiler ms, events ms), in the order "
               f"value, table, table, value: by value {got_t['by value']}, "
               f"table {got_t['table']}")
+
+    # the dense kernel at the shapes of tools/dense_times.py (the encode,
+    # the decodes at 4 and 64 stripes, clay's (64, 704) repair through the
+    # device program, w=16/32, the ragged pool at 25/50/100 % live): its
+    # profiler time per call beside the bound, the instructions per word
+    # position its row program spends against the floor, and its plan
+    for name, wrapper, fn, moved, mat_s, w, pos, dims in dense_times.shapes(
+            args.seed):
+        k_t = kernel_ms(fn, "gf_matrix", iters=50)
+        b, b_by = bound_ms(moved, sm90_op_floor(mat_s, w) * pos)
+        plan = dense_plan(*dims, mat_s, dev) if w == 8 else None
+        print(f"time dense kernel, {name} via {wrapper}: profiler "
+              + ("not measured" if k_t is None else f"{k_t:.6f} ms, "
+                 f"{b / k_t:.4f} of bound")
+              + f"; bound {b:.6f} ms by {b_by}; {program_op_count(mat_s, w)}"
+              f" instructions per word position in its program (floor "
+              f"{sm90_op_floor(mat_s, w)}); grid {plan}")
 
     for name, t, h, b, nbytes in (
             ("bytes kernel", t_bytes, h_bytes, bound, in_bytes),
@@ -1531,8 +1573,8 @@ def main(argv=None) -> int:
     print("dense encode at the main shape, profiler device time per "
           "launch: " + ("not measured" if k_dense_main is None
                         else f"{k_dense_main:.6f} ms")
-          + f", beside {EARLIER_DENSE_MS} ms before the page mask "
-          f"({EARLIER_CARD})")
+          + f", beside {EARLIER_DENSE_MS} ms for the chain per column "
+          f"it replaced ({EARLIER_CARD})")
     words_per_page = PAGE // 4
     rag_times = {}
     for share in (0.25, 0.5, 1.0):
@@ -1542,7 +1584,7 @@ def main(argv=None) -> int:
         n_live = int(live.sum())
         b, b_by = bound_ms(n_live * K * PAGE + RAG_PAGES * M * PAGE
                            + RAG_PAGES,
-                           sm90_op_count(ms) * n_live * words_per_page)
+                           sm90_op_floor(ms) * n_live * words_per_page)
         k_r = kernel_ms(lambda: apply_matrix_cuda_ragged(rag_pool, ms, mk),
                         "gf_matrix_kernel")
         k_rp = kernel_ms(lambda: apply_matrix_cuda_packed_ragged(
@@ -1567,7 +1609,7 @@ def main(argv=None) -> int:
     k_pool_dense = kernel_ms(lambda: apply_matrix_cuda(rag_pool, ms),
                              "gf_matrix_kernel")
     pd_bound, pd_by = bound_ms(RAG_PAGES * (K + M) * PAGE,
-                               sm90_op_count(ms) * RAG_PAGES
+                               sm90_op_floor(ms) * RAG_PAGES
                                * words_per_page)
     print(f"time dense kernel on the same ({RAG_PAGES}, {K}, {PAGE}) "
           f"bytes: profiler "
@@ -1670,7 +1712,7 @@ def main(argv=None) -> int:
     # on the same matrices and the library GEMM (torch._int_mm, else a
     # bf16 matmul) on the materialised bit-planes.  Its bound is the
     # function's: the same GF(2^8) matrix apply the dense kernel bounds,
-    # the bytes or sm90_op_count at the INT32 peak, the larger; the dense
+    # the bytes or sm90_op_floor at the INT32 peak, the larger; the dense
     # GEMM over the whole bitmatrix at the int8 tensor-core peak (the
     # reference MXU form's cost) is printed beside it as the GEMM bound.
     # The (8,) repair routes to the dense kernel; the walk is timed on it
@@ -1726,7 +1768,7 @@ def main(argv=None) -> int:
         bm = torch.from_numpy(bm_host.astype(np.int8)).to(dev)
         lib_fn, lib_name = library_gemm(bm, planes_of(x))
         k_lib = kernel_ms(lib_fn, "", iters=5)
-        fn_ops = sm90_op_count(mat_s)
+        fn_ops = sm90_op_floor(mat_s)
         moved_x = b_ * (s_ + r_) * c_
         b, b_by = bound_ms(moved_x, fn_ops * (b_ * c_ // 4))
         gemm_ops = 2 * (8 * r_) * (8 * s_) * b_ * c_

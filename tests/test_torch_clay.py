@@ -38,7 +38,7 @@ from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
 from ceph_tpu_torch.gf.bitmatrix import matrix_to_bitmatrix
 from ceph_tpu_torch.ops import gf_kernels, regionops
 from ceph_tpu_torch.ops.gf_kernels import (
-    BY_VALUE_MAX_COEF, matrix_kernel_fits, pack_chunks,
+    BY_VALUE_MAX_PROG, matrix_kernel_fits, pack_chunks,
     select_matrix_engine, unpack_chunks)
 from ceph_tpu_torch.ops.torch_ops import (apply_matrix_mxu_torch,
                                           matrix_to_static, mxu_bitmatrix)
@@ -435,7 +435,7 @@ def test_dense_kernel_capacity_takes_every_matrix_routed_to_it():
     assert sorted(t[1] for t in repairs) == [(8,), (9,), (10,), (11,)]
     for _, _, r, s in repairs:
         assert (r, s) == (64, 704)
-        assert r * s > BY_VALUE_MAX_COEF[8]       # the fault
+        assert r * s > 2048                       # the fault
     for _, label, r, s in routed:
         assert matrix_kernel_fits(r, s, 8), label   # the repair
     assert not matrix_kernel_fits(0, 8) and not matrix_kernel_fits(8, 8, 7)
@@ -458,32 +458,36 @@ class _FakeLib:
 
 @pytest.mark.parametrize("r,s", [(3, 8), (64, 704), (256, 512)])
 def test_launch_passes_a_table_above_the_by_value_limit(monkeypatch, r, s):
-    """``gf_kernels._launch`` hands a matrix above BY_VALUE_MAX_COEF to
-    the kernel's table variant through a cached device buffer (uploaded
-    once per matrix) and a smaller one by value; the kernel library is a
-    fake here, so only the wrapper's side runs."""
+    """``gf_kernels._launch`` hands a row program above BY_VALUE_MAX_PROG
+    words to the kernel's table variant through a cached device buffer
+    (uploaded once per matrix) and a shorter one by value, in one launch
+    for every row; the kernel library is a fake here, so only the
+    wrapper's side runs."""
     fake = _FakeLib()
     uploads = []
 
-    def device_table(coef, device):
-        uploads.append(coef)
-        return torch.frombuffer(bytearray(coef), dtype=torch.uint8)
+    def device_program(matrix_t, w, device):
+        uploads.append(matrix_t)
+        return torch.from_numpy(gf_kernels.dense_program(matrix_t, w))
 
-    monkeypatch.setattr(gf_kernels, "_lib", lambda: (fake, 8))
-    monkeypatch.setattr(gf_kernels, "_device_table", device_table)
+    monkeypatch.setattr(gf_kernels, "_lib", lambda: fake)
+    monkeypatch.setattr(gf_kernels, "_device_program", device_program)
     monkeypatch.setattr(gf_kernels, "device_and_stream", lambda x: (0, 0))
     rng = np.random.default_rng(r * s)
     ms = matrix_to_static(rng.integers(0, 256, (r, s)))
-    _, _, coef = gf_kernels._matrix_info(ms)
+    prog = gf_kernels.dense_program(ms, 8)
     x = torch.zeros((1, s, 64), dtype=torch.uint8)
     out = torch.empty((1, r, 64), dtype=torch.uint8)
-    gf_kernels._launch(x, out, 1, 64, (s * 64, 64), (r * 64, 64), r, s, coef)
+    assert gf_kernels._launch(x, out, 1, 64, (s * 64, 64), (r * 64, 64),
+                              ms) == 1
     (call,) = fake.calls
+    assert call[8:11] == (r, s, prog.ctypes.data)
     table = call[11]
-    if r * s > BY_VALUE_MAX_COEF[8]:
-        assert table is not None and uploads == [coef]
-        assert len(coef) == r * s
+    if r * s > 2048:
+        assert len(prog) > BY_VALUE_MAX_PROG
+        assert table is not None and uploads == [ms]
     else:
+        assert len(prog) <= BY_VALUE_MAX_PROG
         assert table is None and uploads == []
 
 

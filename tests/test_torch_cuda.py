@@ -545,14 +545,14 @@ def test_mxu_kernel_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.parametrize("r,s,C", [(64, 704, 2048), (9, 300, 4096 + 4),
                                    (256, 512, 512)])
 def test_dense_kernel_table_variant_on_card(cuda_device, r, s, C):
-    """A table above the by-value limit (2048 coefficients) goes through
-    the device buffer: dense, packed and both ragged wrappers equal
-    their plain versions."""
-    assert r * s > gf_kernels.BY_VALUE_MAX_COEF[8]
+    """A row program above the by-value limit (BY_VALUE_MAX_PROG words)
+    goes through the device buffer: dense, packed and both ragged
+    wrappers equal their plain versions."""
     rng = np.random.default_rng(r + s + C)
     mat = rng.integers(0, 256, (r, s))
     mat[rng.random((r, s)) < 0.5] = 0
     ms = matrix_to_static(mat)
+    assert len(gf_kernels.dense_program(ms)) > gf_kernels.BY_VALUE_MAX_PROG
     x = torch.from_numpy(rng.integers(0, 256, (4, s, C),
                                       dtype=np.uint8)).to(cuda_device)
     got = apply_matrix_cuda(x, ms)
@@ -645,3 +645,127 @@ def test_roofline_tool_on_card(cuda_device):
         row = roofline.probe(name, 8, 4, "packed")
         assert row["input_gbps"] > 0 and row["device"] != "cpu"
         assert row["traffic_mult"] == roofline.traffic_mult(name)
+
+
+# -- the dense kernel's row-program form ---------------------------------------
+
+def _rs_decode_matrix(erased=(3, 9)):
+    from ceph_tpu_torch.matrices.jerasure import \
+        reed_sol_vandermonde_coding_matrix
+    mat = reed_sol_vandermonde_coding_matrix(8, 3, 8)
+    avail = [i for i in range(11) if i not in erased]
+    return matrix_to_static(regionops.matrix_decode_matrix(
+        mat, 8, avail[:8], list(erased)))
+
+
+def _one_launch(fn, wrapper, *args):
+    before = wrapper.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == 1
+    return got
+
+
+@pytest.mark.parametrize("batch", [1, 4, 64])
+def test_dense_kernel_both_sides_of_the_wave_rule(cuda_device, batch):
+    """The RS decode e=2 matrix at 1 and 4 stripes (below a wave of the
+    card: one stripe a block) and 64 (a block walks several), one launch
+    a call, both layouts equal to the plain version."""
+    dm = _rs_decode_matrix()
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy(rng.integers(0, 256, (batch, 8, 131072),
+                                      dtype=np.uint8)).to(cuda_device)
+    grid = gf_kernels.dense_plan(batch, 131072, dm, cuda_device)
+    assert grid[0] == 131072 // (16 * gf_kernels.DENSE_UNITS)
+    assert grid[2] == 1
+    assert grid[1] == batch if batch < 64 else grid[1] < batch
+    want = apply_matrix_torch(x, dm, 8)
+    assert torch.equal(_one_launch(apply_matrix_cuda, apply_matrix_cuda, x,
+                                   dm), want)
+    assert torch.equal(unpack_chunks(_one_launch(
+        apply_matrix_cuda_packed, apply_matrix_cuda_packed, pack_chunks(x),
+        dm)), want)
+
+
+@pytest.mark.parametrize("r,s", [(9, 8), (17, 11), (64, 8), (12, 40)])
+def test_dense_kernel_takes_every_row_in_one_launch(cuda_device, r, s):
+    """More rows than a row block (and, at s > 11, a row per block): one
+    launch per call, zero rows and columns, all-ones rows."""
+    rng = np.random.default_rng(r * s)
+    mat = rng.integers(0, 256, (r, s))
+    mat[rng.random((r, s)) < 0.3] = 0
+    mat[:, 1] = 0
+    mat[0] = 1
+    mat[2] = 0
+    ms = matrix_to_static(mat)
+    x = torch.from_numpy(rng.integers(0, 256, (3, s, 8192),
+                                      dtype=np.uint8)).to(cuda_device)
+    got = _one_launch(apply_matrix_cuda, apply_matrix_cuda, x, ms)
+    assert torch.equal(got, apply_matrix_torch(x, ms, 8))
+    assert not got[:, 2].any()
+    assert gf_kernels.dense_plan(3, 8192, ms, cuda_device)[2] == \
+        gf_kernels.dense_geometry(r, s)[0]
+
+
+@pytest.mark.parametrize("C", [4097, 4096 + 4, 4096 + 16, 15, 1])
+def test_dense_kernel_tails_and_strided_slices(cuda_device, C):
+    """A chunk size off the 16-byte unit, and a survivor slice whose
+    first chunk is not the tensor's (strided chunk axis, a base off 16
+    bytes where C is): staged and stored byte by byte where needed."""
+    dm = _rs_decode_matrix((1, 5, 10))
+    rng = np.random.default_rng(C)
+    wide = torch.from_numpy(rng.integers(0, 256, (4, 10, C),
+                                         dtype=np.uint8)).to(cuda_device)
+    x = wide[:, 1:9]
+    want = apply_matrix_torch(x.contiguous(), dm, 8)
+    assert torch.equal(_one_launch(apply_matrix_cuda, apply_matrix_cuda, x,
+                                   dm), want)
+    assert torch.equal(apply_matrix_cuda(x.contiguous(), dm), want)
+
+
+@pytest.mark.parametrize("pages", [4, 512])
+@pytest.mark.parametrize("kind", ["dead", "half", "live"])
+def test_ragged_masks_both_sides_of_the_wave_rule(cuda_device, pages, kind):
+    """All-dead, half-live and all-live masks over a pool of 4 pages
+    (below a wave) and 512 (above): dead pages zero, both wrappers equal
+    their plain versions in one launch."""
+    from ceph_tpu_torch.matrices.jerasure import \
+        reed_sol_vandermonde_coding_matrix
+    ms = matrix_to_static(reed_sol_vandermonde_coding_matrix(8, 3, 8))
+    rng = np.random.default_rng(pages)
+    pool = torch.from_numpy(rng.integers(0, 256, (pages, 8, 4096),
+                                         dtype=np.uint8)).to(cuda_device)
+    live = {"dead": np.zeros(pages, bool), "live": np.ones(pages, bool),
+            "half": np.arange(pages) % 2 == 1}[kind]
+    mask = torch.from_numpy(live.astype(np.uint8)).to(cuda_device)
+    got = _one_launch(gf_kernels.apply_matrix_cuda_ragged,
+                      gf_kernels.apply_matrix_cuda_ragged, pool, ms, mask)
+    assert torch.equal(got, apply_matrix_ragged_torch(pool, ms, mask))
+    assert not got[~torch.from_numpy(live).to(cuda_device)].any()
+    words = pack_chunks(pool)
+    gotp = _one_launch(gf_kernels.apply_matrix_cuda_packed_ragged,
+                       gf_kernels.apply_matrix_cuda_packed_ragged, words,
+                       ms, mask)
+    assert torch.equal(gotp, apply_matrix_packed_ragged_torch(words, ms,
+                                                              mask))
+
+
+@pytest.mark.parametrize("r,s", [(64, 704), (256, 512)])
+def test_dense_table_variant_on_sparse_matrices(cuda_device, r, s):
+    """A sparse (64, 704) like clay's repairs and a (256, 512): the row
+    program through its device buffer, a row per block, one launch."""
+    rng = np.random.default_rng(r + s)
+    mat = rng.integers(0, 256, (r, s))
+    mat[rng.random((r, s)) < 0.96] = 0
+    mat[:, : s // 4] = 0
+    ms = matrix_to_static(mat)
+    assert len(gf_kernels.dense_program(ms, 8)) > \
+        gf_kernels.BY_VALUE_MAX_PROG
+    x = torch.from_numpy(rng.integers(0, 256, (4, s, 2048),
+                                      dtype=np.uint8)).to(cuda_device)
+    want = apply_matrix_torch(x, ms, 8)
+    assert torch.equal(_one_launch(apply_matrix_cuda, apply_matrix_cuda, x,
+                                   ms), want)
+    assert torch.equal(unpack_chunks(_one_launch(
+        apply_matrix_cuda_packed, apply_matrix_cuda_packed, pack_chunks(x),
+        ms)), want)
