@@ -32,7 +32,11 @@ wrappers:
   buffer cached per matrix (clay's 64 x 704 repair composites).
 
 - ``csrc/gf2_bitmatrix.cu`` (jerasure packet layout, any packetsize; one
-  kernel that runs "rows", each the XOR of a list of slots):
+  kernel that runs "rows", each the XOR of a list of slots; the rows are
+  a program of int32 words, :func:`packet_program`, uploaded once per
+  (matrix, row groups) and staged by each block into shared memory;
+  :func:`packet_plan` picks the unit, the block,
+  the row groups on grid y and one persistent wave):
 
   - :func:`apply_bitmatrix_cuda` — the plain product, one row per output
     packet.  Replaces ``apply_bitmatrix_pallas``.
@@ -91,6 +95,7 @@ import ctypes
 import functools
 import itertools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -104,8 +109,8 @@ from .torch_ops import WORD_DTYPE, StaticMatrix, apply_bitmatrix_torch, \
     apply_bitmatrix_xor_torch, apply_matrix_packed_ragged_torch, \
     apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_walk_torch, \
     apply_matrix_xor_torch, column_walk_data, mask_pages
-from .xor_schedule import XorSchedule, host_matrix_apply, \
-    preferred_schedule, row_program, word_program
+from .xor_schedule import RowProgram, XorSchedule, host_matrix_apply, \
+    plain_row_program, preferred_schedule, row_program, word_program
 from ..telemetry import metrics as tel
 from ..utils.errors import KernelLaunchError
 
@@ -660,8 +665,27 @@ def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
 
 # -- the GF(2) bitmatrix kernel -----------------------------------------------
 
-ROW_GROUP = 4          # leaves a row step of the packet kernel reads at once
-NO_STORE = 0xFFFF      # a row that stores no output packet
+# csrc/gf2_bitmatrix.cu's program format, checked against the library when
+# it loads: a row's head holds its pairs of leaves (PACKET_PAIRS), three
+# flags and the count of loads it hands on, its second word the stride to
+# the next head, the case of its rest and its kept slot; a leaf or a kept
+# result is a byte offset of 16 bytes a slot
+PACKET_PAIRS = 0x3FF
+PACKET_SINGLE = 1 << 10          # one more leaf
+PACKET_KEEP = 1 << 11            # a later row reads the result
+PACKET_STORE = 1 << 12           # the result is an output packet
+PACKET_REFILL_SHIFT = 13         # loads handed on after the row, counted
+PACKET_STRIDE = 0xFFF            # a row's 2nd word: words to the next head
+PACKET_CASE_SHIFT = 12           # ... 2 * (pairs % 4) + odd leaf
+PACKET_MAX_SLOTS = 0xFFFF // 16  # slots a 16-bit offset reaches
+PACKET_MAX_THREADS = 256
+# the plan's choices: units (bytes a thread walks at one offset), row
+# groups, threads of a block; and the resident warps per SM the unit must
+# leave room for
+PACKET_UNITS = (16, 8, 4, 1)
+PACKET_GROUPS = (1, 2, 4, 8)
+PACKET_THREADS = (256, 128, 64, 32)
+PACKET_MIN_WARPS = 8
 
 _bitlib_state = None
 
@@ -671,64 +695,242 @@ def _bitlib():
     if _bitlib_state is None:
         lib = load("gf2_bitmatrix")
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.gf2_rows_apply.argtypes = [
-            vp, vp, ll, ll, ll, ll, ll, ll, i, i, i, i, vp, i, i, i, i, i, vp]
-        lib.gf2_rows_apply.restype = i
+        lib.gf2_packet_apply.argtypes = [
+            vp, vp, ll, ll, ll, ll, ll, ll, i, i, vp, i, vp, i, i, i, i, i,
+            i, i, vp]
+        lib.gf2_packet_apply.restype = i
+        lib.gf2_device_limits.argtypes = [i, ctypes.POINTER(i)]
+        lib.gf2_device_limits.restype = i
+        lib.gf2_packet_format.argtypes = [ctypes.POINTER(i)]
+        lib.gf2_packet_format.restype = None
         lib.gf2_error_string.argtypes = [i]
         lib.gf2_error_string.restype = ctypes.c_char_p
-        lib.gf2_row_group.restype = i
-        lib.gf2_no_store.restype = i
-        if (lib.gf2_row_group(), lib.gf2_no_store()) != (ROW_GROUP, NO_STORE):
+        got = (ctypes.c_int * 8)()
+        lib.gf2_packet_format(got)
+        want = (PACKET_PAIRS, PACKET_SINGLE, PACKET_KEEP, PACKET_STORE,
+                PACKET_REFILL_SHIFT, PACKET_STRIDE, PACKET_CASE_SHIFT,
+                PACKET_MAX_THREADS)
+        if tuple(got) != want:
             raise KernelLaunchError(
-                f"the packet kernel reads rows of {lib.gf2_row_group()} "
-                f"leaves and marks stores with {lib.gf2_no_store()}; the "
-                f"wrapper packs {ROW_GROUP} and {NO_STORE}")
+                f"the packet kernel reads programs as {tuple(got)}; the "
+                f"wrapper packs {want}")
         _bitlib_state = lib
     return _bitlib_state
 
 
-def pack_rows(rows, n_slots: int) -> np.ndarray:
-    """The packet kernel's data: one (groups, dst, chunk, packet) uint16
-    header per row, then each row's leaves padded to whole groups of
-    ROW_GROUP with the zero slot (``n_slots - 2``), then a pad group, in
-    whole 16-byte words.  A row is ``(leaves, dst, store)`` as
-    ``xor_schedule.row_program`` makes them: dst None keeps no result
-    (the trash slot, ``n_slots - 1``), store None writes no output."""
-    zero, trash = n_slots - 2, n_slots - 1
-    heads, leaves = [], []
-    for lv, dst, store in rows:
-        lv = list(lv) + [zero] * (-len(lv) % ROW_GROUP)
-        chunk, packet = store if store is not None else (NO_STORE, 0)
-        heads += [len(lv) // ROW_GROUP, trash if dst is None else dst,
-                  chunk, packet]
-        leaves += lv
-    flat = heads + leaves + [zero] * ROW_GROUP
-    flat += [0] * (-len(flat) % 8)
-    return np.asarray(flat, dtype=np.uint16)
+def packet_groups(rw: int, groups: int) -> tuple:
+    """The output packets of each of ``groups`` row groups: ``rw``
+    outputs in balanced runs, in order."""
+    if not 1 <= groups <= rw:
+        raise ValueError(f"{groups} row groups of {rw} output packets")
+    return tuple(tuple(range(g * rw // groups, (g + 1) * rw // groups))
+                 for g in range(groups))
 
 
-def _plain_rows(bitmatrix_rows: tuple, n_cols: int, w: int):
-    """(slots, rows) of the plain product: output packet o is the row of
-    its mask's input packets, stored to packet o % w of chunk o // w."""
-    rows = tuple((tuple(c for c in range(n_cols) if (int(m) >> c) & 1),
-                  None, divmod(o, w))
-                 for o, m in enumerate(bitmatrix_rows))
-    return n_cols + 2, rows
+def _pack_group(prog: RowProgram, w: int) -> list[int]:
+    """One row group's stream of the packet program (the layout is in
+    csrc/gf2_bitmatrix.cu)."""
+    flat = [len(prog.loads), len(prog.rows)]
+    flat += [c // w | (c % w) << 16 for c in prog.loads]
+    handed = 0
+    for leaves, dst, store, refills in prog.rows:
+        pairs, odd = divmod(len(leaves), 2)
+        if pairs > PACKET_PAIRS:
+            raise ValueError(f"a row of {len(leaves)} leaves")
+        if refills != tuple(range(handed, handed + len(refills))):
+            raise ValueError(f"a row hands on loads {refills} after "
+                             f"{handed}: not in the order of the loads")
+        handed += len(refills)
+        flat += [0] * ((2 - len(flat)) % 4)       # leaves on 16 bytes
+        size = 2 + len(leaves) + (store is not None)
+        stride = size + (2 - len(flat) - size) % 4
+        if stride > PACKET_STRIDE:
+            raise ValueError(f"a row of {len(leaves)} leaves")
+        flat.append(pairs | (PACKET_SINGLE if odd else 0)
+                    | (0 if dst is None else PACKET_KEEP)
+                    | (0 if store is None else PACKET_STORE)
+                    | len(refills) << PACKET_REFILL_SHIFT)
+        flat.append(stride | (2 * (pairs % 4) + odd) << PACKET_CASE_SHIFT
+                    | (0 if dst is None else 16 * dst) << 16)
+        flat += [16 * x for x in leaves]
+        if store is not None:
+            flat.append(store[0] | store[1] << 16)
+    return flat
 
 
-@functools.lru_cache(maxsize=1024)
-def _device_rows(kind: str, key: tuple, n_in: int, w: int,
-                 device: torch.device) -> tuple[int, int, torch.Tensor]:
-    """(slots, rows, data on ``device``) of the plain product of row
-    masks ``key`` (kind "plain") or of the schedule ``key`` (kind
-    "schedule"): built once per matrix, then kernel data."""
+@functools.lru_cache(maxsize=2048)
+def packet_program(kind: str, key: tuple, n_in: int, w: int,
+                   groups: int) -> tuple[int, np.ndarray]:
+    """(slots per thread, program) of the plain product of row masks
+    ``key`` (kind "plain") or of the schedule ``key`` (kind "schedule")
+    over ``n_in`` input packets, its outputs split into ``groups`` row
+    groups (:func:`packet_groups`): the packet kernel's data, int32 words
+    padded to whole 16-byte words (csrc/gf2_bitmatrix.cu has the
+    layout).  Built once per (matrix, groups)."""
     if kind == "plain":
-        n_slots, rows = _plain_rows(key, n_in, w)
+        rw = len(key)
+        progs = [plain_row_program(key, n_in, w, outs)
+                 for outs in packet_groups(rw, groups)]
     else:
-        n_slots, rows = row_program(key, w)
-    data = pack_rows(rows, n_slots).view(np.int16)
+        rw = key[2]
+        progs = [row_program(key, w, outs)
+                 for outs in packet_groups(rw, groups)]
+    n_slots = max(max(p.n_slots for p in progs), 1)
+    if n_slots > PACKET_MAX_SLOTS:
+        raise ValueError(f"{n_slots} slots per thread; the kernel's "
+                         f"offsets reach {PACKET_MAX_SLOTS}")
+    flat = [0, groups] + [0] * groups
+    for g, prog in enumerate(progs):
+        flat[2 + g] = len(flat)
+        flat += _pack_group(prog, w)
+    flat += [0] * (-len(flat) % 4)
+    flat[0] = len(flat)
+    return n_slots, np.asarray(flat, dtype=np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=2048)
+def _packet_data(kind: str, key: tuple, n_in: int, w: int, groups: int,
+                 device: torch.device
+                 ) -> tuple[np.ndarray, torch.Tensor, tuple[int, int]]:
+    """(program, its copy on ``device``, its room in shared memory,
+    :func:`packet_stream_room`): the packet kernel's data for one
+    (matrix, row groups), made once (one kernel setup)."""
+    prog = packet_program(kind, key, n_in, w, groups)[1]
+    table = torch.from_numpy(prog).to(device)
     tel.note_kernel_setup()
-    return n_slots, len(rows), torch.from_numpy(data).to(device)
+    return prog, table, packet_stream_room(prog)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_limits(index: int) -> tuple[int, int, int, int]:
+    """(SMs, shared memory per SM, per-block reserve, most per block) of
+    CUDA device ``index``."""
+    lib = _bitlib()
+    got = (ctypes.c_int * 4)()
+    err = lib.gf2_device_limits(index, got)
+    if err:
+        raise KernelLaunchError(
+            f"gf2_device_limits failed: CUDA error {err} "
+            f"({lib.gf2_error_string(err).decode()})")
+    return tuple(got)
+
+
+class PacketPlan(NamedTuple):
+    """One launch of the packet kernel: the unit in bytes, threads per
+    block, blocks per row group (grid x), row groups (grid y) and 16-byte
+    words per row of slots (the odd pitch; a thread's slots take pitch x
+    unit bytes)."""
+    unit: int
+    threads: int
+    blocks: int
+    groups: int
+    pitch: int
+
+
+def _packet_block(n_slots: int, unit: int, extra: int,
+                  limits) -> tuple[int, int]:
+    """(threads per block, threads resident per SM) of the packet kernel
+    with ``n_slots`` slots of ``unit`` bytes per thread and ``extra``
+    bytes of program in shared memory: the block of PACKET_THREADS that
+    keeps the most threads on an SM (the larger on a tie); (0, 0) when
+    no block fits."""
+    _, smem_sm, reserved, most = limits
+    best = (0, 0)
+    for t in PACKET_THREADS:
+        block = extra + t * (n_slots | 1) * unit
+        if block > most:
+            continue
+        resident = min(smem_sm // (block + reserved), 2048 // t, 32) * t
+        if resident > best[1]:
+            best = (t, resident)
+    return best
+
+
+def packet_plan(batch: int, nbytes: int, w: int, packetsize: int,
+                widest: int, rw: int, slots, limits) -> PacketPlan:
+    """The packet kernel's launch for ``batch`` stripes of ``nbytes``-byte
+    chunks in packets of w x ``packetsize``, units of at most ``widest``
+    bytes (what the pointers, strides and packet size allow), ``rw``
+    output packets; ``slots(G)`` gives (slots per thread, program bytes
+    in shared memory) of the program of G row groups; ``limits`` is
+    (SMs, shared memory per SM, per-block reserve, most per block).
+
+    The unit: the widest (bytes, not single bytes, where the packets
+    allow) whose slots leave PACKET_MIN_WARPS warps per SM, else the
+    narrowest.  The row groups: the fewest of PACKET_GROUPS (at most
+    ``rw``) whose units fill one wave of the card.  The grid: one wave,
+    each thread walking the units the wave leaves it."""
+    widths = [u for u in PACKET_UNITS if u <= widest]
+    if len(widths) > 1:
+        widths = [u for u in widths if u > 1]
+    n1, x1 = slots(1)
+    unit = next((u for u in widths if _packet_block(n1, u, x1, limits)[1]
+                 >= 32 * PACKET_MIN_WARPS), widths[-1])
+    units = batch * (nbytes // (w * packetsize)) * (packetsize // unit)
+    groups = 1
+    for g in PACKET_GROUPS:
+        if g > rw:
+            break
+        groups = g
+        n, x = slots(g)
+        if units * g >= _packet_block(n, unit, x, limits)[1] * limits[0]:
+            break
+    return _packet_grid(units, unit, groups, *slots(groups), limits)
+
+
+def _packet_grid(units: int, unit: int, groups: int, n_slots: int,
+                 extra: int, limits) -> PacketPlan:
+    """The launch of ``units`` units of ``unit`` bytes per row group with
+    ``n_slots`` slots a thread (``extra`` bytes of program in shared
+    memory): the block of :func:`_packet_block`, and one wave of blocks
+    over the ``groups`` row groups (fewer where the units run out), each
+    thread walking the units the wave leaves it."""
+    threads, resident = _packet_block(n_slots, unit, extra, limits)
+    if threads == 0:
+        raise ValueError(f"{n_slots} slots of {unit} bytes per thread do "
+                         f"not fit a block of {PACKET_THREADS[-1]} threads")
+    blocks = max(1, min(-(-units // threads),
+                        resident // threads * limits[0] // groups))
+    return PacketPlan(unit, threads, blocks, groups, n_slots | 1)
+
+
+def _widest_unit(*vals: int) -> int:
+    """The widest of PACKET_UNITS that divides every value (pointers,
+    strides, the packet size)."""
+    return next(u for u in PACKET_UNITS if all(v % u == 0 for v in vals))
+
+
+def packet_stream_room(prog: np.ndarray) -> tuple[int, int]:
+    """The shared memory, in int32 words, a block stages its row group's
+    stream and its loads' 64-bit byte offsets into: the longest stream
+    of the program, and 2 words a load of the group with the most, each
+    rounded up to 16 bytes.  The kernel takes both and checks them."""
+    groups = int(prog[1])
+    starts = [int(prog[2 + g]) for g in range(groups)]
+    ends = starts[1:] + [int(prog[0])]
+    most = max(e - s for s, e in zip(starts, ends))
+    loads = max(int(prog[s]) for s in starts)
+    return 4 * -(-most // 4), 4 * -(-2 * loads // 4)
+
+
+def packet_slots(kind: str, key: tuple, n_in: int, w: int):
+    """``slots(G)`` for :func:`packet_plan`: the slots per thread of the
+    program of G row groups, and the bytes of shared memory a block
+    stages its row group's stream and loads' offsets into."""
+    def slots(groups: int) -> tuple[int, int]:
+        n, prog = packet_program(kind, key, n_in, w, groups)
+        return n, 4 * sum(packet_stream_room(prog))
+    return slots
+
+
+@functools.lru_cache(maxsize=4096)
+def _cached_plan(kind: str, key: tuple, n_in: int, w: int, batch: int,
+                 nbytes: int, packetsize: int, widest: int,
+                 device: torch.device) -> PacketPlan:
+    rw = len(key) if kind == "plain" else key[2]
+    return packet_plan(batch, nbytes, w, packetsize, widest, rw,
+                       packet_slots(kind, key, n_in, w),
+                       _device_limits(device.index))
 
 
 def _check_packets(chunks: torch.Tensor, rw: int, w: int, packetsize: int
@@ -746,29 +948,50 @@ def _check_packets(chunks: torch.Tensor, rw: int, w: int, packetsize: int
     return rw // w
 
 
-def _launch_rows(fn, chunks: torch.Tensor, r: int, w: int, packetsize: int,
-                 kind: str, key: tuple, n_in: int) -> torch.Tensor:
-    """Run the packet kernel on (..., s, C) chunks -> (..., r, C): the
-    rows of ``kind`` / ``key`` (see _device_rows), counted on ``fn``."""
+def packet_launch_plan(chunks: torch.Tensor, r: int, w: int,
+                       packetsize: int, kind: str, key: tuple, n_in: int,
+                       out_ptr: int = 0) -> PacketPlan:
+    """The plan the wrappers launch (..., s, C) chunks under into an
+    output at ``out_ptr`` (default: an address on a 16-byte boundary,
+    where torch's allocator puts every tensor): :func:`packet_plan`'s,
+    cached per shape.  A query; it launches nothing."""
+    batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
+    c = chunks.shape[-1]
+    widest = _widest_unit(chunks.data_ptr(), out_ptr, bstride,
+                          chunks.stride(-2), r * c, c, packetsize)
+    return _cached_plan(kind, key, n_in, w, batch, c, packetsize, widest,
+                        chunks.device)
+
+
+def _packet_launch(chunks: torch.Tensor, r: int, w: int, packetsize: int,
+                   kind: str, key: tuple, n_in: int,
+                   plan: PacketPlan | None = None) -> torch.Tensor:
+    """Run the packet kernel on (..., s, C) CUDA chunks -> (..., r, C):
+    the program of ``kind`` / ``key`` (see :func:`packet_program`) under
+    ``plan`` (default: :func:`packet_launch_plan`'s); one launch.  The
+    wrappers count it; the timing tool's sweep passes other plans."""
     if chunks.stride(-1) != 1:
         raise ValueError("chunk bytes must be contiguous (stride 1)")
     lib = _bitlib()
-    n_slots, n_rows, data = _device_rows(kind, key, n_in, w, chunks.device)
     lead, c = tuple(chunks.shape[:-2]), chunks.shape[-1]
     out = torch.empty(lead + (r, c), dtype=torch.uint8, device=chunks.device)
     if out.numel() == 0:
         return out
     batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
-    err = lib.gf2_rows_apply(
+    if plan is None:
+        plan = packet_launch_plan(chunks, r, w, packetsize, kind, key, n_in,
+                                  out.data_ptr())
+    prog, table, room = _packet_data(kind, key, n_in, w, plan.groups,
+                                     chunks.device)
+    err = lib.gf2_packet_apply(
         chunks.data_ptr(), out.data_ptr(), batch, c, bstride,
-        chunks.stride(-2), r * c, c, chunks.shape[-2], r * w, w, packetsize,
-        data.data_ptr(), data.numel() // 8, n_rows, n_in, n_slots,
-        *device_and_stream(chunks))
+        chunks.stride(-2), r * c, c, w, packetsize, prog.ctypes.data,
+        prog.size, table.data_ptr(), *room, plan.unit, plan.threads,
+        plan.blocks, plan.pitch, *device_and_stream(chunks))
     if err:
         raise KernelLaunchError(
-            f"{fn.__name__} failed: CUDA error {err} "
+            f"the packet kernel failed: CUDA error {err} "
             f"({lib.gf2_error_string(err).decode()})")
-    fn.launches += 1
     return out
 
 
@@ -786,8 +1009,9 @@ def apply_bitmatrix_cuda(chunks: torch.Tensor, bitmatrix_rows, w: int,
     if chunks.device.type == "cpu":
         return apply_bitmatrix_torch(chunks, rows, w, packetsize)
     _check_cuda(chunks)
-    return _launch_rows(apply_bitmatrix_cuda, chunks, r, w, packetsize,
-                        "plain", rows, s * w)
+    out = _packet_launch(chunks, r, w, packetsize, "plain", rows, s * w)
+    apply_bitmatrix_cuda.launches += 1
+    return out
 
 
 def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
@@ -807,8 +1031,10 @@ def apply_bitmatrix_xor_cuda(chunks: torch.Tensor, sched_static, w: int,
         return apply_bitmatrix_xor_torch(chunks, sched_static, w,
                                          packetsize)
     _check_cuda(chunks)
-    return _launch_rows(apply_bitmatrix_xor_cuda, chunks, r, w, packetsize,
-                        "schedule", sched_static, n_in)
+    out = _packet_launch(chunks, r, w, packetsize, "schedule", sched_static,
+                         n_in)
+    apply_bitmatrix_xor_cuda.launches += 1
+    return out
 
 
 # -- the GF(2^8) XOR-schedule kernel ------------------------------------------
@@ -1518,7 +1744,9 @@ __all__ = [
     "apply_matrix_xor_cuda_packed", "bitmatrix_op_count", "dense_geometry",
     "dense_op_count", "dense_plan", "dense_program",
     "launch_counts", "mask_pages", "matrix_kernel_fits", "pack_chunks",
-    "pack_rows",
+    "PACKET_GROUPS", "PACKET_MIN_WARPS", "PACKET_UNITS", "PacketPlan",
+    "packet_groups", "packet_launch_plan", "packet_plan", "packet_program",
+    "packet_slots", "packet_stream_room",
     "pack_word_program", "program_op_count", "reset_launch_counts",
     "schedule_op_count", "select_matrix_engine", "select_ragged_engine",
     "sm90_op_count", "sm90_op_floor", "sm90_row_op_count",

@@ -28,8 +28,9 @@ port routes each matrix to the same kernel.
 Added here (no counterpart in the reference), the programs the CUDA
 kernels run:
 
-- :func:`row_program`: a pure-XOR schedule as the rows of the packet
-  kernel (``csrc/gf2_bitmatrix.cu``);
+- :func:`row_program` and :func:`plain_row_program`: a pure-XOR schedule,
+  or the plain product, as the rows of the packet kernel
+  (``csrc/gf2_bitmatrix.cu``), for all outputs or one row group's;
 - :func:`word_program`: a GF(2^8) schedule as the instructions of the
   word kernel (``csrc/gf8_xor_schedule.cu``).
 
@@ -602,79 +603,153 @@ def host_matrix_apply(chunks: np.ndarray, matrix: np.ndarray,
 
 # -- the CUDA kernels' programs -----------------------------------------------
 
-@functools.lru_cache(maxsize=1024)
-def row_program(static: tuple, w: int) -> Tuple[int, tuple]:
-    """(number of slots, rows) of a pure-XOR schedule whose outputs are
-    packets of w per chunk, in the form the CUDA packet kernel runs.
+@dataclasses.dataclass(frozen=True)
+class RowProgram:
+    """The rows of the packet kernel (``csrc/gf2_bitmatrix.cu``) for some
+    output packets of one product, before packing
+    (``gf_kernels.packet_program``).
 
-    Every node that must exist (an output, or a node read by two ops) is
-    one row: the XOR of its leaves, the inputs and earlier such nodes
-    under it, through the nodes read once, which are never made.  So a
-    thread accumulates a row in a register and reads each leaf once,
-    instead of reading two slots and writing one per XOR.  A row is
-    ``(leaves, dst, store)``: leaf slot ids, the slot that keeps the
-    result for later rows (None: not kept), and the output ``(chunk,
-    packet)`` it is stored to (None: not an output).  Slots 0..n_in-1
-    hold the inputs; a node's slot is free once its last reader has read
-    it (a row may write the slot it reads: reads come first).  The last
-    two slots are the kernel's zero and trash slots."""
-    _, n_in, n_out, ops, outputs = static
-    n_nodes = n_in + len(ops)
-    reads = [0] * n_nodes
-    for op in ops:
-        if op[0] != "xor":
-            raise ValueError(f"bitmatrix schedules hold xor ops only: {op}")
-        reads[op[1]] += 1
-        reads[op[2]] += 1
-    rows_of: Dict[int, List[int]] = {}
-    for row, node in enumerate(outputs):
-        rows_of.setdefault(node, []).append(row)
-    made = [n for n in range(n_in, n_nodes)
-            if reads[n] >= 2 or n in rows_of]
-    kept = set(made)
-    leaves: Dict[int, List[int]] = {}
-    for i, (_, a, b) in enumerate(ops):
-        leaves[n_in + i] = [x for y in (a, b) for x in (
-            [y] if y < n_in or y in kept else leaves[y])]
-    # readers of a node as a leaf: the rows that take it, plus one copy
-    # row for each output row past its first
-    users = [0] * n_nodes
-    for n in made:
-        for x in leaves[n]:
-            users[x] += 1
-    plan: List[Tuple[List[int], int, int]] = []   # (leaf nodes, node, row)
-    for row in rows_of.get(-1, []):
-        plan.append(([], -1, row))
-    for node in range(n_in):
-        for row in rows_of.get(node, []):
-            plan.append(([node], -1, row))
-            users[node] += 1
-    for n in made:
-        rws = rows_of.get(n, [])
-        plan.append((leaves[n], n, rws[0] if rws else -1))
-        for row in rws[1:]:
-            plan.append(([n], -1, row))
-            users[n] += 1
-    slot = list(range(n_in)) + [-1] * len(ops)
-    free: List[int] = [v for v in range(n_in) if users[v] == 0][::-1]
-    n_live = n_in
+    ``loads`` are the input packets read, ``c = j * w + lb`` (packet lb
+    of input chunk j); load k lands in slot k.  A row is ``(leaves, dst,
+    store, refills)``: the slots it XORs, the slot that keeps the result
+    for later rows (None: no later row reads it), the output ``(chunk,
+    packet)`` it is stored to (None: not an output), and the loads whose
+    slot no later row touches, so the next unit's packet may land there
+    once this row has run.  The loads are numbered in the order their
+    slots fall free, so the refills of the rows, in order, are 0, 1, 2,
+    ...  A slot is free once its last reader has read it, and a row may
+    write a slot it reads (reads come first)."""
+
+    n_slots: int
+    loads: Tuple[int, ...]
+    rows: Tuple[tuple, ...]
+
+
+def lower_rows(plan: Sequence[tuple], n_in: int) -> RowProgram:
+    """Slots for a plan of rows ``(leaf nodes, node, store)``: nodes
+    below ``n_in`` are input packets, ``node`` is the node a row makes
+    (-1: none) and ``store`` the output ``(chunk, packet)`` it is stored
+    to (None: none).  Inputs take slots in the order of their packets; a
+    made node that a later row reads takes a freed slot (liveness)."""
+    users: Dict[int, int] = {}
+    for lv, _, _ in plan:
+        for x in lv:
+            users[x] = users.get(x, 0) + 1
+    loads = tuple(sorted(x for x in users if x < n_in))
+    slot = {x: k for k, x in enumerate(loads)}
+    free: List[int] = []
+    n_live = len(loads)
+    last: Dict[int, int] = {}
     rows = []
-    for lv, node, row in plan:
+    for r, (lv, node, store) in enumerate(plan):
         ids = tuple(slot[x] for x in lv)
         for x in lv:
+            last[slot[x]] = r
             users[x] -= 1
             if users[x] == 0:
                 free.append(slot[x])
         dst = None
-        if node >= 0 and users[node]:
+        if node >= 0 and users.get(node):
             if free:
                 slot[node] = free.pop()
             else:
                 slot[node] = n_live
                 n_live += 1
             dst = slot[node]
-        rows.append((ids, dst, None if row < 0 else divmod(row, w)))
-    return n_live + 2, tuple(rows)
+        rows.append((ids, dst, store))
+    # number the loads in the order their slots fall free, so the rows
+    # hand them to the next unit as one running sequence
+    order = sorted(range(len(loads)), key=lambda k: last[k])
+    slot_of = {k: i for i, k in enumerate(order)}
+    renum = lambda x: slot_of.get(x, x)
+    refills: List[List[int]] = [[] for _ in rows]
+    for i, k in enumerate(order):
+        refills[last[k]].append(i)
+    return RowProgram(n_live, tuple(loads[k] for k in order), tuple(
+        (tuple(map(renum, ids)), None if dst is None else renum(dst), store,
+         tuple(ref)) for (ids, dst, store), ref in zip(rows, refills)))
+
+
+@functools.lru_cache(maxsize=4096)
+def row_program(static: tuple, w: int, outs: Optional[tuple] = None
+                ) -> RowProgram:
+    """The packet kernel's rows for output packets ``outs`` (default:
+    all) of a pure-XOR schedule whose outputs are packets of w per
+    chunk.
+
+    Every node those outputs need that must exist (one of them, or a
+    node read by two of the ops under them) is one row: the XOR of its
+    leaves, the inputs and earlier such nodes under it, through the
+    nodes read once, which are never made.  So a thread accumulates a
+    row in a register and reads each leaf once, instead of reading two
+    slots and writing one per XOR.  Nodes that no output of ``outs``
+    needs are not made, so the outputs of one row group of the kernel
+    make exactly the closure they read (a temp two groups need is made
+    in both)."""
+    _, n_in, n_out, ops, outputs = static
+    for op in ops:
+        if op[0] != "xor":
+            raise ValueError(f"bitmatrix schedules hold xor ops only: {op}")
+    outs = tuple(range(n_out)) if outs is None else tuple(outs)
+    need: Set[int] = set()
+    stack = [outputs[o] for o in outs if outputs[o] >= n_in]
+    while stack:
+        n = stack.pop()
+        if n not in need:
+            need.add(n)
+            stack.extend(x for x in ops[n - n_in][1:3] if x >= n_in)
+    reads: Dict[int, int] = {}
+    for n in need:
+        for x in ops[n - n_in][1:3]:
+            reads[x] = reads.get(x, 0) + 1
+    rows_of: Dict[int, List[int]] = {}
+    for row in outs:
+        rows_of.setdefault(outputs[row], []).append(row)
+    kept = set(n for n in need if reads.get(n, 0) >= 2 or n in rows_of)
+    leaves: Dict[int, List[int]] = {}
+    for n in sorted(need):
+        _, a, b = ops[n - n_in]
+        leaves[n] = [x for y in (a, b) for x in (
+            [y] if y < n_in or y in kept else leaves[y])]
+    # a zero row per output of no node, a copy row per input output, a
+    # row per made node, and a copy row for each store of a node past
+    # its first.  Made nodes come as the outputs, in order, first need
+    # them (each after the made nodes under it), so a temp is made just
+    # before its first reader and holds its slot for less of the walk
+    plan: List[tuple] = [((), -1, row) for row in rows_of.get(-1, [])]
+    for node in range(n_in):
+        plan += [((node,), -1, row) for row in rows_of.get(node, [])]
+    done: Set[int] = set()
+    for top in (outputs[o] for o in outs if outputs[o] >= n_in):
+        stack = [(top, False)]
+        while stack:
+            n, ready = stack.pop()
+            if n in done:
+                continue
+            if not ready:
+                stack.append((n, True))
+                stack += [(x, False) for x in reversed(leaves[n])
+                          if x >= n_in and x not in done]
+                continue
+            done.add(n)
+            rws = rows_of.get(n, [])
+            plan.append((tuple(leaves[n]), n, rws[0] if rws else -1))
+            plan += [((n,), -1, row) for row in rws[1:]]
+    return lower_rows([(lv, node, None if row < 0 else divmod(row, w))
+                       for lv, node, row in plan], n_in)
+
+
+@functools.lru_cache(maxsize=4096)
+def plain_row_program(bitmatrix_rows: tuple, n_in: int, w: int,
+                      outs: Optional[tuple] = None) -> RowProgram:
+    """The packet kernel's rows of the plain product for output packets
+    ``outs`` (default: all): output packet o is the row of the input
+    packets its mask ``bitmatrix_rows[o]`` sets, stored to packet o % w
+    of chunk o // w; nothing is kept."""
+    outs = tuple(range(len(bitmatrix_rows))) if outs is None else outs
+    return lower_rows([(tuple(c for c in range(n_in)
+                              if (int(bitmatrix_rows[o]) >> c) & 1),
+                        -1, divmod(o, w)) for o in outs], n_in)
 
 
 _UNARY = ("xt", "shl", "shr")
@@ -774,6 +849,7 @@ __all__ = [
     "apply_schedule_numpy", "build_schedule", "dense_vpu_cost",
     "eval_schedule", "eval_schedule_u8", "host_matrix_apply",
     "naive_bitmatrix_xors", "preferred_schedule",
+    "RowProgram", "lower_rows", "plain_row_program",
     "probe_bitmatrix_schedule", "probe_schedule", "row_program",
     "word_program", "xtime_words_xor",
 ]

@@ -26,7 +26,10 @@ source, all started together) and then, in order:
      bitmatrix (packetsize 2048) and its e=2 decode schedule at (64, 8,
      131072), and random bitmatrices for w in {6, 7, 8} and packetsizes
      {8, 32, 2048}, with and without a leading batch dimension, through a
-     strided survivor slice;
+     strided survivor slice; the cauchy_good decodes (3,), (3, 9) and
+     (5, 6, 7) at 4 stripes (row groups on grid y) and 64 (one group)
+     through the wrappers, and random bitmatrices at the packet sizes
+     that take each other unit width (16 bytes at 32, 4 at 12, 1 at 3);
    - the XOR-schedule kernel (bytes and packed wrappers): the
      reed_sol_r6_op k=8 m=2 encode schedule (the ring transform) at (64,
      8, 131072), an lrc k=4 m=2 l=3 local repair at (64, 7, 262144), the
@@ -68,7 +71,9 @@ source, all started together) and then, in order:
    - cauchy_good: jerasure cauchy_good k=8 m=3 (packetsize 2048) encodes
      64 x 1 MiB through ``encode_chunks_torch`` and
      ``encode_chunks_batch``, and decodes all 231 patterns of a 4-stripe
-     batch through ``decode_chunks_torch``;
+     batch through ``decode_chunks_torch`` (9 plain, 222 scheduled
+     launches), then repeats them warm: the same launches and bytes, no
+     kernel setup;
    - minimal density: liberation k=7 w=7, blaum_roth k=6 w=6 and
      liber8tion k=8, an encode and a decode each;
    - wide words: reed_sol_van w=16 and w=32 k=8 m=3, an encode and a
@@ -118,7 +123,11 @@ source, all started together) and then, in order:
    ``ceph_tpu_torch/tools/dense_times.py`` (the RS encode, the decode
    e=2 at 4 and 64 stripes, e=1 at 4, clay's (64, 704) repair through
    the device program, w=16/32, the ragged pool) with the instructions
-   per word position its row program spends and its grid; the RS path's
+   per word position its row program spends and its grid; the packet
+   kernel at the shapes of ``ceph_tpu_torch/tools/packet_times.py`` (the
+   cauchy_good encode plain and scheduled, the scheduled decode (3, 9)
+   at 4 and 64 stripes, the plain decode (3,) at 4, a random w=7
+   bitmatrix at packetsize 32) with its bound and plan; the RS path's
    launches per decode call (phase 3); the ragged kernel at 25,
    50 and 100 % live pages beside the dense kernel on the same bytes;
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
@@ -327,7 +336,8 @@ def main(argv=None) -> int:
         apply_matrix_ragged_torch, apply_matrix_torch,
         apply_matrix_walk_torch, apply_matrix_xor_torch,
         bitmatrix_to_static, mask_pages, matrix_to_static, mxu_bitmatrix)
-    from ceph_tpu_torch.tools import dense_times, roofline
+    from ceph_tpu_torch.telemetry import metrics as tel
+    from ceph_tpu_torch.tools import dense_times, packet_times, roofline
     from ceph_tpu_torch.tools.dense_times import kernel_ms
     from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
                                              serve_dispatch_ragged)
@@ -532,6 +542,66 @@ def main(argv=None) -> int:
           f"main shape (encode, decode e=2) and on {n_bm} random cases "
           f"(w in 6,7,8; packetsize 8, 32, 2048; with and without a batch "
           f"dim; strided slices)")
+
+    # the packet kernel's launches (gf_kernels.packet_launch_plan), all
+    # through the wrappers, each against the plain version: the decodes at
+    # 4 stripes (row groups on grid y) and 64 (one group), 8-byte units;
+    # every other unit width at the packet size that selects it
+    packet_seen = {"unit": set(), "groups": set()}
+
+    def hold_packet(x, r, kind, key, what, w=8, ps=PACKETSIZE):
+        wrapper, plain_fn = (
+            (apply_bitmatrix_cuda, apply_bitmatrix_torch) if kind == "plain"
+            else (apply_bitmatrix_xor_cuda, apply_bitmatrix_xor_torch))
+        got = wrapper(x, key, w, ps)
+        plan = gf_kernels.packet_launch_plan(x, r, w, ps, kind, key,
+                                             x.shape[-2] * w)
+        err.hold(wrapper.__name__, got, plain_fn(x, key, w, ps),
+                 f"packet kernel, {what}, {plan}")
+        packet_seen["unit"].add(plan.unit)
+        packet_seen["groups"].add(plan.groups)
+        return plan
+
+    def cauchy_decode(erased):
+        avail = tuple(i for i in range(K + M) if i not in erased)
+        _, drows, _, dsched = cg._decode_bitmatrix(avail, erased)
+        surv = cg_full.index_select(1, torch.tensor(avail, device=dev))
+        if dsched is None:
+            return surv[:, :K], "plain", tuple(drows)
+        return surv[:, :K], "schedule", dsched.static
+
+    packet_lines = []
+    for erased in ((3,), (3, 9), (5, 6, 7)):
+        x, kind, key = cauchy_decode(erased)
+        for batch in (DECODE_BATCH, BATCH):
+            plan = hold_packet(x[:batch], len(erased), kind, key,
+                               f"decode {erased} at {batch} stripes")
+            check((plan.groups == 1) == (batch == BATCH),
+                  f"decode {erased} at {batch} stripes: {plan}")
+            packet_lines.append(f"decode {erased} at {batch}: {plan}")
+    # (w, packetsize, the unit the plan must take): 16 bytes at packets of
+    # 32 (the minimal-density codes' size), 4 at 12, single bytes at 3
+    for w, ps, unit in ((7, 32, 16), (8, 12, 4), (5, 3, 1)):
+        s, r = 7, 2
+        bm = (rng.random((r * w, s * w)) < 0.4).astype(np.uint8)
+        brows = bitmatrix_to_static(bm)
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, s, 512 * w * ps),
+                                          dtype=np.uint8)).to(dev)
+        plan = hold_packet(x, r, "plain", brows,
+                           f"random w={w} packetsize {ps}", w, ps)
+        check(plan.unit == unit, f"w={w} packetsize {ps}: {plan}")
+        packet_lines.append(f"w={w} packetsize {ps}: {plan}")
+        sched = probe_bitmatrix_schedule(brows, w)
+        if sched is not None:
+            hold_packet(x, r, "schedule", sched.static,
+                        f"random w={w} packetsize {ps}, scheduled", w, ps)
+    check(packet_seen["unit"] >= {16, 8, 4, 1}
+          and max(packet_seen["groups"]) > 1,
+          f"the packet kernel's launches cover {packet_seen}")
+    print(f"phase 2: the packet kernel equal to the plain versions through "
+          f"its wrappers (" + "; ".join(packet_lines) + f"): unit widths "
+          f"{sorted(packet_seen['unit'])}, row groups "
+          f"{sorted(packet_seen['groups'])}")
 
     # the XOR-schedule kernel: the r6 encode (ring schedule) at the main
     # shape, an lrc local repair at 64 x 1 MiB stripes, the shec plans
@@ -932,6 +1002,27 @@ def main(argv=None) -> int:
         "cauchy_good k=8 m=3 (64 x 1 MiB encode via tensor and numpy "
         "entries; 231 decode patterns)", counts, reset, cauchy_path,
         ("apply_bitmatrix_cuda", "apply_bitmatrix_xor_cuda"))
+    # a warm repeat of the 231 decodes: the kernel data is cached per
+    # (matrix, row groups), so it sets up nothing; each decode still
+    # recovers the erased chunks
+    setups, before = tel.kernel_setups(), counts()
+    full = torch.cat([data[:DECODE_BATCH], gots[:DECODE_BATCH]], dim=1)
+    for erased in patterns:
+        avail = tuple(i for i in range(n) if i not in erased)
+        rec = cg.decode_chunks_torch(full.index_select(
+            1, torch.tensor(avail, device=dev)), avail, erased)
+        check(torch.equal(rec, full[:, list(erased)]),
+              f"warm cauchy_good decode {erased}")
+    torch.cuda.synchronize()
+    after = counts()
+    warm = (after["apply_bitmatrix_cuda"] - before["apply_bitmatrix_cuda"],
+            after["apply_bitmatrix_xor_cuda"]
+            - before["apply_bitmatrix_xor_cuda"])
+    check(warm == (9, 222) and tel.kernel_setups() == setups,
+          f"warm cauchy_good decodes: {warm} launches, "
+          f"{tel.kernel_setups() - setups} kernel setups")
+    print(f"phase 3: warm repeat of the 231 cauchy_good decodes: {warm[0]} "
+          f"plain and {warm[1]} scheduled launches, no kernel setup")
 
     def density_path():
         for prof, erased in (
@@ -1463,6 +1554,26 @@ def main(argv=None) -> int:
               + f"; bound {b:.6f} ms by {b_by}; {program_op_count(mat_s, w)}"
               f" instructions per word position in its program (floor "
               f"{sm90_op_floor(mat_s, w)}); grid {plan}")
+
+    # the packet kernel at the shapes of tools/packet_times.py (the
+    # cauchy_good encode plain and scheduled, the scheduled decode (3, 9)
+    # at 4 and 64 stripes, the plain decode (3,) at 4, a random w=7
+    # bitmatrix at packetsize 32): its profiler time per call beside the
+    # bound, and the plan it launched
+    for name, kind, key, n_in, w, ps, x, r in packet_times.shapes(
+            args.seed):
+        fn = ((lambda x=x, key=key, w=w, ps=ps:
+               apply_bitmatrix_cuda(x, key, w, ps)) if kind == "plain" else
+              (lambda x=x, key=key, w=w, ps=ps:
+               apply_bitmatrix_xor_cuda(x, key, w, ps)))
+        b, b_by = bound_ms(*packet_times.work(gf_kernels, kind, key, n_in,
+                                              w, ps, x, r))
+        k_t = kernel_ms(fn, "gf2_packet_kernel", iters=50)
+        plan = gf_kernels.packet_launch_plan(x, r, w, ps, kind, key, n_in)
+        print(f"time packet kernel, {name}, {kind}: profiler "
+              + ("not measured" if k_t is None else f"{k_t:.6f} ms, "
+                 f"{b / k_t:.4f} of bound")
+              + f"; bound {b:.6f} ms by {b_by}; plan {plan}")
 
     for name, t, h, b, nbytes in (
             ("bytes kernel", t_bytes, h_bytes, bound, in_bytes),

@@ -3,9 +3,9 @@
 wrappers' CPU path, the dispatch and the ported XOR scheduler, against
 ceph_tpu's XLA builds, its Pallas kernels in interpret mode and the
 numpy ground truth.  Exact byte equality throughout (GF(2) math is
-integer).  The schedule kernel's instruction list
-(``xor_schedule.row_program``) is run here by a numpy interpreter that
-mirrors the kernel's loop; the kernels themselves are held against the
+integer).  The packet kernel's rows (``xor_schedule.row_program`` and
+``plain_row_program``) are run here by a numpy interpreter that mirrors
+the kernel's walk (tests/test_torch_packet.py runs the packed program); the kernels themselves are held against the
 plain versions on the card in tests/test_torch_cuda.py."""
 
 import itertools
@@ -65,33 +65,37 @@ def _random_bitmatrix(rng, r, s, w, density=0.4):
     return bm
 
 
-def _interpret_rows(n_slots, rows, inputs, n_out, w):
-    """Run packet-kernel rows the way the CUDA kernel does: slots
-    0..len(inputs)-1 start as the inputs; each row XORs its leaves, keeps
-    the result in slot dst and stores it to packet ``packet`` of output
-    chunk ``chunk``.  Leaves must be slots an earlier row (or the input
-    load) wrote."""
-    slots = [None] * n_slots
-    slots[:len(inputs)] = inputs
+def _interpret_rows(prog, inputs, n_out, w):
+    """Run a ``RowProgram`` the way the CUDA kernel does: load k of
+    input packet ``prog.loads[k]`` into slot k; each row XORs its leaves,
+    keeps the result in slot dst and stores it to packet ``packet`` of
+    output chunk ``chunk``; the loads a row refills are handed to the next
+    unit, so no later row may read or keep into their slots.  Leaves must
+    be slots the loads or an earlier row wrote."""
+    slots = [None] * prog.n_slots
+    for k, c in enumerate(prog.loads):
+        slots[k] = inputs[c]
     outs = [None] * n_out
-    for leaves, dst, store in rows:
+    for leaves, dst, store, refills in prog.rows:
         acc = np.zeros_like(inputs[0])
         for x in leaves:
-            assert x < n_slots - 2 and slots[x] is not None
+            assert slots[x] is not None
             acc = acc ^ slots[x]
         if dst is not None:
-            assert dst < n_slots - 2
+            assert dst < prog.n_slots
             slots[dst] = acc
         if store is not None:
             chunk, packet = store
             outs[chunk * w + packet] = acc
+        for k in refills:
+            slots[k] = None
     assert all(o is not None for o in outs)
     return outs
 
 
 def _interpret_row_program(static, inputs, w=1):
-    n_slots, rows = xor_schedule.row_program(static, w)
-    return _interpret_rows(n_slots, rows, inputs, static[2], w), n_slots
+    prog = xor_schedule.row_program(static, w)
+    return _interpret_rows(prog, inputs, static[2], w), prog.n_slots
 
 
 # -- the plain packet product ------------------------------------------------
@@ -245,9 +249,9 @@ def test_row_program_runs_the_schedule(profile):
             sched.static, ins, lambda: np.zeros(16, np.uint8))
         got, n_slots = _interpret_row_program(sched.static, ins, w)
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
-        assert sched.n_in + 2 <= n_slots < sched.n_in + sched.n_ops + 2
-        _, rows = xor_schedule.row_program(sched.static, w)
-        assert sum(len(lv) for lv, _, _ in rows) < 2 * sched.xor_ops
+        prog = xor_schedule.row_program(sched.static, w)
+        assert len(prog.loads) <= n_slots < sched.n_in + sched.n_ops
+        assert sum(len(lv) for lv, _, _, _ in prog.rows) < 2 * sched.xor_ops
 
 
 def test_row_program_zero_rows_copies_and_reuse():
@@ -259,45 +263,58 @@ def test_row_program_zero_rows_copies_and_reuse():
     ins = [np.array([v], np.uint8) for v in (1, 2, 4)]
     got, n_slots = _interpret_row_program(static, ins)
     assert [int(o[0]) for o in got] == [0, 2, 3, 7, 3]
-    assert n_slots == 3 + 2              # node 3 reuses in0's or in1's slot
-    _, rows = xor_schedule.row_program(static, 1)
-    assert rows[0] == ((), None, (0, 0))          # the zero row
-    assert rows[1] == ((1,), None, (1, 0))        # the copy of in1
-    leaves, dst, store = rows[2]                  # node 3, kept
+    assert n_slots == 3                  # node 3 reuses in0's or in1's slot
+    prog = xor_schedule.row_program(static, 1)
+    assert prog.loads == (0, 1, 2)
+    rows = prog.rows
+    assert rows[0] == ((), None, (0, 0), ())       # the zero row
+    assert rows[1] == ((1,), None, (1, 0), ())     # the copy of in1
+    leaves, dst, store, refills = rows[2]          # node 3, kept
     assert leaves == (0, 1) and dst in (0, 1) and store == (2, 0)
-    assert rows[3] == ((dst,), None, (4, 0))      # its second store
-    assert rows[4] == ((dst, 2), None, (3, 0))    # node 4
+    assert refills == tuple({0, 1} - {dst})        # the other slot is free
+    assert rows[3] == ((dst,), None, (4, 0), ())   # its second store
+    assert rows[4] == ((dst, 2), None, (3, 0), tuple(sorted((dst, 2))))
     with pytest.raises(ValueError):
         xor_schedule.row_program(("xorsched", 1, 1, (("xt", 0),), (1,)), 1)
     # with w=2, output row 3 is packet 1 of chunk 1
-    _, rows = xor_schedule.row_program(static, 2)
-    assert sorted(st for _, _, st in rows) == [(0, 0), (0, 1), (1, 0),
-                                              (1, 1), (2, 0)]
+    rows = xor_schedule.row_program(static, 2).rows
+    assert sorted(st for _, _, st, _ in rows) == [(0, 0), (0, 1), (1, 0),
+                                                 (1, 1), (2, 0)]
 
 
 def test_pack_rows_layout_and_plain_rows():
-    rows = (((0, 1, 2, 3, 4), None, (0, 1)), ((), 5, None), ((2,), None,
-                                                             (1, 0)))
-    data = gf_kernels.pack_rows(rows, n_slots=8)
-    zero, trash, no = 6, 7, gf_kernels.NO_STORE
-    heads = [2, trash, 0, 1, 0, 5, no, 0, 1, trash, 1, 0]
-    leaves = [0, 1, 2, 3, 4, zero, zero, zero, 2, zero, zero, zero]
-    want = heads + leaves + [zero] * 4
-    assert data.dtype == np.uint16 and len(data) % 8 == 0
-    assert data[:len(want)].tolist() == want
+    rows = (((0, 1, 2, 3, 4), None, (0, 1), (0, 1)),
+            ((), 5, None, ()), ((2,), None, (1, 0), (2, 3, 4)))
+    flat = gf_kernels._pack_group(xor_schedule.RowProgram(6, (0, 1, 2, 3, 4),
+                                                          rows), 4)
+    keep, store = gf_kernels.PACKET_KEEP, gf_kernels.PACKET_STORE
+    hand = 1 << gf_kernels.PACKET_REFILL_SHIFT
+    loads = [0, 1 << 16, 2 << 16, 3 << 16, 1]      # chunk | packet << 16
+    case = gf_kernels.PACKET_CASE_SHIFT
+    want = [5, 3] + loads + [0, 0, 0]              # heads at 2 mod 4
+    want += [2 | gf_kernels.PACKET_SINGLE | store | 2 * hand, 8 | 5 << case,
+             0, 16, 32, 48, 64, 0 | 1 << 16]
+    want += [0 | keep, 4 | 80 << 16]               # no leaves, kept in slot 5
+    want += [0, 0, gf_kernels.PACKET_SINGLE | store | 3 * hand, 4 | 1 << case,
+             32, 1]
+    assert flat == want
+    with pytest.raises(ValueError, match="order"):  # loads handed out of order
+        gf_kernels._pack_group(xor_schedule.RowProgram(
+            3, (0, 1), (((0, 1), None, (0, 0), (1, 0)),)), 4)
     # the plain product's rows run like apply_bitmatrix_torch
     rng = np.random.default_rng(3)
     bm = _random_bitmatrix(rng, 2, 3, 4)
     masks = bitmatrix_to_static(bm)
-    n_slots, prows = gf_kernels._plain_rows(masks, 12, 4)
+    prog = xor_schedule.plain_row_program(masks, 12, 4)
     ins = [rng.integers(0, 256, 8, dtype=np.uint8) for _ in range(12)]
-    got = _interpret_rows(n_slots, prows, ins, 8, 4)
+    got = _interpret_rows(prog, ins, 8, 4)
     for o, m in enumerate(masks):
         want = np.zeros(8, np.uint8)
         for c in range(12):
             if (m >> c) & 1:
                 want ^= ins[c]
         assert np.array_equal(got[o], want)
+    assert all(dst is None for _, dst, _, _ in prog.rows)
 
 
 # -- op counts (the ops side of the kernels' bounds) ----------------------------

@@ -237,6 +237,135 @@ def test_schedule_kernel_matches_plain_on_card(cuda_device, profile, ps):
             data[:, :k], bm, w, ps))
 
 
+def _cauchy_good():
+    return _code({"technique": "cauchy_good", "k": "8", "m": "3"})
+
+
+def _cauchy_decode(ec, erased):
+    """(kind, key) of cauchy_good k=8 m=3's decode of ``erased``: the
+    schedule when one pays, else the plain rows."""
+    avail = tuple(i for i in range(11) if i not in erased)
+    _, rows, _, sched = ec._decode_bitmatrix(avail, erased)
+    return ("plain", tuple(rows)) if sched is None \
+        else ("schedule", sched.static)
+
+
+def _packet_ref(x, kind, key, w, ps):
+    if kind == "plain":
+        return apply_bitmatrix_torch(x, key, w, ps)
+    return apply_bitmatrix_xor_torch(x, key, w, ps)
+
+
+def _forced(x, r, w, ps, kind, key, unit, groups):
+    """One launch of the packet kernel under a plan of the given unit and
+    row groups."""
+    dev = x.device
+    n, extra = gf_kernels.packet_slots(kind, key, x.shape[-2] * w, w)(groups)
+    batch, c = x.shape[0], x.shape[-1]
+    plan = gf_kernels._packet_grid(batch * (c // (w * ps)) * (ps // unit),
+                                   unit, groups, n, extra,
+                                   gf_kernels._device_limits(dev.index))
+    out = gf_kernels._packet_launch(x, r, w, ps, kind, key, x.shape[-2] * w,
+                                    plan=plan)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("unit", [16, 8, 4, 1])
+@pytest.mark.parametrize("groups", [1, 3, 8])
+def test_packet_kernel_every_unit_and_group(cuda_device, unit, groups):
+    """The cauchy_good encode, plain and scheduled, and its decode (3, 9)
+    under every unit width and 1, 3 and 8 row groups, at 4 stripes of 32
+    KiB (several units per thread where the grid is small), against the
+    plain versions."""
+    ec = _cauchy_good()
+    rng = np.random.default_rng(unit * 10 + groups)
+    ps = 2048
+    x = torch.from_numpy(rng.integers(0, 256, (4, 11, 2 * 8 * ps),
+                                      dtype=np.uint8)).to(cuda_device)
+    cases = [("plain", ec._bitmatrix_static, x[:, :8], 3),
+             ("schedule", ec._encode_sched.static, x[:, :8], 3),
+             (*_cauchy_decode(ec, (3, 9)), x[:, 1:9], 2)]
+    for kind, key, xs, r in cases:
+        got = _forced(xs, r, 8, ps, kind, key, unit, groups)
+        assert torch.equal(got, _packet_ref(xs, kind, key, 8, ps)), kind
+
+
+@pytest.mark.parametrize("w,ps", [(7, 32), (6, 8), (8, 12), (5, 3)])
+def test_packet_kernel_small_packets_under_forced_plans(cuda_device, w, ps):
+    """Random bitmatrices at small packet sizes: every unit the packet
+    size allows, 1 and 2 row groups."""
+    rng = np.random.default_rng(w * ps)
+    s, r = 5, 2
+    bm = _bitmatrix(rng, r, s, w)
+    rows = bitmatrix_to_static(bm)
+    sched = probe_bitmatrix_schedule(rows, w)
+    x = torch.from_numpy(rng.integers(0, 256, (3, s, 6 * w * ps),
+                                      dtype=np.uint8)).to(cuda_device)
+    cases = [("plain", rows)] + ([] if sched is None
+                                 else [("schedule", sched.static)])
+    for unit in (16, 8, 4, 1):
+        if ps % unit:
+            continue
+        for groups in (1, 2):
+            for kind, key in cases:
+                got = _forced(x, r, w, ps, kind, key, unit, groups)
+                assert torch.equal(got, _packet_ref(x, kind, key, w, ps)), \
+                    (kind, unit, groups)
+
+
+@pytest.mark.parametrize("w,ps,s,unit", [(7, 32, 7, 16), (8, 2048, 8, 8),
+                                         (8, 12, 7, 4), (5, 3, 7, 1)])
+def test_packet_wrappers_take_every_unit_width(cuda_device, w, ps, s, unit):
+    """Each unit width through the wrappers, at the packet size (and
+    inputs) that select it (64 stripes of s random chunks, 16384 // ps
+    blocks each): the plan takes ``unit`` for the plain product, and both
+    products equal their plain versions in one launch each."""
+    rng = np.random.default_rng(w * ps + unit)
+    r = 2
+    rows = bitmatrix_to_static(_bitmatrix(rng, r, s, w))
+    c = 16384 // ps * w * ps
+    x = torch.from_numpy(rng.integers(0, 256, (64, s, c),
+                                      dtype=np.uint8)).to(cuda_device)
+    plan = gf_kernels.packet_launch_plan(x, r, w, ps, "plain", rows, s * w)
+    assert plan.unit == unit, plan
+    sched = probe_bitmatrix_schedule(rows, w)
+    cases = [("plain", rows, apply_bitmatrix_cuda)]
+    if sched is not None:
+        cases.append(("schedule", sched.static, apply_bitmatrix_xor_cuda))
+    for kind, key, wrapper in cases:
+        before = wrapper.launches
+        got = wrapper(x, key, w, ps)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got, _packet_ref(x, kind, key, w, ps)), kind
+
+
+@pytest.mark.parametrize("batch", [4, 64])
+def test_packet_plan_spreads_rows_at_small_batches(cuda_device, batch):
+    """The plan takes one row group at 64 stripes and more at 4 (the
+    units alone do not fill a wave); every sampled cauchy_good decode
+    equals the plain version in one launch."""
+    ec = _cauchy_good()
+    rng = np.random.default_rng(batch)
+    full = torch.from_numpy(rng.integers(0, 256, (batch, 11, 131072),
+                                         dtype=np.uint8)).to(cuda_device)
+    for erased in ((3,), (3, 9), (0, 10), (5, 6, 7), (8, 9, 10)):
+        kind, key = _cauchy_decode(ec, erased)
+        avail = [i for i in range(11) if i not in erased]
+        x = full[:, avail][:, :8]
+        r = len(erased)
+        plan = gf_kernels.packet_launch_plan(x, r, 8, 2048, kind, key, 64)
+        assert (plan.groups == 1) == (batch == 64), plan
+        wrapper = apply_bitmatrix_cuda if kind == "plain" \
+            else apply_bitmatrix_xor_cuda
+        before = wrapper.launches
+        got = wrapper(x, key, 8, 2048)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got, _packet_ref(x, kind, key, 8, 2048)), erased
+
+
 @pytest.mark.parametrize("profile", [
     {"technique": "cauchy_good", "k": "8", "m": "3", "packetsize": "2048"},
     {"technique": "liberation", "k": "7", "w": "7"},
