@@ -112,6 +112,29 @@ class XorSchedule:
     dense_vpu_ops: int       # modeled cost of the dense kernel
     transform: str           # "cse" | "ring" | "bitcse"
 
+    @property
+    def reduction_ratio(self):
+        """Dense-model ops per scheduled op (>= 1.0 when scheduling
+        pays; the bench decode rows record it).  None for a zero-op
+        schedule (pure copies: inf is not valid JSON)."""
+        if not self.vpu_ops:
+            return None
+        return round(self.dense_vpu_ops / self.vpu_ops, 3)
+
+    def stats(self) -> dict:
+        """The schedule's cost model, as the bench decode rows print it."""
+        return {
+            "transform": self.transform,
+            "len": self.n_ops,
+            "xor_ops": self.xor_ops,
+            "plane_ops": self.plane_ops,
+            "vpu_ops": self.vpu_ops,
+            "naive_xor_ops": self.naive_xor_ops,
+            "dense_gf_ops": self.dense_gf_ops,
+            "dense_vpu_ops": self.dense_vpu_ops,
+            "reduction_ratio": self.reduction_ratio,
+        }
+
 
 class _Emitter:
     """Accumulates ops + node ids with the cost model attached."""

@@ -9,10 +9,13 @@ unified metrics plane and causal tracing, the parts of
                   reference's compile monitor.
 - ``spans``     — deterministic, clock-injectable span trees.
 - ``tracing``   — per-request causal traces, off unless asked for.
+- ``analyzer``  — the critical-path analyzer over the traces: segment
+                  decomposition, tail attribution, timeline export (a
+                  copy).
 
 Host-side only: nothing here touches a device.  Not ported yet: the
-flight recorder, the program profiler, the analyzer and the dump
-schema (ROADMAP Queue A item 10).
+flight recorder, the program profiler and the dump schema (ROADMAP
+Queue A item 6).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Causal tracing plane — per-request trace propagation across the
 serving seams.
 
-A copy of ``ceph_tpu/telemetry/tracing.py`` (its analyzer-backed
-selftest waits for ``telemetry/analyzer.py``):
+A copy of ``ceph_tpu/telemetry/tracing.py`` without its selftest;
+``telemetry/analyzer.py`` reads the dumps:
 
 - A :class:`TraceContext` is minted at serve admission
   (serve/queue.py::AdmissionQueue.submit) and rides the request through

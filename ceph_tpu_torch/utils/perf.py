@@ -1,7 +1,8 @@
 """Perf counters — src/common/perf_counters.{h,cc} role.
 
 The same named-counter registry as ``ceph_tpu.utils.perf`` (u64
-``inc``, time-average ``tinc``, gauges), without the JAX profiler hook.
+``inc``, time-average ``tinc``, gauges), and :func:`profile_trace`, a
+``torch.profiler`` trace in place of the JAX profiler hook.
 The codec mixins count host and device calls and bytes here
 (``ec_host_calls``, ``ec_device_calls``, ...); ``dump()`` returns the
 JSON-shaped dict the reference's ``perf dump`` emits.
@@ -10,8 +11,9 @@ JSON-shaped dict the reference's ``perf dump`` emits.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 from .locks import make_lock
 
@@ -92,3 +94,23 @@ _GLOBAL = PerfCounters()
 def global_perf() -> PerfCounters:
     """The process-wide registry (the per-CephContext singleton role)."""
     return _GLOBAL
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """No-op when ``log_dir`` is falsy, else records a ``torch.profiler``
+    trace of the block (host, and the card's kernels where there is a
+    card) into ``log_dir/trace.json`` (Chrome trace format)."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

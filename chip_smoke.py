@@ -146,7 +146,25 @@ source, all started together) and then, in order:
    host issue per call of clay's encode and decode entry points, and the
    host time of the clay composite probes.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``.
+5. runs the bench line's rows (``ceph_tpu_torch/bench/bench_line.py``)
+   through ``ErasureCodeBench`` in this process with ``--json --device
+   cuda``, each with the launch counters at 0 just before it and read
+   just after: the four headline encode candidates (packed/slice,
+   packed/carry, bytes/carry at ``--batch 64 --loop 1024``, the resident
+   per-call run), the three decode rows (RS k=8 m=3 e=2, shec k=6 m=3
+   c=2 e=1, clay k=8 m=4 d=11 e=1) and the two serving rows (256
+   requests of 64 KiB, dense and paged).  Every row must launch a kernel
+   and report ``platform: "gpu"``; each --loop row's configuration runs
+   once more at an odd number of steps (15 encodes, 7 decodes), its
+   carry held byte for byte to the numpy tier's outputs XORed over the
+   same slabs (at an even count the carry cancels whatever the step
+   computes); the serving rows must verify with no kernel setup after
+   warmup; the profiler's device time per chain step is printed beside
+   each row's GB/s; ``non_regression.check`` runs every corpus entry on
+   the card with 0 errors.  It prints one ``{"bench": {...}}`` line.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``,
+after the ``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
 result.  Without a CUDA device, or without the package beside it, it
 exits non-zero before printing anything to standard output.
@@ -157,6 +175,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -297,6 +316,179 @@ def drive(name: str, counts, reset, fn, need) -> dict:
         check(got[kernel] >= 1, f"{kernel} launched on the {name} path")
     print(f"phase 3: {name} path ok; launches {got}")
     return got
+
+
+def _host_truth(bench_argv: list, slabs, packed: bool, pattern=None):
+    """The XOR over the slabs of each slab's output from the numpy tier
+    (``--device host``): the ground truth of an odd-step carry."""
+    import numpy as np
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.ops.gf_kernels import unpack_chunks
+    host = ErasureCodeBench()
+    host.setup(list(bench_argv) + ["--device", "host", "--layout", "bytes"])
+    ec = host._instance()
+    truth = None
+    for slab in slabs:
+        x = np.ascontiguousarray(
+            (unpack_chunks(slab) if packed else slab).cpu().numpy())
+        out = (ec.decode_chunks_batch(x, *pattern) if pattern
+               else ec.encode_chunks_batch(x))
+        truth = out if truth is None else truth ^ out
+    return truth
+
+
+def _chain(argv: list, kind: str):
+    """(bench, code, input bytes per step, (available, erased) or None,
+    chained, slabs) of one --loop configuration."""
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    bench = ErasureCodeBench()
+    bench.setup(argv)
+    if kind == "encode":
+        ec = bench._instance()
+        data = bench._make_batch(ec)
+        return (bench, ec, data.nbytes, None) + bench._encode_chain(ec, data)
+    ec, data, allchunks, pats = bench._decode_setup()
+    n = ec.get_chunk_count()
+    pattern = (tuple(i for i in range(n) if i not in pats[0]), pats[0])
+    return (bench, ec, data.nbytes, pattern) + bench._decode_chain(
+        ec, allchunks, *pattern)
+
+
+def bench_phase(kernel_ms) -> dict:
+    """Phase 5: the bench line's rows (``ceph_tpu_torch.bench.bench_line``)
+    through ``ErasureCodeBench`` in this process, ``--json --device
+    cuda``, each with the launch counters at 0 just before it and read
+    just after (every row must launch a kernel and report the card);
+    each --loop row's configuration once more at an odd number of steps
+    (15 encodes over 15 slabs, 7 decodes over 7: at an even count the
+    carry cancels whatever the step computes), its carry held byte for
+    byte to the numpy tier's outputs XORed over the same slabs (a slice
+    chain's one-element carry, and the carry chain of the same
+    configuration); the profiler's device time per step of the row's
+    chain (every kernel of a step, the carry's XOR included) beside the
+    row's GB/s; the per-call row's parity and device time per call; the
+    serving rows verified with no kernel setup after warmup; and the
+    corpus check on the card with 0 errors.  Returns the ``{"bench":
+    ...}`` blob."""
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.bench import bench_line, non_regression
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.ops.gf_kernels import unpack_chunks
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.serve import verify_results
+
+    rows = {}
+    truths = {}
+    for kind, table in (("encode", bench_line.ENCODE_ROWS),
+                        ("decode", bench_line.DECODE_ROWS),
+                        ("serving", bench_line.SERVING_ROWS)):
+        for name, argv in table:
+            bench = ErasureCodeBench()
+            bench.setup(list(argv) + ["--json"])
+            reset_launch_counts()
+            res = bench.run()
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            check(sum(got.values()) >= 1,
+                  f"bench row {name} launched a kernel")
+            check(res["platform"] == "gpu" and res["device"] == "cuda",
+                  f"bench row {name} ran on the card")
+            row = {"gbps": res["gbps"], "seconds": res["seconds"],
+                   "total_bytes": res["total_bytes"], "launches": got,
+                   "lat_p50_ms": res.get("lat_p50_ms"),
+                   "lat_p99_ms": res.get("lat_p99_ms")}
+            rows[name] = row
+            print(f"phase 5: {name}: {res['gbps']:.6f} GB/s in "
+                  f"{res['seconds']:.6f} s, launches {got}")
+            if kind == "serving":
+                check(res["stream_compiles"] == 0,
+                      f"{name}: no kernel setup after warmup "
+                      f"({res['stream_compiles']})")
+                check(verify_results(bench.last_run.results) == [],
+                      f"{name}: every request verifies")
+                if res["paged"]:
+                    check(res["page_pool"]["used_pages"] == 0,
+                          f"{name}: the pools drained")
+                for f in ("gbps_under_slo", "deadline_miss_rate",
+                          "padding_overhead", "requests", "dispatches",
+                          "stream_compiles"):
+                    row[f] = res[f]
+                continue
+            if kind == "decode":
+                row["engine"] = res["engine"]
+            if not res["loop"]:
+                # the resident per-call row: one call's parity against
+                # the numpy tier, and its device time per call
+                ec = bench._instance()
+                data = bench._make_batch(ec)
+                on_card = torch.from_numpy(data).cuda()
+                out = ec.encode_chunks_torch(on_card).cpu().numpy()
+                check(np.array_equal(out, _host_truth(
+                    list(argv), [torch.from_numpy(data)], False)),
+                    f"{name}: parity equals the numpy tier's")
+                step_ms = kernel_ms(lambda: ec.encode_chunks_torch(on_card),
+                                    "", iters=20)
+                in_bytes = data.nbytes
+            else:
+                steps = 15 if kind == "encode" else 7
+                odd, ec, in_bytes, pattern, chained, slabs = _chain(
+                    list(argv) + ["--loop", str(steps)], kind)
+                packed = odd.args.layout == "packed"
+                check(slabs.shape[0] == steps, f"{name}: {steps} slabs")
+                key = (kind, odd.args.layout, name if kind == "decode"
+                       else "")
+                if key not in truths:
+                    truths[key] = _host_truth(list(argv), slabs, packed,
+                                              pattern)
+                truth = truths[key]
+                check(truth.any(), f"{name}: the odd-step truth is zero")
+                if odd.args.chain == "slice":
+                    carry = chained(slabs)
+                    got1 = carry.reshape(1).view(torch.uint8).cpu().numpy()
+                    check(np.array_equal(got1, truth.reshape(-1)[
+                        :got1.size]), f"{name}: the slice carry at {steps} "
+                                      f"steps equals the numpy tier's")
+                _, _, _, _, full, slabs = _chain(
+                    list(argv) + ["--loop", str(steps), "--chain", "carry"],
+                    kind)
+                carry = full(slabs)
+                check(np.array_equal(
+                    (unpack_chunks(carry) if packed else carry).cpu().numpy(),
+                    truth), f"{name}: the carry at {steps} steps equals "
+                            f"the numpy tier's, byte for byte")
+                dev_ms = kernel_ms(lambda: chained(slabs), "", iters=3)
+                step_ms = None if dev_ms is None else dev_ms / steps
+                row["odd_steps_checked"] = steps
+            row["device_ms_per_step"] = step_ms
+            row["device_implied_gbps"] = (None if not step_ms
+                                          else in_bytes / step_ms / 1e6)
+            print(f"phase 5: {name}: bytes equal the numpy tier's; device "
+                  f"time per step " + (
+                      "not measured" if step_ms is None else
+                      f"{step_ms:.6f} ms (every kernel of a step), "
+                      f"{row['device_implied_gbps']:.6f} GB/s if the card "
+                      f"never waited; the row's {res['gbps']:.6f} GB/s is "
+                      f"{res['gbps'] / row['device_implied_gbps']:.4f} "
+                      f"of it"))
+
+    reset_launch_counts()
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "corpus")
+    dirs = non_regression.corpus_dirs(corpus)
+    errors = []
+    for d in dirs:
+        errors.extend(non_regression.check(d, device="cuda"))
+    torch.cuda.synchronize()
+    corpus_launches = sum(launch_counts().values())
+    for e in errors:
+        print(f"phase 5: corpus: {e}")
+    check(not errors, f"corpus check: {len(errors)} errors")
+    check(corpus_launches >= 1, "the corpus check launched a kernel")
+    print(f"phase 5: corpus check on the card: {len(dirs)} entries, 0 "
+          f"errors, {corpus_launches} kernel launches")
+    return {"rows": rows, "corpus": {"entries": len(dirs), "errors": 0,
+                                     "launches": corpus_launches}}
 
 
 def main(argv=None) -> int:
@@ -2047,6 +2239,8 @@ def main(argv=None) -> int:
             "max_abs_err": err[name], "ms": t, "plain_ms": tp,
             "bound_ms": b, "bound_by": b_by, "library_ms": lib_t,
             "ok": True})
+    # -- phase 5: the bench line's rows and the corpus, on the card ---------
+    print(json.dumps({"bench": bench_phase(kernel_ms)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

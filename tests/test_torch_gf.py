@@ -183,6 +183,11 @@ def test_importing_port_loads_no_jax_or_ceph_tpu_module():
         "import ceph_tpu_torch.ops._build\n"
         "import ceph_tpu_torch.codes.engine\n"
         "import ceph_tpu_torch.codes.stripe\n"
+        "import ceph_tpu_torch.bench.erasure_code_benchmark\n"
+        "import ceph_tpu_torch.bench.bench_line\n"
+        "import ceph_tpu_torch.bench.non_regression\n"
+        "import ceph_tpu_torch.bench.erasure_code_tool\n"
+        "import ceph_tpu_torch.telemetry.analyzer\n"
         "import ceph_tpu_torch.serve\n"
         "import ceph_tpu_torch.scenario.runner\n"
         "import ceph_tpu_torch.telemetry\n"
