@@ -23,8 +23,13 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
 - ``serve``, ``scenario`` — the paged (and dense) serving plane: the
   admission queue, the continuous batcher, the paged stripe pool, the
   SLO ledger, the load generator and its event loop.
+- ``crush`` — CRUSH placement: the host mapper and map forms (copies of
+  the reference's), the OSDMap pipeline, the upmap balancer, EC pool
+  creation, and the bulk evaluator (eager torch on the card);
+  ``bench`` holds the ``crushtool`` and ``osdmaptool`` CLIs beside the
+  erasure-code benchmark.
 - ``telemetry``, ``utils`` — metrics, spans, causal tracing, histograms;
-  clocks, logging, locks, errors.
+  clocks, logging, locks, errors, the erasure-code profile store.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).

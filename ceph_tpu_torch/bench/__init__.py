@@ -9,7 +9,10 @@
   encode, decode and serving rows.
 - ``non_regression`` — the byte-stability corpus check.
 - ``erasure_code_tool`` — the ``ceph_erasure_code`` CLI.
+- ``crushtool`` — the ``crushtool`` CLI (``--test`` sweeps on the bulk
+  evaluator, ``--device cuda|cpu``).
+- ``osdmaptool`` — the ``osdmaptool`` CLI (``--test-map-pgs``,
+  ``--upmap``, ``--createsimple``, ``--print``, ``--create-ec-pool``).
 
-Not ported yet: ``crushtool``, ``osdmaptool`` (ROADMAP Queue A item 3)
-and ``sweep`` (item 7).
+Not ported yet: ``sweep`` (ROADMAP Queue A item 7).
 """

@@ -12,8 +12,8 @@ Mirrors src/erasure-code/ErasureCode.{h,cc} -> class ErasureCode, as
 
 Every code instance has a ``device``: the card unless the caller asks
 for the CPU (``device="cpu"``); asking for the card on a host without
-one raises (ops/fallback.py::resolve_device).  ``create_rule`` (the
-CRUSH placement rule) is not ported yet.
+one raises (ops/fallback.py::resolve_device).  ``create_rule`` emits
+the code's CRUSH placement rule through the port's ``crush.builder``.
 """
 
 from __future__ import annotations
@@ -52,6 +52,32 @@ class ErasureCode(ErasureCodeInterface):
 
     def get_profile(self) -> ErasureCodeProfile:
         return self._profile
+
+    # -- placement rule (ErasureCode.cc -> create_ruleset default) ----------
+
+    def create_rule(self, builder, rule_id=None, name: str = ""):
+        """ErasureCode.cc -> ErasureCode::create_ruleset (default):
+        emit the canonical erasure rule for this profile into
+        ``builder`` (CrushBuilder, the CrushWrapper analog) and return
+        its id — set_chooseleaf_tries 5, set_choose_tries 100, take
+        crush-root[~crush-device-class], chooseleaf indep 0 over
+        crush-failure-domain, emit (the well-known EC rule shape
+        CrushWrapper::add_simple_rule produces for mode "indep").
+        Plugins with their own placement geometry override this (lrc's
+        locality rule)."""
+        from ..crush.types import step_chooseleaf_indep
+        profile = self._profile
+        fd = profile.get("crush-failure-domain", "host")
+        try:
+            fd_type = builder.type_id(fd)
+        except KeyError:
+            raise ValueError(
+                f"crush-failure-domain type {fd!r} not in map") from None
+        return builder.add_erasure_rule(
+            profile.get("crush-root", "default"),
+            [step_chooseleaf_indep(0, fd_type)],
+            rule_id=rule_id, name=name,
+            device_class=profile.get("crush-device-class", ""))
 
     @staticmethod
     def to_int(name: str, profile: ErasureCodeProfile, default: str) -> int:

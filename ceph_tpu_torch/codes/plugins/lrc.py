@@ -20,8 +20,7 @@ Mirrors src/erasure-code/lrc/ErasureCodeLrc.{h,cc} + ErasureCodePluginLrc.cc:
 - ``crush-locality`` / ``crush-failure-domain`` / ``crush-root`` /
   ``crush-device-class`` / ``crush-steps`` are parsed and stored for the
   placement side; the coding math ignores them, as upstream does.
-  ``create_rule`` (emitting the CRUSH rule) waits for CRUSH, ROADMAP
-  Queue A item 7, as ``base.create_rule`` does.
+  ``create_rule`` emits the CRUSH rule they describe.
 - minimum_to_decode prefers the smallest layer that covers the erasure
   (single-chunk repairs read l chunks instead of k); decode iterates
   layers to a fixpoint, repairing whatever each layer can with the
@@ -116,7 +115,7 @@ class ErasureCodeLrc(_DeviceCode, ErasureCode):
                        l: Optional[int]) -> None:
         """ErasureCodeLrc.cc -> parse_ruleset / parse_kml's rule-step
         derivation: store the crush-* placement keys and the rule-step
-        program a CRUSH rule would emit (create_rule is not ported yet).
+        program create_rule() will emit.
 
         - default: one chooseleaf indep 0 over crush-failure-domain;
         - kml + crush-locality: choose indep <groups> over the locality
@@ -150,6 +149,31 @@ class ErasureCodeLrc(_DeviceCode, ErasureCode):
                                ("chooseleaf", fd, l + 1)]
         else:
             self.rule_steps = [("chooseleaf", fd, 0)]
+
+    def create_rule(self, builder, rule_id: Optional[int] = None,
+                    name: str = "") -> int:
+        """ErasureCodeLrc.cc -> create_ruleset: emit the CRUSH rule the
+        stored crush-* keys describe into ``builder`` (CrushBuilder, the
+        CrushWrapper analog) and return its id.
+
+        Shape matches the reference: set_chooseleaf_tries 5,
+        set_choose_tries 100, take <crush-root[~class]>, then one
+        choose/chooseleaf INDEP step per rule step (erasure rules place
+        positionally), emit."""
+        from ...crush.types import step_choose_indep, step_chooseleaf_indep
+        choose_steps = []
+        for op, type_name, n in self.rule_steps:
+            try:
+                t = builder.type_id(type_name)
+            except KeyError:
+                raise ValueError(
+                    f"bucket type {type_name!r} not in map "
+                    f"(ERROR_LRC_RULESET_TYPE)") from None
+            choose_steps.append(step_choose_indep(n, t) if op == "choose"
+                                else step_chooseleaf_indep(n, t))
+        return builder.add_erasure_rule(
+            self.rule_root, choose_steps, rule_id=rule_id,
+            name=name or "lrc", device_class=self.rule_device_class)
 
     @staticmethod
     def _parse_layers_json(text: str) -> List[Tuple[str, str]]:

@@ -163,6 +163,34 @@ source, all started together) and then, in order:
    each row's GB/s; ``non_regression.check`` runs every corpus entry on
    the card with 0 errors.  It prints one ``{"bench": {...}}`` line.
 
+6. CRUSH on the card (``ceph_tpu_torch/crush/bulk.py``, eager torch, no
+   kernel of its own): three rows through ``crushtool.main([...,
+   "--test", "--engine", "bulk", "--device", "cuda",
+   "--show-statistics"])`` over x in 0..999999 — A: ``--build-two-level
+   8 4`` (32 OSDs, straw2), rule 0 (``chooseleaf firstn`` host),
+   ``--num-rep 3``; B: the same map with the canonical EC rule
+   (``add_erasure_rule``: set_chooseleaf_tries 5, set_choose_tries 100,
+   take root, chooseleaf indep 0 host, emit), ``--num-rep 6``; C:
+   ``--build-two-level 100 12`` (1200 OSDs) with the rule the port's
+   ``create_rule`` emits for jerasure reed_sol_van k=8 m=3,
+   crush-failure-domain=host, ``--num-rep 11``.  Each row prints its
+   mappings/s and host-residue lanes, and from one profiled sweep
+   (``torch.profiler``, the card's events only) the device time, kernel
+   launches and host syncs per block, the card's busy share and the
+   peak memory above what was allocated before the sweep; the card's
+   rows must equal the host mapper on a seeded sample (1000 x; 500 on
+   row C, whose Python mapper takes ~0.1 s an x) plus every lane the
+   first rung flagged and every lane of the host residue, the CPU
+   evaluator (``device="cpu"``) on x < 16384 and the flagged lanes, and
+   the profiled sweep's per-device counts those of the crushtool sweep.
+   The host mapper runs in CRUSH_PROCS spawned processes beside the
+   card's later rows; its verdicts are read after the last row.  Then,
+   on row C's map, ``osdmaptool --create-ec-pool`` makes a k=8 m=3 pool
+   with ``--pg-num 16384`` (1200 OSDs x 100 PGs per OSD / 11 shards,
+   rounded up to a power of two), ``--test-map-pgs`` runs on the card
+   and its arrays must equal the host engine's on a 500-PG sample, and
+   ``--upmap --upmap-max 100`` runs, its moves and deviation printed.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
@@ -200,6 +228,25 @@ CLAY = {"k": "8", "m": "4", "d": "11"}        # the reference's clay mix
 ROOF_MIB, ROOF_LOOP = 64, 64                  # the roofline tool's defaults
 WORDS = 65536                                 # w=16/32 words per chunk
 SRC = "ceph_tpu_torch/ops/csrc/"
+# phase 6: CRUSH rows over x in 0..CRUSH_X-1; seeded host-mapper samples
+# per row (row C's mapper takes ~0.1 s an x on one core), beside every
+# lane the first rung flags (~10 % of row A's lanes at ~7 ms each, ~5 %
+# of row B's at ~23 ms), spread over CRUSH_PROCS processes; the CPU
+# evaluator's x; the EC pool
+CRUSH_X, CRUSH_CPU_X, CRUSH_PROCS = 1_000_000, 16384, 8
+CRUSH_SAMPLE = {"A": 1000, "B": 1000, "C": 500}
+EC_PG_NUM, EC_PG_SAMPLE = 16384, 500
+EC_PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3",
+              "crush-failure-domain": "host", "crush-root": "root"}
+CRUSH_WORK = "chip_smoke_work"
+# INT32 instructions per straw2 draw on sm_90: hash32_3 is 5 mixes of 9
+# steps, each an IADD3 (a - b - c), a SHF and a LOP3 (the xor), plus two
+# LOP3 for seed ^ a ^ b ^ c; the 16-bit mask; the 64-bit divide of a
+# numerator below 2^49 by a 32-bit weight (no integer divider: a
+# reciprocal estimate and two 64-bit multiply-subtract corrections,
+# about 24 instructions, an estimate, not read from SASS); the argmin's
+# 64-bit compare and select (4)
+STRAW2_DRAW_OPS = 5 * 9 * 3 + 2 + 1 + 24 + 4
 
 # the serving stream: 512 closed-loop requests, 64 in flight; RS k=8 m=3
 # at 64 KiB (the bench serving row's size), 1 MiB (the north-star stripe)
@@ -491,11 +538,307 @@ def bench_phase(kernel_ms) -> dict:
                                      "launches": corpus_launches}}
 
 
+def _host_rows(job):
+    """Host-mapper rows of ``xs`` (a worker of ``host_rows``)."""
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    cmap, ruleno, xs, num_rep = job
+    rows = [crush_do_rule(cmap, ruleno, int(x), num_rep) for x in xs]
+    return [r + [0x7FFFFFFF] * (num_rep - len(r)) for r in rows]
+
+
+def _host_pgs(job):
+    """pg_to_up_acting_osds of each ps (a worker of ``host_rows``)."""
+    m, pool_id, pss = job
+    return [m.pg_to_up_acting_osds(pool_id, int(ps)) for ps in pss]
+
+
+def host_rows(pool, worker, make_job, items):
+    """Start ``worker`` over ``items`` on ``pool``'s processes (the
+    pure-Python host mapper); returns a function that waits for the
+    rows, in order."""
+    import numpy as np
+    parts = [p for p in np.array_split(np.asarray(items), 4 * CRUSH_PROCS)
+             if len(p)]
+    pending = pool.map_async(worker, [make_job(p) for p in parts])
+    return lambda: [row for part in pending.get() for row in part]
+
+
+def device_time(prof) -> tuple[float, int, dict]:
+    """(device ms, kernel launches, ms by kind) of a profiler trace: the
+    summed durations of the card's events, how many were kernels, and
+    the time of each kind (the kernel's name up to its template
+    arguments)."""
+    from torch.autograd import DeviceType
+    ms, launches, kinds = 0.0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        t = e.duration_ns() / 1e6
+        ms += t
+        name = e.name()
+        if not (name.startswith("Memcpy") or name.startswith("Memset")):
+            launches += 1
+        kind = name.split("<")[0].split("(")[0].strip()[-60:]
+        kinds[kind] = kinds.get(kind, 0.0) + t
+    return ms, launches, kinds
+
+
+def crush_phase(seed: int, err: "Errors") -> dict:
+    """Phase 6 (the module docstring): CRUSH rows A-C and the OSDMap
+    steps on the card."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ceph_tpu_torch.bench import crushtool, osdmaptool
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.crush.balancer import calc_pg_upmaps
+    from ceph_tpu_torch.crush.builder import CrushBuilder
+    from ceph_tpu_torch.crush.osdmap import OSDMap
+    from ceph_tpu_torch.crush.text_compiler import decompile_text
+    from ceph_tpu_torch.crush.types import step_chooseleaf_indep
+    from ceph_tpu_torch.utils.perf import global_perf
+
+    perf = global_perf()
+    rng = np.random.default_rng(seed)
+    work = os.path.abspath(CRUSH_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def run(tool, argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(argv)
+        check(rc == 0, f"{tool.__name__} {argv}: rc {rc}")
+        return buf.getvalue()
+
+    def two_level(hosts: int, devs: int):
+        path = os.path.join(work, f"two_level_{hosts}x{devs}.txt")
+        run(crushtool, ["--build-two-level", str(hosts), str(devs),
+                        "-o", path])
+        return CrushBuilder.from_map(crushtool.read_map(path))
+
+    def write(b, name: str) -> str:
+        path = os.path.join(work, name)
+        with open(path, "w") as f:
+            f.write(decompile_text(b.map))
+        return path
+
+    b_a = two_level(8, 4)
+    b_b = two_level(8, 4)
+    rule_b = b_b.add_erasure_rule(
+        "root", [step_chooseleaf_indep(0, b_b.type_id("host"))],
+        name="ec_canonical")
+    b_c = two_level(100, 12)
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", dict(EC_PROFILE), device="cuda")
+    rule_c = ec.create_rule(b_c, name="ec_k8_m3")
+    span = ["--min-x", "0", "--max-x", str(CRUSH_X - 1), "--show-statistics",
+            "--engine", "bulk", "--device", "cuda"]
+    rows = [("A", ["--build-two-level", "8", "4", "--rule", "0",
+                   "--num-rep", "3"], b_a.map, 0, 3),
+            ("B", ["-i", write(b_b, "row_b.txt"), "--rule", str(rule_b),
+                   "--num-rep", "6"], b_b.map, rule_b, 6),
+            ("C", ["-i", write(b_c, "row_c.txt"), "--rule", str(rule_c),
+                   "--num-rep", "11"], b_c.map, rule_c, 11)]
+    print(f"phase 6: {torch.cuda.get_device_name(0)}; x in 0..{CRUSH_X - 1};"
+          " host-mapper samples "
+          + ", ".join(f"{k} {v}" for k, v in CRUSH_SAMPLE.items())
+          + " x, with every flagged and residue lane; CPU evaluator on x <"
+          f" {CRUSH_CPU_X} and the flagged lanes; {CRUSH_PROCS} host "
+          "processes")
+    result, waits = {}, []
+    xs = np.arange(CRUSH_X)
+    with multiprocessing.get_context("spawn").Pool(CRUSH_PROCS) as pool:
+        t_host = time.perf_counter()
+        for name, argv, cmap, rule, nrep in rows:
+            # the user's entry point: crushtool's warm sweep, then its
+            # timed one
+            lanes0 = perf.get("crush_bulk_host_lanes")
+            t0 = time.perf_counter()
+            text = run(crushtool, argv + ["--test"] + span)
+            tool_s = time.perf_counter() - t0
+            residue = perf.get("crush_bulk_host_lanes") - lanes0
+            head = text.splitlines()[0]
+            check(f"num_mappings {CRUSH_X} (bulk," in head, head)
+            rate = float(head.split("(bulk, ")[1].split(" ")[0]
+                         .replace(",", ""))
+            tool_counts = {int(ln.split()[1].rstrip(":")): int(ln.split()[2])
+                           for ln in text.splitlines()
+                           if ln.startswith("  device ")}
+            check(text.rstrip().endswith("bad mappings: 0"),
+                  f"row {name}: {text.splitlines()[-1]}")
+            # one profiled sweep on a map compiled alike; its peak memory
+            # counts from what was allocated before the map was compiled
+            syncs0 = perf.get("crush_bulk_host_syncs")
+            blocks0 = perf.get("crush_bulk_blocks")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            cm = bulk.CompiledCrushMap(cmap, device="cuda")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out, cnt, n_host = bulk.bulk_do_rule(cm, rule, xs, nrep,
+                                                     return_stats=True)
+                wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            syncs = perf.get("crush_bulk_host_syncs") - syncs0
+            blocks = perf.get("crush_bulk_blocks") - blocks0
+            dev_ms, launches, kinds = device_time(prof)
+            top = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
+            flagged = cm.last_flagged
+            devs, dcnt = np.unique(out[out != 0x7FFFFFFF],
+                                   return_counts=True)
+            check({int(d): int(c) for d, c in zip(devs, dcnt)}
+                  == tool_counts,
+                  f"row {name}: two sweeps give the same per-device counts")
+            # the card against the host mapper: a seeded sample, every
+            # lane the first rung flagged and every lane of the host
+            # residue, mapped in the pool while the card goes on
+            pick = np.union1d(np.union1d(
+                rng.choice(CRUSH_X, CRUSH_SAMPLE[name], replace=False),
+                flagged), cm.last_residue)
+            waits.append((name, pick, out[pick], host_rows(
+                pool, _host_rows, lambda p: (cmap, rule, p, nrep), pick)))
+            # the card against the CPU evaluator: x < CRUSH_CPU_X and
+            # every lane the first rung flagged
+            lanes = np.union1d(np.arange(CRUSH_CPU_X), flagged)
+            t0 = time.perf_counter()
+            cpu_out, cpu_cnt = bulk.bulk_do_rule(cmap, rule, xs[lanes], nrep,
+                                                 device="cpu")
+            cpu_s = time.perf_counter() - t0
+            err.hold(f"crush row {name} cpu", torch.from_numpy(out[lanes]),
+                     torch.from_numpy(cpu_out), f"row {name} vs the CPU")
+            check(np.array_equal(cnt[lanes], cpu_cnt), f"row {name} counts")
+            # the bound of the first rung's straw2 draws at the domain
+            # level: lanes x tries x replicas x the take bucket level's
+            # width
+            t1 = bulk.auto_ladder(cmap, rule, nrep,
+                                  bulk.auto_tries(cmap, rule, nrep))[0][0]
+            take = next(a1 for op, a1, _ in cmap.rules[rule].steps
+                        if op == 1)
+            draws = CRUSH_X * t1 * nrep * cm.width_at(
+                cm.level_of(cmap.buckets[take].type))
+            bound = draws * STRAW2_DRAW_OPS / INT32_OPS_PER_S * 1e3
+            row = {"mappings_per_s": rate, "crushtool_s": tool_s,
+                   "straw2_draws": draws, "straw2_bound_ms": bound,
+                   "residue_lanes_per_sweep": residue / 2,
+                   "profiled_wall_ms": wall, "device_ms": dev_ms,
+                   "busy": dev_ms / wall, "blocks": blocks,
+                   "launches_per_block": launches / max(blocks, 1),
+                   "host_syncs_per_block": syncs / max(blocks, 1),
+                   "peak_bytes": peak, "base_bytes": base,
+                   "profiled_host_lanes": n_host,
+                   "flagged": int(flagged.size), "host_sample": int(pick.size),
+                   "cpu_lanes": int(lanes.size), "cpu_s": cpu_s,
+                   "device_ms_by_kind": dict(top),
+                   "block_lanes": bulk.block_lanes(cm, rule, nrep, t1)}
+            result[name] = row
+            print(f"phase 6: row {name}: {rate:,.0f} mappings/s (crushtool, "
+                  f"{tool_s:.1f} s for both sweeps); residue "
+                  f"{residue / 2:g} lanes a sweep; profiled sweep {wall:.1f}"
+                  f" ms wall, {dev_ms:.1f} ms device (busy "
+                  f"{dev_ms / wall:.3f}), {blocks} blocks of "
+                  f"{row['block_lanes']} lanes, "
+                  f"{row['launches_per_block']:.0f} launches and "
+                  f"{row['host_syncs_per_block']:.1f} host syncs a block, "
+                  f"peak {peak / 2**30:.3f} GiB above {base / 2**30:.3f} "
+                  f"GiB held before; {flagged.size} lanes flagged; equal to"
+                  f" the CPU evaluator on {lanes.size} x ({cpu_s:.1f} s); "
+                  f"first rung: {draws:.4g} straw2 draws, bound "
+                  f"{bound:.3f} ms ({STRAW2_DRAW_OPS} INT32 ops a draw); "
+                  "device ms by kind: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in top))
+
+        # -- the OSDMap steps, on row C's map ----------------------------
+        plain_map = os.path.join(work, "osdmap_c.json")
+        with open(plain_map, "w") as f:
+            json.dump(osdmaptool.dump_osdmap(OSDMap(crush=b_c.map), []), f)
+        ec_map = os.path.join(work, "osdmap_c_ec.json")
+        prof_argv = []
+        for k, v in [("plugin", "jerasure")] + list(EC_PROFILE.items()):
+            prof_argv += ["--ec-profile", f"{k}={v}"]
+        print("phase 6: " + run(osdmaptool, [
+            plain_map, "--create-ec-pool", "ecpool", *prof_argv, "--pg-num",
+            str(EC_PG_NUM), "-o", ec_map, "--device", "cuda"]).strip())
+        t0 = time.perf_counter()
+        text = run(osdmaptool, [ec_map, "--test-map-pgs", "--device", "cuda"])
+        map_s = time.perf_counter() - t0
+        lines = text.splitlines()
+        print(f"phase 6: --test-map-pgs ({map_s:.1f} s): "
+              f"{lines[-2].strip()}; {lines[-1].strip()}")
+        m = osdmaptool.load_osdmap(ec_map)
+        m.device = "cuda"
+        pool_id = max(m.pools)
+        ec_pool = m.pools[pool_id]
+        check(ec_pool.size == 11 and ec_pool.pg_num == EC_PG_NUM
+              and ec_pool.erasure, f"pool {ec_pool}")
+        up, upp, act, actp = m.pg_to_up_acting_bulk(pool_id, engine="bulk")
+        pss = np.sort(rng.choice(EC_PG_NUM, EC_PG_SAMPLE, replace=False))
+        host_m = OSDMap(crush=m.crush, pools=m.pools, device="cpu")
+        pgs = host_rows(pool, _host_pgs, lambda p: (host_m, pool_id, p), pss)
+        out_path = os.path.join(work, "upmap.txt")
+        t0 = time.perf_counter()
+        text = run(osdmaptool, [ec_map, "--upmap", out_path, "--upmap-max",
+                                "100", "--device", "cuda"])
+        upmap_s = time.perf_counter() - t0
+        with open(out_path) as f:
+            moves = sum(ln.count(" ") - 3 for ln in f if ln.strip()) // 2
+        devs = []
+        m2 = osdmaptool.load_osdmap(ec_map)
+        m2.device = "cuda"
+        entries = calc_pg_upmaps(m2, pool_id, max_iterations=100,
+                                 on_iteration=lambda i, d: devs.append(
+                                     float(np.abs(d).max())))
+        check(len(entries) == len(open(out_path).read().splitlines()),
+              "the CLI's upmap entries and calc_pg_upmaps agree")
+        print(f"phase 6: --upmap ({upmap_s:.1f} s): {text.strip()}; {moves}"
+              f" moves; max |deviation| {devs[0]:.2f} -> {devs[-1]:.2f} "
+              f"PGs over {len(devs)} iterations")
+
+        # -- the host mapper's verdicts, in the order they were asked ----
+        for name, pick, got, rows_of in waits:
+            t0 = time.perf_counter()
+            want = np.asarray(rows_of(), dtype=np.int32)
+            err.hold(f"crush row {name} host", torch.from_numpy(got),
+                     torch.from_numpy(want), f"row {name} vs the host mapper")
+            result[name]["host_wait_s"] = time.perf_counter() - t0
+            print(f"phase 6: row {name}: equal to the host mapper on "
+                  f"{pick.size} x ({CRUSH_SAMPLE[name]} seeded, "
+                  f"{result[name]['flagged']} flagged, the residue); waited"
+                  f" {time.perf_counter() - t0:.1f} s for it")
+        got = pgs()
+        host_s = time.perf_counter() - t_host
+    want = np.asarray([u + [0x7FFFFFFF] * (up.shape[1] - len(u))
+                       for u, _, _, _ in got], dtype=np.int32)
+    err.hold("crush osdmap up", torch.from_numpy(up[pss]),
+             torch.from_numpy(want), "--test-map-pgs up vs the host engine")
+    check(all(int(upp[ps]) == p and int(actp[ps]) == ap
+              and list(act[ps][:len(a)]) == a
+              for ps, (_, p, a, ap) in zip(pss, got)),
+          "primaries and acting sets equal the host engine's")
+    print(f"phase 6: --test-map-pgs equal to the host engine on {pss.size} "
+          f"PGs; the host mapper's checks took {host_s:.1f} s from the "
+          "first row")
+    result["host_mapper_s"] = host_s
+    result["osdmap"] = {"pg_num": EC_PG_NUM, "test_map_pgs_s": map_s,
+                        "host_sample": int(pss.size),
+                        "upmap_s": upmap_s, "upmap_entries": len(entries),
+                        "moves": moves, "deviation": [devs[0], devs[-1]]}
+    shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random data (default 0)")
     args = ap.parse_args(argv)
+    seed = args.seed
 
     import numpy as np
     import torch
@@ -2241,6 +2584,8 @@ def main(argv=None) -> int:
             "ok": True})
     # -- phase 5: the bench line's rows and the corpus, on the card ---------
     print(json.dumps({"bench": bench_phase(kernel_ms)}))
+    # -- phase 6: CRUSH on the card ------------------------------------------
+    print(json.dumps({"crush": crush_phase(seed, err)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ packet-layout bitmatrix kernels (plain and scheduled), the XOR-schedule
 kernel (bytes and packed wrappers; the shec, lrc and reed_sol_r6_op
 paths that take it), the "mxu" row's column-walk kernel (bytes and
 packed, column splits, row tiles; the clay paths that take it)
-and the roofline tool's copy and fold kernels.  Every test here
+and the roofline tool's copy and fold kernels; and the CRUSH bulk
+evaluator (eager torch, no kernel of its own) and the crushtool /
+osdmaptool CLIs on the card against their CPU runs.  Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
 
@@ -898,3 +900,92 @@ def test_dense_table_variant_on_sparse_matrices(cuda_device, r, s):
     assert torch.equal(unpack_chunks(_one_launch(
         apply_matrix_cuda_packed, apply_matrix_cuda_packed, pack_chunks(x),
         ms)), want)
+
+
+# -- CRUSH: the bulk evaluator on the card against its CPU run --------------
+
+def _crush_two_level(hosts, devs, rule):
+    from ceph_tpu_torch.crush.builder import CrushBuilder
+    from ceph_tpu_torch.crush.types import (
+        step_chooseleaf_firstn, step_chooseleaf_indep, step_emit,
+        step_take)
+    b = CrushBuilder()
+    root = b.build_two_level(hosts, devs)
+    if rule == "firstn":
+        b.add_rule(0, [step_take(root), step_chooseleaf_firstn(0, 1),
+                       step_emit()])
+    else:
+        b.add_erasure_rule("root", [step_chooseleaf_indep(0, 1)],
+                           rule_id=0)
+    return b
+
+
+@pytest.mark.parametrize("hosts,devs,rule,nrep", [
+    (8, 4, "firstn", 3), (8, 4, "ec", 6), (100, 12, "ec", 11),
+    (6, 2, "ec", 8)])
+def test_crush_bulk_on_the_card_equals_its_cpu_run(cuda_device, hosts,
+                                                   devs, rule, nrep):
+    """Rows A-C of chip_smoke.py phase 6 at 8192 x, and a rule wider
+    than the hosts (holes, every rung of the ladder); with reweights."""
+    from ceph_tpu_torch.crush import bulk
+    b = _crush_two_level(hosts, devs, rule)
+    xs = np.arange(8192) + (1 << 32) - 4096
+    w = b.map.device_weights()
+    w[1], w[5] = 0, 0x7000
+    for weight in (None, w):
+        cm = bulk.CompiledCrushMap(b.map)
+        assert cm.items.device.type == "cuda"
+        got = bulk.bulk_do_rule(cm, 0, xs, nrep, weight=weight)
+        want = bulk.bulk_do_rule(b.map, 0, xs, nrep, weight=weight,
+                                 device="cpu")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_crushtool_and_osdmaptool_on_the_card(cuda_device, tmp_path,
+                                              capsys):
+    """The CLIs' default device is the card: the same text as --device
+    cpu."""
+    from ceph_tpu_torch.bench import crushtool, osdmaptool
+    argv = ["--build-two-level", "8", "4", "--test", "--num-rep", "3",
+            "--max-x", "4095", "--show-mappings"]
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        assert crushtool.main(argv + extra) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    path = str(tmp_path / "m.json")
+    assert osdmaptool.main(["--createsimple", "24", "-o", path,
+                            "--pg-num", "512"]) == 0
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        capsys.readouterr()
+        assert osdmaptool.main([path, "--upmap", "-", "--upmap-max",
+                                "30"] + extra) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "pg-upmap-items" in outs[0]
+
+
+def test_crush_bulk_ties_on_the_card(cuda_device):
+    """Every draw of a bucket equal (choose_args ids alike, equal
+    weights; then an all-zero weight set at the root): the card's
+    argmin / uint8 argmax keep the first slot, as the CPU run and the
+    host mapper do."""
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    from ceph_tpu_torch.crush.types import ChooseArg
+    b = _crush_two_level(4, 3, "firstn")
+    args = {bid: ChooseArg(weight_set=[[0x10000] * bk.size],
+                           ids=[77] * bk.size)
+            for bid, bk in b.map.buckets.items()}
+    xs = np.arange(512)
+    for _ in range(2):
+        got = bulk.bulk_do_rule(b.map, 0, xs, 3, choose_args=args)[0]
+        want = bulk.bulk_do_rule(b.map, 0, xs, 3, choose_args=args,
+                                 device="cpu")[0]
+        np.testing.assert_array_equal(got, want)
+        for x in range(0, 512, 37):
+            r = crush_do_rule(b.map, 0, x, 3, choose_args=args)
+            assert list(got[x][:len(r)]) == r
+        root = max(b.map.buckets, key=lambda bid: b.map.buckets[bid].type)
+        args[root] = ChooseArg(weight_set=[[0] * 4])

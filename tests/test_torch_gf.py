@@ -187,6 +187,15 @@ def test_importing_port_loads_no_jax_or_ceph_tpu_module():
         "import ceph_tpu_torch.bench.bench_line\n"
         "import ceph_tpu_torch.bench.non_regression\n"
         "import ceph_tpu_torch.bench.erasure_code_tool\n"
+        "import ceph_tpu_torch.crush\n"
+        "import ceph_tpu_torch.crush.bulk\n"
+        "import ceph_tpu_torch.crush.osdmap\n"
+        "import ceph_tpu_torch.crush.balancer\n"
+        "import ceph_tpu_torch.crush.poolops\n"
+        "import ceph_tpu_torch.crush.tester\n"
+        "import ceph_tpu_torch.bench.crushtool\n"
+        "import ceph_tpu_torch.bench.osdmaptool\n"
+        "import ceph_tpu_torch.utils.config\n"
         "import ceph_tpu_torch.telemetry.analyzer\n"
         "import ceph_tpu_torch.serve\n"
         "import ceph_tpu_torch.scenario.runner\n"
