@@ -28,8 +28,13 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
   creation, and the bulk evaluator (eager torch on the card);
   ``bench`` holds the ``crushtool`` and ``osdmaptool`` CLIs beside the
   erasure-code benchmark.
-- ``telemetry``, ``utils`` — metrics, spans, causal tracing, histograms;
-  clocks, logging, locks, errors, the erasure-code profile store.
+- ``chaos``, ``scrub``, ``recovery`` — seeded fault injection and map
+  churn, deep scrub and (batched) repair with the fused decode →
+  re-encode on the card, and the epoch-fenced recovery orchestrator;
+  ``crush.incremental`` carries the OSDMap epochs they fence on.
+- ``telemetry``, ``utils`` — metrics, spans, causal tracing, histograms,
+  the flight recorder and the dump schema; clocks, bounded retry,
+  logging, locks, errors, the erasure-code profile store.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).

@@ -4,7 +4,8 @@ stripes, on the card, as ONE JSON line.
     python -m ceph_tpu_torch.bench.bench_line
 
 The counterpart of the repo root's ``bench.py`` ``main`` for the rows
-whose workloads the port has (encode, decode, serving), each run through
+whose workloads the port has (encode, decode, degraded, repair-batched,
+recovery-churn, serving), each run through
 :class:`~ceph_tpu_torch.bench.erasure_code_benchmark.ErasureCodeBench`
 with ``--device cuda``:
 
@@ -19,6 +20,11 @@ with ``--device cuda``:
   e=1, clay k=8 m=4 d=11 e=1); ``decode_gbps`` is the RS row's GB/s.
 - ``serving_rows``: the mixed rs/shec/clay stream closed-loop, dense and
   paged, on the real clock.
+- ``degraded_rows``: ``bench.py``'s DEGRADED_ROWS, the recovery path: the
+  three ``degraded`` rows (scrub verify at 0 faults, 1 erasure, 2
+  erasures + 1 corruption) on the host, as in the reference, and
+  ``repair-batched`` and ``recovery-churn`` on the card, each with its
+  pattern-batch, device-call and (churn) replan / regroup counts.
 - ``vs_baseline``: against the in-tree C++ AVX2 RS benchmark
   (``native/build/ceph_erasure_code_benchmark``) run live on this host,
   or null with ``baseline`` saying it is not built.
@@ -105,6 +111,33 @@ SERVING_ROWS = [
       "--size", str(1 << 16), "--requests", "256",
       "--concurrency", "64", "--seed", "42", "--paged"]),
 ]
+
+# bench.py's DEGRADED_ROWS: the degraded rows stay on the host (the
+# scrub CRC and classification are host math); repair-batched and
+# recovery-churn run their fused repair on the card.  argparse's
+# last-wins lets a row override the common workload, device and size.
+DEGRADED_COMMON = ["--plugin", "jerasure",
+                   "--parameter", "technique=reed_sol_van",
+                   "--parameter", "k=8", "--parameter", "m=3",
+                   "--size", str(1 << 20), "--workload", "degraded",
+                   "--device", "host", "--batch", "4"]
+DEGRADED_ROWS = [
+    ("rs_k8_m3_scrub_e0", ["-e", "0"]),
+    ("rs_k8_m3_degraded_e1", ["-e", "1"]),
+    ("rs_k8_m3_degraded_e2_c1", ["-e", "2", "--corruptions", "1"]),
+    ("rs_k8_m3_repair_batched_e1",
+     ["--workload", "repair-batched", "--device", "cuda",
+      "--size", str(1 << 18), "--batch", "16", "-e", "1"]),
+    ("rs_k8_m3_recovery_churn",
+     ["--workload", "recovery-churn", "--device", "cuda",
+      "--size", str(1 << 18), "--batch", "8", "-e", "1",
+      "--churn-every", "2"]),
+]
+
+# the recovery counts a degraded row carries where its workload has them
+RECOVERY_FIELDS = ("erasures", "corruptions", "pattern_batches",
+                   "device_calls", "host_batches", "replans", "regroups",
+                   "rounds", "epochs_advanced")
 
 SERVING_FIELDS = ("gbps_under_slo", "deadline_miss_rate",
                   "padding_overhead", "requests", "rejected",
@@ -237,6 +270,20 @@ def measure() -> dict:
             errors.append(f"serving/{name}: {type(e).__name__}: {e}")
             serving_rows[name] = None
 
+    degraded_rows = {}
+    for name, extra in DEGRADED_ROWS:
+        argv = DEGRADED_COMMON + ["--iterations", "3"] + extra
+        try:
+            res, launches = run_row(argv)
+            row = _row_result(res, launches)
+            for f in RECOVERY_FIELDS:
+                if f in res:
+                    row[f] = res[f]
+            degraded_rows[name] = row
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - recorded
+            errors.append(f"degraded/{name}: {type(e).__name__}: {e}")
+            degraded_rows[name] = None
+
     results = {name: res for name, (res, _) in encode_rows.items()}
     carry = [r for r in results.values()
              if r["chain"] == "carry" and r["loop"]]
@@ -266,6 +313,7 @@ def measure() -> dict:
         "decode_gbps": (decode_rows.get("rs_k8_m3_e2") or {}).get("gbps"),
         "decode_rows": decode_rows,
         "serving_rows": serving_rows,
+        "degraded_rows": degraded_rows,
         "lat_p50_ms": best.get("lat_p50_ms"),
         "lat_p99_ms": best.get("lat_p99_ms"),
         "lat_p999_ms": best.get("lat_p999_ms"),

@@ -8,7 +8,8 @@ ErasureCodeBench:
   --size/-s, --parameter/-P (repeated k=v into the ErasureCodeProfile),
   --erasures/-e, --erasures-generation/-E random|exhaustive, --erased
   (repeated chunk ids), --verbose/-v, with the reference's defaults.
-- run() -> encode() | decode() | serving(); prints
+- run() -> encode() | decode() | degraded() | repair_batched() |
+  recovery_churn() | serving(); prints
   "<elapsed seconds>\\t<total KiB processed>" as the reference does (or
   the row, with --json).
 
@@ -36,12 +37,17 @@ Batching extensions, as in the reference:
                    every code (the reference refuses slice where XLA
                    could narrow the op; here there is nothing to refuse).
 
+The recovery path, as in the reference: ``degraded`` (per-object
+scrub → repair through the stripe layer), ``repair-batched`` (one
+fused decode → re-encode call per erasure pattern on the run's device;
+``--device host`` pins the grouped host path) and ``recovery-churn``
+(the epoch-fenced orchestrator under a seeded MapChurn).
+
 Not ported yet, each with the ROADMAP Queue A item that brings its
-module: the degraded, repair-batched, recovery-churn and device-chaos
-workloads (item 4), multichip and host-chaos (item 5), profile and
-autotune, and --tune-table (item 6), cluster, scenario and tenant-week
-(item 7).  They stay in the flag choices, so --help matches the
-reference, and exit with a CLI error.
+module: device-chaos (item 4b, the supervisor), multichip and
+host-chaos (item 5), profile and autotune, and --tune-table (item 6),
+cluster, scenario and tenant-week (item 7).  They stay in the flag
+choices, so --help matches the reference, and exit with a CLI error.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import itertools
 import json
 import sys
 import time
+from dataclasses import dataclass, field
 from typing import Dict, List
 
 import numpy as np
@@ -62,10 +69,7 @@ from ..telemetry import LatencyHistogram
 # workloads whose modules are not ported yet -> the ROADMAP Queue A item
 # that ports them
 UNPORTED_WORKLOADS = {
-    "degraded": "item 4 (scrub)",
-    "repair-batched": "item 4 (scrub)",
-    "recovery-churn": "item 4 (recovery)",
-    "device-chaos": "item 4 (chaos, supervision)",
+    "device-chaos": "item 4b (the supervisor)",
     "multichip": "item 5 (the data plane)",
     "host-chaos": "item 5 (the data plane's host partition)",
     "profile": "item 6 (the program profiler)",
@@ -177,7 +181,10 @@ class ErasureCodeBench:
     def __init__(self) -> None:
         self.args = None
         self.profile: Dict[str, str] = {}
-        self.last_run = None  # the serving workload's ServingRun
+        # the serving workload's ServingRun; the recovery workloads'
+        # RecoveryRun (the objects, their HashInfos and the stores
+        # each timed pass healed)
+        self.last_run = None
 
     # -- setup (ceph_erasure_code_benchmark.cc -> ErasureCodeBench::setup) --
 
@@ -205,12 +212,16 @@ class ErasureCodeBench:
                              "(decode/degraded workloads)")
         ap.add_argument("--corruptions", type=int, default=0,
                         help="shards to bit-flip per iteration "
-                             "(degraded workload, not ported yet)")
+                             "(degraded workload: scrub must detect "
+                             "them, then repair treats them as "
+                             "erasures)")
         ap.add_argument("--churn-every", type=int, default=2,
                         metavar="K",
-                        help="recovery-churn workload (not ported yet): "
-                             "one map epoch every K pattern-batch "
-                             "dispatches")
+                        help="recovery-churn workload: a seeded "
+                             "MapChurn fires one mark_down/out/"
+                             "reweight epoch every K pattern-batch "
+                             "dispatches (0 disables churn — the "
+                             "still-map control number)")
         ap.add_argument("--requests", type=int, default=256,
                         help="serving workload: requests in the "
                              "seeded mixed stream (the canonical "
@@ -760,6 +771,253 @@ class ErasureCodeBench:
         rows = analyzer.decompose_all(coll.to_dict())
         return out, analyzer.tail_shares(rows, "p99")
 
+    # -- the recovery path (no reference analogue in upstream's tool:
+    # the scrub → repair loop timed as a workload) ---------------------
+
+    def _recovery_setup(self, ec):
+        """(sinfo, objects, hinfos, pool) of the batched recovery
+        workloads: --batch seeded objects of --size logical bytes,
+        encoded through the stripe layer, and a small pool of
+        (erased, flipped) fault patterns cycled across them, so the
+        sweep exercises the grouping (a few patterns, many objects)."""
+        from ..codes.stripe import HashInfo, StripeInfo
+        from ..codes.stripe import encode as stripe_encode
+        a = self.args
+        n = ec.get_chunk_count()
+        k = ec.get_data_chunk_count()
+        chunk_size = ec.get_chunk_size(a.size)
+        width = k * chunk_size
+        sinfo = StripeInfo(k, width)
+        rng = np.random.default_rng(a.seed)
+        objects = []
+        for _ in range(a.batch):
+            obj = rng.integers(0, 256, size=width,
+                               dtype=np.uint8).tobytes()
+            shards = stripe_encode(sinfo, ec, obj)
+            hinfo = HashInfo(n)
+            hinfo.append(0, shards)
+            objects.append((shards, hinfo))
+        hinfos = [h for _, h in objects]
+        prng = np.random.default_rng(a.seed + 1)
+        n_pat = max(1, min(4, a.batch))
+        pool = []
+        for _ in range(n_pat):
+            victims = prng.choice(n, size=a.erasures + a.corruptions,
+                                  replace=False)
+            pool.append(([int(v) for v in victims[:a.erasures]],
+                         [int(v) for v in victims[a.erasures:]]))
+        return sinfo, objects, hinfos, pool
+
+    def _damaged_stores(self, sinfo, objects, pool):
+        """One store per object, damaged by its pattern of the pool
+        (seeded per object, so every call makes the same stores)."""
+        from ..chaos import BitFlip, ShardErasure, inject
+        stores = []
+        for i, (shards, _) in enumerate(objects):
+            erased, flipped = pool[i % len(pool)]
+            injectors = []
+            if erased:
+                injectors.append(ShardErasure(shards=list(erased)))
+            if flipped:
+                injectors.append(BitFlip(shards=list(flipped), flips=1))
+            store, _ = inject(shards, injectors, seed=self.args.seed + i,
+                              chunk_size=sinfo.chunk_size)
+            stores.append(store)
+        return stores
+
+    def _check_faults(self, n: int) -> None:
+        a = self.args
+        if a.erasures < 0 or a.corruptions < 0:
+            raise ValueError("--erasures/--corruptions must be >= 0")
+        if a.erasures + a.corruptions >= n:
+            raise ValueError(
+                f"{a.erasures} erasures + {a.corruptions} corruptions "
+                f"leave no clean shards of {n}")
+
+    def degraded(self) -> dict:
+        """Recovery-path throughput: deep_scrub (vectorized crc verify +
+        classify) + repair (decode, re-encode, crc re-verify) of an
+        object with --erasures shards erased and --corruptions shards
+        bit-flipped.  Fault injection and store setup run OUTSIDE the
+        timer; GB/s is logical object bytes / elapsed — the
+        client-visible recovery bandwidth.  With -e 0 and no
+        corruptions this times the pure deep-scrub verify pass."""
+        from ..chaos import BitFlip, ShardErasure, inject
+        from ..codes.stripe import HashInfo, StripeInfo
+        from ..codes.stripe import encode as stripe_encode
+        from ..scrub import repair
+        a = self.args
+        ec = self._instance()
+        n = ec.get_chunk_count()
+        k = ec.get_data_chunk_count()
+        self._check_faults(n)
+        chunk_size = ec.get_chunk_size(a.size)
+        width = k * chunk_size
+        sinfo = StripeInfo(k, width)
+        rng = np.random.default_rng(a.seed)
+        obj = rng.integers(0, 256, size=width * a.batch,
+                           dtype=np.uint8).tobytes()
+        shards = stripe_encode(sinfo, ec, obj)
+        hinfo = HashInfo(n)
+        hinfo.append(0, shards)
+
+        def make_store(it: int):
+            # deterministic per-iteration victim pattern; repair heals
+            # the store in place, so every timed pass gets a fresh one
+            prng = np.random.default_rng(a.seed + 1000 * it)
+            victims = prng.choice(n, size=a.erasures + a.corruptions,
+                                  replace=False)
+            injectors = []
+            erased = [int(v) for v in victims[:a.erasures]]
+            flipped = [int(v) for v in victims[a.erasures:]]
+            if erased:
+                injectors.append(ShardErasure(shards=erased))
+            if flipped:
+                injectors.append(BitFlip(shards=flipped, flips=1))
+            store, _ = inject(shards, injectors, seed=a.seed + it,
+                              chunk_size=sinfo.chunk_size)
+            return store
+
+        # warm every per-pattern decode-matrix cache outside the timer
+        # (mirrors the decode workload's warmup-per-distinct-pattern)
+        for it in range(a.iterations):
+            repair(sinfo, ec, make_store(it), hinfo)
+        stores = [make_store(it) for it in range(a.iterations)]
+        lat = _LatTimer()
+        begin = time.perf_counter()
+        for store in stores:
+            lat.run(lambda: repair(sinfo, ec, store, hinfo))
+        elapsed = time.perf_counter() - begin
+        self.last_run = RecoveryRun(sinfo, ec, [(shards, hinfo)],
+                                    [[st] for st in stores])
+        res = self._result("degraded", elapsed, len(obj) * a.iterations,
+                           lat)
+        res["erasures"] = a.erasures
+        res["corruptions"] = a.corruptions
+        return res
+
+    def repair_batched(self) -> dict:
+        """Batched recovery-path throughput: --batch objects of --size
+        logical bytes each, --erasures/--corruptions faults per
+        object, repaired through repair_batched (deep_scrub host CRC +
+        grouped fused repair on the run's device).  GB/s is logical
+        object bytes / elapsed; the result carries the pattern-batch
+        and device-call counts so every row shows the batching held
+        (pattern_batches == device_calls, not one call per object)."""
+        from ..scrub import repair_batched
+        a = self.args
+        ec = self._instance()
+        self._check_faults(ec.get_chunk_count())
+        sinfo, objects, hinfos, pool = self._recovery_setup(ec)
+        # --device host pins the grouped HOST path (_instance() already
+        # pinned min_xla_bytes, so the plugin batch calls stay on numpy
+        # too); cuda and cpu run the fused call on the code's device
+        dev = a.device != "host"
+        # warm pattern caches and kernel builds outside the timer
+        repair_batched(sinfo, ec, self._damaged_stores(sinfo, objects,
+                                                       pool),
+                       hinfos, device=dev)
+        runs = [self._damaged_stores(sinfo, objects, pool)
+                for _ in range(a.iterations)]
+        lat = _LatTimer()
+        begin = time.perf_counter()
+        rep = None
+        for stores in runs:
+            rep = lat.run(lambda: repair_batched(sinfo, ec, stores,
+                                                 hinfos, device=dev))
+        elapsed = time.perf_counter() - begin
+        self.last_run = RecoveryRun(sinfo, ec, objects, runs, pool)
+        res = self._result("repair-batched", elapsed,
+                           sinfo.stripe_width * a.batch * a.iterations,
+                           lat)
+        res["erasures"] = a.erasures
+        res["corruptions"] = a.corruptions
+        res["pattern_batches"] = rep.pattern_batches
+        res["device_calls"] = rep.device_calls
+        res["host_batches"] = rep.host_batches
+        return res
+
+    def recovery_churn(self) -> dict:
+        """Recovery throughput under OSDMap churn: --batch objects of
+        --size logical bytes, --erasures/--corruptions faults each,
+        driven to durable convergence by the recovery orchestrator
+        (epoch fencing + intent journal + throttle) while a seeded
+        MapChurn fires one epoch every --churn-every pattern-batch
+        dispatches.  GB/s is logical object bytes / elapsed — the
+        client-visible recovery bandwidth including every replan,
+        regroup and journal pass churn forces; the result carries the
+        replan/regroup counters so the fencing overhead is visible
+        next to the still-map repair-batched row."""
+        from ..chaos import MapChurn
+        from ..crush import (CrushBuilder, step_chooseleaf_indep,
+                             step_emit, step_take)
+        from ..crush.osdmap import OSDMap, PGPool
+        from ..recovery import healed, recover_to_completion
+        a = self.args
+        ec = self._instance()
+        n = ec.get_chunk_count()
+        if a.erasures < 1 or a.corruptions < 0:
+            raise ValueError("recovery-churn needs --erasures >= 1")
+        self._check_faults(n)
+        sinfo, objects, hinfos, pool = self._recovery_setup(ec)
+
+        def make_cluster():
+            b = CrushBuilder()
+            root = b.build_two_level(n + 3, 2)
+            b.add_rule(0, [step_take(root),
+                           step_chooseleaf_indep(n, b.type_id("host")),
+                           step_emit()])
+            osdmap = OSDMap(crush=b.map, device=str(self._device()))
+            osdmap.pools[1] = PGPool(pool_id=1, pg_num=16, size=n,
+                                     erasure=True)
+            return osdmap
+
+        dev = a.device != "host"
+        runs = []
+
+        def run_once(seed_off):
+            # fresh map + stores each pass: churn mutates the map, so
+            # a reused one would drift across iterations
+            churn = (MapChurn(seed=a.seed + seed_off, max_down=1,
+                              fire_every=a.churn_every,
+                              stages=("dispatch",))
+                     if a.churn_every else None)
+            stores = self._damaged_stores(sinfo, objects, pool)
+            rep = recover_to_completion(
+                sinfo, ec, make_cluster(), 1, 9, stores, hinfos,
+                churn=churn, device=dev)
+            if not rep.converged or rep.unrecoverable:
+                raise RuntimeError(
+                    f"recovery-churn failed to converge: "
+                    f"{rep.to_dict()}")
+            if not healed(stores, [s for s, _ in objects]):
+                raise RuntimeError("recovery-churn: data loss")
+            runs.append(stores)
+            return rep
+
+        run_once(1000)                      # warm caches + kernel builds
+        runs.clear()
+        lat = _LatTimer()
+        begin = time.perf_counter()
+        rep = None
+        for it in range(a.iterations):
+            rep = lat.run(lambda: run_once(it))
+        elapsed = time.perf_counter() - begin
+        self.last_run = RecoveryRun(sinfo, ec, objects, runs, pool, rep)
+        res = self._result("recovery-churn", elapsed,
+                           sinfo.stripe_width * a.batch * a.iterations,
+                           lat)
+        res["erasures"] = a.erasures
+        res["corruptions"] = a.corruptions
+        res["churn_every"] = a.churn_every
+        res["epochs_advanced"] = rep.epoch_end - rep.epoch_start
+        res["replans"] = rep.replans
+        res["regroups"] = rep.regroups
+        res["rounds"] = rep.rounds
+        res["pattern_batches"] = rep.pattern_batches
+        res["device_calls"] = rep.device_calls
+        return res
+
     # -- serving (the continuous-batching front end: a seeded mixed
     # request stream through serve/) -------------------------------------
 
@@ -822,9 +1080,31 @@ class ErasureCodeBench:
     def _run_workload(self) -> dict:
         if self.args.workload == "encode":
             return self.encode()
+        if self.args.workload == "degraded":
+            return self.degraded()
+        if self.args.workload == "repair-batched":
+            return self.repair_batched()
+        if self.args.workload == "recovery-churn":
+            return self.recovery_churn()
         if self.args.workload == "serving":
             return self.serving()
         return self.decode()
+
+
+@dataclass
+class RecoveryRun:
+    """What a recovery workload leaves on ``ErasureCodeBench.last_run``
+    for a caller that checks the heal: the geometry and code, the
+    undamaged objects as ``(shards, HashInfo)``, the stores each timed
+    pass healed, the fault-pattern pool and the last RecoveryReport
+    (recovery-churn)."""
+
+    sinfo: object
+    ec: object
+    objects: list
+    runs: list
+    pool: list = field(default_factory=list)
+    report: object = None
 
 
 def main(argv: List[str] | None = None) -> int:
@@ -841,7 +1121,8 @@ def main(argv: List[str] | None = None) -> int:
     return 0
 
 
-__all__ = ["ErasureCodeBench", "UNPORTED_WORKLOADS", "build_chain", "main"]
+__all__ = ["ErasureCodeBench", "RecoveryRun", "UNPORTED_WORKLOADS",
+           "build_chain", "main"]
 
 
 if __name__ == "__main__":

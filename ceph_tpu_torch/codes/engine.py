@@ -28,9 +28,9 @@ callable's key: a CPU instance and a card instance of one profile get
 their own.  The host twin is the numpy batch surfaces, which the
 batcher's ``executor="host"`` runs itself.
 
-Not ported: the mesh variants (ROADMAP Queue A item 8), the supervised
-dispatch plane (item 6: here a failure raises, it never demotes to the
-numpy twin) and the program profiler (item 10).
+Not ported: the mesh variants (ROADMAP Queue A item 5), the supervised
+dispatch plane (item 4b: here a failure raises, it never demotes to the
+numpy twin) and the program profiler (item 6).
 """
 
 from __future__ import annotations
@@ -96,7 +96,17 @@ class PatternCache:
                 tel.counter("pattern_cache_budget_exceeded")
                 tel.event("pattern_cache_budget_exceeded",
                           builds=self.builds,
-                          budget=self.recompile_budget, key=str(key))
+                          budget=self.recompile_budget)
+                # an armed budget tripping IS a production incident
+                # (pattern churn = a rebuild storm): freeze the
+                # flight-recorder post-mortem before raising
+                from ..telemetry import recorder
+                recorder.trip(
+                    "recompile_budget",
+                    f"{self.builds} builds > budget "
+                    f"{self.recompile_budget}",
+                    builds=self.builds, budget=self.recompile_budget,
+                    key=str(key))
                 raise RuntimeError(
                     f"pattern-cache recompile budget exceeded: "
                     f"{self.builds} builds > {self.recompile_budget} "
@@ -307,7 +317,7 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
       fused_repair_call on the masked page batch -> (rec, parity)
 
     Not ported: the reference's page sharding over a mesh (ROADMAP
-    Queue A item 8)."""
+    Queue A item 5)."""
     if op not in ("encode", "decode", "repair"):
         raise ValueError(f"serve op {op!r} must be encode|decode|repair")
     available = tuple(available)

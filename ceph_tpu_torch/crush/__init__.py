@@ -21,8 +21,12 @@ are copies of the reference's, their imports pointing at the port:
 
 New in the port: ``bulk`` — the bulk evaluator as a lane-batched eager
 torch program on the card (the reference's is a vmapped XLA program).
-It is imported lazily (nothing here pulls in torch).  ``incremental``
-and ``inc_binary`` are not ported yet (ROADMAP Queue A item 4).
+It is imported lazily (nothing here pulls in torch).
+
+- ``incremental`` — OSDMap::Incremental / apply_incremental: the mon's
+  epoch-ordered map-mutation model; resume = epoch catch-up.
+- ``inc_binary`` — the incremental's wire form, byte-identical to the
+  reference's.
 """
 
 from .types import (  # noqa: F401

@@ -18,8 +18,9 @@ cluster remap in one shot instead of `pg_num` serial do_rule calls.
 
 Simplifications vs upstream, by design:
 - osd state is (exists, up, weight, primary_affinity) flat lists;
-  epoch-ordered mutation (OSDMap::Incremental / apply_incremental)
-  lives in the reference's crush/incremental.py, not ported yet.
+  epoch-ordered mutation (OSDMap::Incremental / apply_incremental —
+  the mon's publication model and "resume = epoch catch-up") lives in
+  crush/incremental.py.
 - pg ids are (pool_id, ps) tuples, not the full pg_t wire struct.
 """
 
@@ -119,7 +120,8 @@ class OSDMap:
     """src/osd/OSDMap.h → OSDMap (placement-relevant subset)."""
 
     crush: CrushMap
-    epoch: int = 0            # OSDMap::get_epoch
+    epoch: int = 0            # OSDMap::get_epoch; advanced by
+                              # incremental.apply_incremental
     pools: Dict[int, PGPool] = field(default_factory=dict)
     max_osd: int = 0
     # per-osd state vectors (OSDMap: osd_state / osd_weight /

@@ -1,8 +1,6 @@
 """Per-op-class SLO policy and evaluation.
 
-A copy of ``ceph_tpu/serve/sla.py``, except that a burn-rate trip
-counts and emits its event but freezes no flight-recorder dump (the
-recorder is not ported yet).
+A copy of ``ceph_tpu/serve/sla.py``.
 
 Two halves:
 
@@ -62,8 +60,10 @@ class BurnRateMonitor:
 
     Feeds from :meth:`SlaRecorder.record`; when a window's miss rate
     reaches ``budget × burn`` (window full — a half-warm window never
-    alarms), the monitor counts ``serve_slo_burn_trips`` and emits a
-    structured event.  Each window re-arms
+    alarms), the monitor counts ``serve_slo_burn_trips``, emits a
+    structured event, and freezes a flight-recorder post-mortem
+    (telemetry/recorder.py) so the batch composition / padding /
+    queue-depth evidence survives the incident.  Each window re-arms
     only after its miss rate falls back below threshold — a sustained
     breach is ONE trip, not one per request.
     """
@@ -111,6 +111,13 @@ class BurnRateMonitor:
     def _on_trip(self, trip: dict) -> None:
         tel.counter("serve_slo_burn_trips", window=str(trip["window"]))
         tel.event("slo_burn", **trip)
+        from ..telemetry import recorder
+        recorder.trip(
+            "slo_burn",
+            f"deadline-miss burn: {trip['miss_rate']:.4f} over "
+            f"last {trip['window']} >= {trip['threshold']:.4f} "
+            f"({trip['burn']}x budget {trip['budget']})",
+            **trip)
 
 
 @dataclass(frozen=True)

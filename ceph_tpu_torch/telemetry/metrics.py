@@ -10,8 +10,7 @@ uploaded to the card (the row lists and instruction buffers
 ``ops/gf_kernels.py`` caches per matrix and device).  Both count under
 ``KERNEL_SETUPS``, always (no monitor to install), and
 ``run_serving_scenario`` reports the count after warmup as
-``stream_compiles``.  And ``event`` records into the registry only:
-the reference's flight recorder is not ported yet.
+``stream_compiles``.
 
 - **labels** — series identity is (name, sorted label items);
 - **kind safety** — a name belongs to exactly one kind (counter |
@@ -299,6 +298,11 @@ def observe(name: str, value: float, exemplar: Optional[str] = None,
 def event(kind: str, **fields) -> None:
     if _enabled:
         global_metrics().event(kind, **fields)
+        # every structured event is also a flight-recorder breadcrumb
+        # (the recorder's ring is the "what happened right before"
+        # record a post-mortem dump freezes)
+        from .recorder import global_flight_recorder
+        global_flight_recorder().note(kind, **fields)
 
 
 @contextlib.contextmanager

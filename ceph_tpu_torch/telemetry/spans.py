@@ -84,6 +84,11 @@ class SpanTracer:
         self._tls = threading.local()
         self.finished: "deque[Span]" = deque(maxlen=max_roots)
         self.dropped = 0
+        # called with each finished ROOT span (outside the lock);
+        # telemetry.recorder.install_flight_recorder wires this to the
+        # flight recorder's ring.  Exceptions are swallowed — a broken
+        # observer must never fail the traced pipeline.
+        self.on_root = None
 
     def _stack(self) -> List[Span]:
         stack = getattr(self._tls, "stack", None)
@@ -126,6 +131,11 @@ class SpanTracer:
                     self.finished.append(sp)
                 if evicted:
                     self._note_dropped()
+                if self.on_root is not None:
+                    try:
+                        self.on_root(sp)
+                    except Exception:  # noqa: BLE001 - observer only
+                        pass
             dout("telemetry", SPAN_DEBUG_LEVEL,
                  f"span- {path} dur={sp.duration:.6f}s")
 

@@ -15,10 +15,9 @@ Under ``CEPH_TPU_DETCHECK=1`` the seam instead returns a
 :class:`DetMonitor`: while an *injected-clock window* is open (a
 scenario running on a FakeClock/EventClock marks it via
 :func:`injected_clock`), any consultation of a default wall-clock
-seam is a **trip** — counted per seam and exported in the
-schema-versioned :func:`detcheck_report` (the reference also
-breadcrumbs it into its flight recorder, which the port does not have
-yet).  A trip means some component fell back to
+seam is a **trip** — counted per seam, breadcrumbed into the flight
+recorder, and exported in the schema-versioned
+:func:`detcheck_report`.  A trip means some component fell back to
 real time inside a run that claims to be fully clock-injected — the
 exact leak that turns a byte-identity gate flaky with no pointer to
 the culprit.
@@ -50,12 +49,15 @@ class DetMonitor:
     """Process-global recorder for wall-clock trips.
 
     All mutation happens under ``_mu`` (a plain, *unchecked* lock: the
-    monitor must not observe itself).
+    monitor must not observe itself); the recursion guard lives in a
+    ``threading.local`` so a trip breadcrumbed into a flight recorder
+    whose own clock is a tripwire cannot re-enter.
     """
 
     def __init__(self) -> None:
         # monitor-internal; never a make_lock product
         self._mu = threading.Lock()
+        self._tls = threading.local()
         self._injected_depth = 0
         self._injected_label: Optional[str] = None
         self._trips: Dict[str, int] = {}
@@ -81,13 +83,26 @@ class DetMonitor:
     # -- trips ---------------------------------------------------------
 
     def record_trip(self, seam: str, op: str) -> None:
-        with self._mu:
-            self._trips[seam] = self._trips.get(seam, 0) + 1
-            label = self._injected_label
-            if len(self._events) < MAX_TRIP_EVENTS:
-                self._events.append(
-                    {"seam": seam, "op": op, "window": label,
-                     "thread": threading.current_thread().name})
+        if getattr(self._tls, "in_trip", False):
+            return  # breadcrumbing a trip must not trip again
+        self._tls.in_trip = True
+        try:
+            with self._mu:
+                self._trips[seam] = self._trips.get(seam, 0) + 1
+                label = self._injected_label
+                if len(self._events) < MAX_TRIP_EVENTS:
+                    self._events.append(
+                        {"seam": seam, "op": op, "window": label,
+                         "thread": threading.current_thread().name})
+            try:
+                # lazy + forgiving: telemetry imports this module
+                from ..telemetry.recorder import global_flight_recorder
+                global_flight_recorder().note(
+                    "detcheck_trip", seam=seam, op=op)
+            except Exception:
+                pass
+        finally:
+            self._tls.in_trip = False
 
     # -- export --------------------------------------------------------
 

@@ -191,6 +191,40 @@ source, all started together) and then, in order:
    and its arrays must equal the host engine's on a 500-PG sample, and
    ``--upmap --upmap-max 100`` runs, its moves and deviation printed.
 
+7. scrub -> repair -> recover on the card (``scrub/``, ``recovery/``,
+   ``chaos/``), at Ceph's defaults: 4 MiB objects (RADOS's default
+   object size) of jerasure reed_sol_van k=8 m=3.  Each workload runs
+   through ``ErasureCodeBench`` with the launch counters at 0 just
+   before it and read just after, and each of its timed passes is
+   probed (``PassProbe``: launches, wall time, span roots, the fused
+   calls' device time by CUDA events):
+
+   - 7a ``-w repair-batched --size 4194304 --batch 64 -e 2
+     --corruptions 1 --iterations 1``: 64 objects, 3 bad shards each
+     (the whole budget), 4 patterns; one device call per pattern, no
+     host batch, the dense kernel in every timed pass, every healed
+     store equal to its object and to the host path's heal
+     (``device=False`` on a CPU instance pinned to the numpy tier);
+   - 7b ``-w recovery-churn --size 4194304 --batch 32 -e 1
+     --churn-every 2 --iterations 1``: converged, nothing
+     unrecoverable, every store healed, the map advanced; replans,
+     regroups and rounds printed;
+   - 7c ``-w degraded --size 1048576 --batch 4 -e 2 --corruptions 1``:
+     the per-object repair through the stripe layer, healed;
+   - 7d each family once (``FAMILIES``: jerasure reed_sol_van and
+     cauchy_good, isa k=8 m=3, shec k=6 m=3 c=2, lrc k=4 m=2 l=3, clay
+     k=8 m=4 d=11): ``repair_batched`` on 16 objects of ~1 MiB with 3
+     decodable patterns, equal to the objects and the host path; the
+     kernel ``select_matrix_engine`` names for each pattern's decode and
+     for the encode must have launched;
+   - 7e 4 bad shards of a k=8 m=3 object raise ``UnrecoverableError``,
+     and its flight-recorder dump passes ``validate_flight_dump``.
+
+   7a-7c print GB/s, p50/p99 per pass, the seconds in each span
+   (``scrub``, ``plan``, ``dispatch``, ``verify``) and the fused calls'
+   device ms against the pass's wall time; the phase prints its own
+   seconds and one ``{"recovery": {...}}`` line.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
@@ -247,6 +281,39 @@ CRUSH_WORK = "chip_smoke_work"
 # about 24 instructions, an estimate, not read from SASS); the argmin's
 # 64-bit compare and select (4)
 STRAW2_DRAW_OPS = 5 * 9 * 3 + 2 + 1 + 24 + 4
+# phase 7: scrub -> repair -> recover at Ceph's defaults: 4 MiB objects
+# (RADOS's default object size, rbd's default order 22) of the north
+# star's code, jerasure reed_sol_van k=8 m=3
+RS_ARGV = ["--plugin", "jerasure", "-P", "technique=reed_sol_van",
+           "-P", "k=8", "-P", "m=3"]
+# 64 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
+# One timed pass each (after the workload's warm pass): the host CRC sets
+# a pass's pace (~16 s and ~45 s on the chip machine's host), so
+# --iterations is the cut that keeps the phase's time down; the object
+# size and the fault budget are Ceph's and stay
+REPAIR_ARGV = RS_ARGV + ["--workload", "repair-batched", "--size",
+                         str(4 << 20), "--batch", "64", "-e", "2",
+                         "--corruptions", "1", "--iterations", "1",
+                         "--device", "cuda"]
+CHURN_ARGV = RS_ARGV + ["--workload", "recovery-churn", "--size",
+                        str(4 << 20), "--batch", "32", "-e", "1",
+                        "--churn-every", "2", "--iterations", "1",
+                        "--device", "cuda"]
+DEGRADED_ARGV = RS_ARGV + ["--workload", "degraded", "--size",
+                           str(1 << 20), "--batch", "4", "-e", "2",
+                           "--corruptions", "1", "--device", "cuda"]
+# each family once: 16 objects of about 1 MiB
+FAMILY_OBJECTS, FAMILY_SIZE = 16, 1 << 20
+FAMILIES = (
+    ("jerasure reed_sol_van k=8 m=3", "jerasure",
+     {"technique": "reed_sol_van", "k": "8", "m": "3"}),
+    ("jerasure cauchy_good k=8 m=3", "jerasure",
+     {"technique": "cauchy_good", "k": "8", "m": "3"}),
+    ("isa k=8 m=3", "isa", {"k": "8", "m": "3"}),
+    ("shec k=6 m=3 c=2", "shec", {"k": "6", "m": "3", "c": "2"}),
+    ("lrc k=4 m=2 l=3", "lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay k=8 m=4 d=11", "clay", dict(CLAY)),
+)
 
 # the serving stream: 512 closed-loop requests, 64 in flight; RS k=8 m=3
 # at 64 KiB (the bench serving row's size), 1 MiB (the north-star stripe)
@@ -831,6 +898,384 @@ def crush_phase(seed: int, err: "Errors") -> dict:
                         "moves": moves, "deviation": [devs[0], devs[-1]]}
     shutil.rmtree(work, ignore_errors=True)
     return result
+
+
+# -- phase 7: scrub -> repair -> recover on the card ---------------------------
+
+class PassProbe:
+    """Per timed pass of a bench workload (each ``_LatTimer.run``): the
+    kernel launches, the wall time, the finished span roots and the
+    device time of every fused repair call (CUDA events around the
+    callable, which launches the decode and re-encode kernels; the stack
+    is already on the card when it is called)."""
+
+    def __init__(self) -> None:
+        self.passes: list = []
+        self.active = None
+        self._undo: list = []
+
+    def __enter__(self):
+        import torch
+        from ceph_tpu_torch.bench import erasure_code_benchmark as ecb
+        from ceph_tpu_torch.codes import engine
+        from ceph_tpu_torch.ops.launches import launch_counts
+        from ceph_tpu_torch.telemetry import global_tracer
+        probe = self
+        real_run, real_fused = ecb._LatTimer.run, engine.fused_repair_call
+
+        def run(lat, fn):
+            tracer = global_tracer()
+            torch.cuda.synchronize()
+            before = launch_counts()
+            n_roots = len(tracer.finished)
+            rec = {"events": []}
+            probe.active = rec
+            t0 = time.perf_counter()
+            try:
+                return real_run(lat, fn)
+            finally:
+                torch.cuda.synchronize()
+                rec["wall_s"] = time.perf_counter() - t0
+                probe.active = None
+                rec["launches"] = {k: v - before[k]
+                                   for k, v in launch_counts().items()
+                                   if v - before[k]}
+                rec["roots"] = tracer.to_dict()["spans"][n_roots:]
+                rec["fused_ms"] = [s.elapsed_time(e)
+                                   for s, e in rec.pop("events")]
+                probe.passes.append(rec)
+
+        def fused(ec, available, erased):
+            fn = real_fused(ec, available, erased)
+
+            def call(stack):
+                if probe.active is None:
+                    return fn(stack)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(stack)
+                end.record()
+                probe.active["events"].append((start, end))
+                return out
+            return call
+
+        ecb._LatTimer.run = run
+        engine.fused_repair_call = fused
+        self._undo = [(ecb._LatTimer, "run", real_run),
+                      (engine, "fused_repair_call", real_fused)]
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self._undo:
+            setattr(obj, name, value)
+        return False
+
+
+def span_seconds(roots: list) -> dict:
+    """Seconds per span path (``repair/scrub``, ...) summed over roots."""
+    out: dict = {}
+
+    def walk(sp, path):
+        p = f"{path}/{sp['name']}" if path else sp["name"]
+        out[p] = out.get(p, 0.0) + sp["duration"]
+        for c in sp.get("children", ()):
+            walk(c, p)
+    for r in roots:
+        walk(r, "")
+    return out
+
+
+def recovery_workload(name: str, argv: list, need=()) -> tuple:
+    """One recovery workload of the port's CLI on the card, with the
+    launch counters at 0 just before it and read just after; every
+    kernel in ``need`` must have launched in each timed pass.  Prints the
+    row's GB/s, p50/p99, the seconds in each span of a timed pass, and
+    the fused calls' device ms against the pass's wall time.  Returns
+    (bench, result, row)."""
+    import torch
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.telemetry import global_tracer
+    bench = ErasureCodeBench()
+    bench.setup(list(argv) + ["--json"])
+    global_tracer().reset()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with PassProbe() as probe:
+        res = bench.run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    wall = time.perf_counter() - t0
+    check(res["platform"] == "gpu" and res["device"] == "cuda",
+          f"{name} ran on the card")
+    check(len(probe.passes) == bench.args.iterations,
+          f"{name}: {bench.args.iterations} timed passes probed")
+    passes = []
+    for i, p in enumerate(probe.passes):
+        for kernel in need:
+            check(p["launches"].get(kernel, 0) >= 1,
+                  f"{name}: {kernel} launched in timed pass {i}")
+        spans = span_seconds(p["roots"])
+        fused = sum(p["fused_ms"])
+        passes.append({"wall_s": p["wall_s"], "launches": p["launches"],
+                       "fused_calls": len(p["fused_ms"]),
+                       "fused_device_ms": fused, "span_s": spans})
+        top = {k: v for k, v in spans.items() if k.count("/") <= 1
+               or k.endswith(("/scrub", "/plan", "/dispatch", "/verify",
+                              "/write_back"))}
+        print(f"phase 7: {name}: pass {i}: wall {p['wall_s']:.3f} s; "
+              f"{len(p['fused_ms'])} fused calls, {fused:.3f} ms on the "
+              f"card ({fused / 1e3 / p['wall_s']:.5f} of the pass); "
+              f"launches {p['launches']}; span s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(top.items())))
+    print(f"phase 7: {name}: {res['gbps']:.6f} GB/s over "
+          f"{res['total_bytes']} logical bytes, p50 "
+          f"{res['lat_p50_ms']:.3f} ms, p99 {res['lat_p99_ms']:.3f} ms "
+          f"per pass; {wall:.1f} s with set-up and warm pass; launches "
+          f"{launches}")
+    row = {"gbps": res["gbps"], "seconds": res["seconds"],
+           "total_bytes": res["total_bytes"],
+           "lat_p50_ms": res["lat_p50_ms"], "lat_p99_ms": res["lat_p99_ms"],
+           "launches": launches, "passes": passes, "wall_s": wall}
+    for f in ("pattern_batches", "device_calls", "host_batches", "replans",
+              "regroups", "rounds", "epochs_advanced", "erasures",
+              "corruptions"):
+        if f in res:
+            row[f] = res[f]
+    return bench, res, row
+
+
+def healed_stores(run) -> bool:
+    """Every store every timed pass healed equals its undamaged object."""
+    return all(store.snapshot() == {s: bytes(b) for s, b in shards.items()}
+               for stores in run.runs
+               for store, (shards, _) in zip(stores, run.objects))
+
+
+def host_twin(argv: list):
+    """The same workload's code as ``--device host`` builds it: a CPU
+    instance pinned to the numpy region ops."""
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    bench = ErasureCodeBench()
+    bench.setup(list(argv) + ["--device", "host"])
+    return bench._instance()
+
+
+def routed_kernels(ec, available: tuple, erased: tuple, stripes: int,
+                   chunk: int) -> dict:
+    """{"decode": wrapper, "encode": wrapper}: the kernel wrapper that
+    ``select_matrix_engine`` names for this code's decode of the pattern
+    and for its encode, at the fused call's shapes."""
+    from ceph_tpu_torch.ops.gf_kernels import select_matrix_engine
+    names = {"cuda": "apply_matrix_cuda", "xor": "apply_matrix_xor_cuda",
+             "mxu": "apply_matrix_mxu_cuda"}
+    if hasattr(ec, "bitmatrix"):
+        # the packet codes: one kernel, the CSE schedule's wrapper where
+        # a schedule pays
+        check(select_matrix_engine(ec.w, ec.device) == "cuda",
+              "the packet codes route to the card")
+        dec = ec._decode_bitmatrix(available, erased)[3]
+        return {"decode": "apply_bitmatrix_xor_cuda" if dec is not None
+                else "apply_bitmatrix_cuda",
+                "encode": "apply_bitmatrix_xor_cuda"
+                if ec._encode_sched is not None else "apply_bitmatrix_cuda"}
+    sub = getattr(ec, "sub_chunk_no", 1)
+    if hasattr(ec, "_encode_composite"):                   # clay
+        dec = ec._decode_composite(available, erased)[1]
+        enc = ec._encode_composite()[1]
+        cols = (len(available) * sub, ec.k * sub)
+    elif hasattr(ec, "_encode_static"):                    # lrc
+        dec = ec._decode_composite(available, erased)[1]
+        enc = ec._encode_static()
+        cols = (len(available), ec.k)
+    elif hasattr(ec, "_plan_static"):                      # shec
+        plan, sel, _ = ec._plan_indices(available, erased)
+        dec = ec._plan_static(plan)[1]
+        enc = ec._matrix_static
+        cols = (len(sel), ec.k)
+    else:                                                  # RS, isa
+        _, dec, ns = ec._decode_matrix(available, erased)
+        enc = ec._matrix_static
+        cols = (ns, ec.k)
+    out = {}
+    for kind, ms, c in (("decode", dec, cols[0]), ("encode", enc, cols[1])):
+        eng = select_matrix_engine(8, ec.device,
+                                   shape=(stripes * sub, c, chunk // sub),
+                                   matrix_t=ms)
+        out[kind] = names[eng]
+    return out
+
+
+def recovery_phase(seed: int) -> dict:
+    """Phase 7 (the module docstring): scrub -> repair -> recover on the
+    card through the port's CLI and ``repair_batched``."""
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.chaos import BitFlip, ShardErasure, inject
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.codes.stripe import HashInfo, StripeInfo, encode
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.scrub import repair_batched
+    from ceph_tpu_torch.telemetry import global_flight_recorder
+    from ceph_tpu_torch.telemetry.schema import validate_flight_dump
+    from ceph_tpu_torch.utils.errors import UnrecoverableError
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- 7a: repair-batched through the CLI ---------------------------------
+    bench, res, row = recovery_workload("7a repair-batched", REPAIR_ARGV,
+                                        need=("apply_matrix_cuda",))
+    check(res["device_calls"] == res["pattern_batches"] == 4
+          and res["host_batches"] == 0,
+          f"7a: one device call per pattern ({res['pattern_batches']} "
+          f"patterns, {res['device_calls']} device calls, "
+          f"{res['host_batches']} host batches)")
+    run = bench.last_run
+    check(healed_stores(run), "7a: every healed store equals its object")
+    t0 = time.perf_counter()
+    stores = bench._damaged_stores(run.sinfo, run.objects, run.pool)
+    rep = repair_batched(run.sinfo, host_twin(REPAIR_ARGV), stores,
+                         [h for _, h in run.objects], device=False)
+    check(rep.host_batches == rep.pattern_batches == 4
+          and rep.device_calls == 0, "7a: the host path's batches")
+    check(all(a.snapshot() == b.snapshot()
+              for a, b in zip(stores, run.runs[-1])),
+          "7a: the card's heal equals the host path's, byte for byte")
+    row["host_check_s"] = time.perf_counter() - t0
+    print(f"phase 7: 7a: {len(stores)} stores equal the undamaged objects "
+          f"and the host path (device=False, numpy tier) byte for byte "
+          f"({row['host_check_s']:.1f} s)")
+    out["repair_batched"] = row
+
+    # -- 7b: recovery-churn --------------------------------------------------
+    bench, res, row = recovery_workload("7b recovery-churn", CHURN_ARGV,
+                                        need=("apply_matrix_cuda",))
+    check(res["epochs_advanced"] >= 1, "7b: the map advanced")
+    check(healed_stores(bench.last_run) and not
+          bench.last_run.report.unrecoverable and
+          bench.last_run.report.converged,
+          "7b: converged, nothing unrecoverable, every store healed")
+    print(f"phase 7: 7b: converged with no data loss; replans "
+          f"{res['replans']}, regroups {res['regroups']}, rounds "
+          f"{res['rounds']}, epochs advanced {res['epochs_advanced']}")
+    out["recovery_churn"] = row
+
+    # -- 7c: degraded (per-object repair through the stripe layer) ----------
+    bench, res, row = recovery_workload("7c degraded", DEGRADED_ARGV)
+    check(healed_stores(bench.last_run), "7c: every store healed")
+    out["degraded"] = row
+
+    # -- 7d: each family once ------------------------------------------------
+    reg = ErasureCodePluginRegistry.instance()
+    rng = np.random.default_rng(seed)
+    fams = {}
+    for label, plugin, profile in FAMILIES:
+        t0 = time.perf_counter()
+        ec = reg.factory(plugin, dict(profile), device="cuda")
+        host = reg.factory(plugin, dict(profile), device="cpu")
+        host.min_xla_bytes = float("inf")
+        n, k = ec.get_chunk_count(), ec.get_data_chunk_count()
+        chunk = ec.get_chunk_size(FAMILY_SIZE)
+        sinfo = StripeInfo(k, k * chunk)
+        # up to three decodable (erased, flipped) patterns
+        pats = []
+        for bad in ((1,), (k,), (0, n - 1), (2, k + 1), (0,)):
+            try:
+                ec.minimum_to_decode(set(bad), set(range(n)) - set(bad))
+            except (IOError, ValueError):
+                continue
+            pats.append(([bad[0]], list(bad[1:])))
+            if len(pats) == 3:
+                break
+        objects = []
+        for _ in range(FAMILY_OBJECTS):
+            obj = rng.integers(0, 256, k * chunk, dtype=np.uint8).tobytes()
+            shards = encode(sinfo, ec, obj)
+            hinfo = HashInfo(n)
+            hinfo.append(0, shards)
+            objects.append((shards, hinfo))
+
+        def damaged():
+            stores = []
+            for i, (shards, _) in enumerate(objects):
+                erased, flipped = pats[i % len(pats)]
+                inj = [ShardErasure(shards=erased)] + (
+                    [BitFlip(shards=flipped, flips=1)] if flipped else [])
+                stores.append(inject(shards, inj, seed=seed + i,
+                                     chunk_size=chunk)[0])
+            return stores
+
+        hinfos = [h for _, h in objects]
+        on_card, on_host = damaged(), damaged()
+        reset_launch_counts()
+        rep = repair_batched(sinfo, ec, on_card, hinfos)
+        torch.cuda.synchronize()
+        launches = {kk: v for kk, v in launch_counts().items() if v}
+        check(rep.device_calls == rep.pattern_batches == len(pats)
+              and rep.host_batches == 0,
+              f"7d {label}: one device call per pattern")
+        hrep = repair_batched(sinfo, host, on_host, hinfos, device=False)
+        check(hrep.host_batches == len(pats), f"7d {label}: host batches")
+        for store, hstore, (shards, _) in zip(on_card, on_host, objects):
+            want = {s: bytes(b) for s, b in shards.items()}
+            check(store.snapshot() == want == hstore.snapshot(),
+                  f"7d {label}: healed bytes equal the object and the "
+                  f"host path")
+        need = {}
+        for erased, flipped in pats:
+            bad = tuple(sorted(erased + flipped))
+            avail = tuple(s for s in range(n) if s not in bad)
+            routes = routed_kernels(ec, avail, bad,
+                                    FAMILY_OBJECTS // len(pats) + 1, chunk)
+            for kind, kernel in routes.items():
+                check(launches.get(kernel, 0) >= 1,
+                      f"7d {label}: {kernel} ({kind} of {bad}) launched")
+                need.setdefault(kernel, []).append(f"{kind} {bad}")
+        fams[label] = {"patterns": [list(e + f) for e, f in pats],
+                       "launches": launches, "routed": need,
+                       "seconds": time.perf_counter() - t0}
+        print(f"phase 7: 7d {label}: {FAMILY_OBJECTS} objects of "
+              f"{k * chunk} bytes, {len(pats)} patterns, equal to the host "
+              f"path and the objects; routed {need}; launches {launches}")
+    out["families"] = fams
+
+    # -- 7e: an over-budget object ------------------------------------------
+    ec = reg.factory("jerasure", {"technique": "reed_sol_van", "k": "8",
+                                  "m": "3"}, device="cuda")
+    chunk = ec.get_chunk_size(FAMILY_SIZE)
+    sinfo = StripeInfo(8, 8 * chunk)
+    obj = rng.integers(0, 256, 8 * chunk, dtype=np.uint8).tobytes()
+    shards = encode(sinfo, ec, obj)
+    hinfo = HashInfo(11)
+    hinfo.append(0, shards)
+    store, _ = inject(shards, [ShardErasure(shards=[0, 4]),
+                               BitFlip(shards=[2, 9], flips=1)],
+                      seed=seed, chunk_size=chunk)
+    try:
+        repair_batched(sinfo, ec, [store], [hinfo])
+        raise RuntimeError("check failed: 7e: 4 bad shards of k=8 m=3 "
+                           "did not raise")
+    except UnrecoverableError as e:
+        blob = global_flight_recorder().last_dump()
+        check(e.shards == (0, 2, 4, 9), f"7e: the error names {e.shards}")
+        check(blob is not None and blob["trigger"] == "unrecoverable"
+              and blob["context"]["shards"] == [0, 2, 4, 9],
+              "7e: the flight recorder froze the unrecoverable dump")
+        errors = validate_flight_dump(blob)
+        check(errors == [], f"7e: the dump validates ({errors})")
+        out["unrecoverable"] = {"shards": list(e.shards),
+                                "extents": [list(x) for x in e.extents],
+                                "dump": blob["dump"],
+                                "entries": len(blob["entries"])}
+        print(f"phase 7: 7e: UnrecoverableError on shards {list(e.shards)} "
+              f"with {len(e.extents)} extents; its flight dump "
+              f"#{blob['dump']} validates ({len(blob['entries'])} ring "
+              f"entries)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 7: {out['seconds']:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2586,6 +3031,8 @@ def main(argv=None) -> int:
     print(json.dumps({"bench": bench_phase(kernel_ms)}))
     # -- phase 6: CRUSH on the card ------------------------------------------
     print(json.dumps({"crush": crush_phase(seed, err)}))
+    # -- phase 7: scrub -> repair -> recover on the card ---------------------
+    print(json.dumps({"recovery": recovery_phase(seed)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

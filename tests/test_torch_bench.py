@@ -157,7 +157,79 @@ def test_workload_choices_match_the_reference():
     assert port_choices["workload"] == ref_choices["workload"]
     assert port_choices["device"] == ["host", "cuda", "cpu"]
     assert set(port_bench.UNPORTED_WORKLOADS) == (
-        set(ref_choices["workload"]) - {"encode", "decode", "serving"})
+        set(ref_choices["workload"]) - {"encode", "decode", "serving",
+                                        "degraded", "repair-batched",
+                                        "recovery-churn"})
+
+
+def test_device_chaos_names_the_supervisor(capsys):
+    """device-chaos needs the supervisor: its CLI error names item 4b."""
+    with pytest.raises(SystemExit) as exc:
+        port_bench.main(RS + ["--workload", "device-chaos",
+                              "--device", "host"])
+    assert exc.value.code == 2
+    assert ("--workload device-chaos is not ported yet (ROADMAP Queue A "
+            "item 4b (the supervisor))") in capsys.readouterr().err
+
+
+# -- the recovery workloads ------------------------------------------------------
+
+RECOVERY_FIELDS = ("pattern_batches", "device_calls", "host_batches",
+                   "replans", "regroups", "rounds", "epochs_advanced",
+                   "erasures", "corruptions", "churn_every")
+
+
+@pytest.mark.parametrize("workload,extra", [
+    ("degraded", ["-e", "1", "--corruptions", "1", "--batch", "2"]),
+    ("degraded", ["-e", "0", "--iterations", "2"]),
+    ("repair-batched", ["-e", "1", "--corruptions", "1", "--batch", "6",
+                        "--iterations", "2"]),
+    ("repair-batched", ["-e", "2", "--batch", "3"]),
+    ("recovery-churn", ["-e", "1", "--batch", "4"]),
+    ("recovery-churn", ["-e", "1", "--corruptions", "1", "--batch", "3",
+                        "--churn-every", "0"]),
+])
+@pytest.mark.parametrize("port_dev,ref_dev", [("cpu", "jax"),
+                                              ("host", "host")])
+def test_recovery_workloads_equal_the_reference(capsys, workload, extra,
+                                                port_dev, ref_dev):
+    """degraded, repair-batched and recovery-churn: the same bytes and the
+    same counts as the reference (``--device cpu`` against its ``jax`` on
+    the CPU, ``host`` against ``host``), and every timed pass healed."""
+    argv = RS + ["--size", "8192", "--workload", workload, "--json"] + extra
+    bench = _setup(port_bench, argv + ["--device", port_dev])
+    port = bench.run()
+    assert ref_bench.main(argv + ["--device", ref_dev]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(port) == set(ref)
+    for f in ("workload", "total_bytes", "batch", "iterations", "size")\
+            + RECOVERY_FIELDS:
+        assert port.get(f) == ref.get(f), f
+    assert port["device"] == port_dev and port["gbps"] > 0
+    run = bench.last_run
+    assert len(run.runs) == bench.args.iterations
+    for stores in run.runs:
+        for store, (shards, _) in zip(stores, run.objects):
+            assert store.snapshot() == {s: bytes(b)
+                                        for s, b in shards.items()}
+    if workload == "repair-batched":
+        on_dev = port_dev != "host"
+        assert port["pattern_batches"] == (
+            port["device_calls"] if on_dev else port["host_batches"])
+    if workload == "recovery-churn" and "--churn-every" not in extra:
+        assert port["epochs_advanced"] >= 1
+
+
+def test_recovery_workloads_need_faults_they_can_heal():
+    for workload, extra, msg in (
+            ("degraded", ["-e", "6"], "leave no clean shards"),
+            ("repair-batched", ["--corruptions", "-1"], "must be >= 0"),
+            ("recovery-churn", ["-e", "0"], "needs --erasures >= 1")):
+        bench = _setup(port_bench, RS + ["--workload", workload,
+                                         "--device", "host",
+                                         "--size", "8192"] + extra)
+        with pytest.raises(ValueError, match=msg):
+            bench.run()
 
 
 def test_tune_table_exits_with_its_item(capsys, tmp_path):
@@ -517,6 +589,15 @@ def test_bench_line_rows_are_bench_py_rows_on_the_card():
                                       for n, a in ref_line.DECODE_ROWS]
     assert bench_line.SERVING_ROWS == [(n, on_card(a))
                                        for n, a in ref_line.SERVING_ROWS]
+    # the recovery rows: degraded stays on the host, the batched repair
+    # and the churn run on the card
+    assert bench_line.DEGRADED_COMMON == ref_line.DEGRADED_COMMON
+    assert bench_line.DEGRADED_ROWS == [(n, on_card(a))
+                                        for n, a in ref_line.DEGRADED_ROWS]
+    for name, extra in bench_line.DEGRADED_ROWS:
+        bench = _setup(port_bench, bench_line.DEGRADED_COMMON + extra)
+        assert bench.args.device == ("host" if bench.args.workload
+                                     == "degraded" else "cuda"), name
     assert bench_line.METRIC == \
         "encode_gbps_jerasure_rs_k8_m3_1MiB_stripes"
     for name, argv in bench_line.ENCODE_ROWS:
@@ -547,6 +628,49 @@ def test_bench_line_without_a_card(capsys, monkeypatch):
     assert line["topology"]["platform"] is None
     assert "partial_error" not in line
     assert not any(k.endswith("_rows") for k in line)
+
+
+def test_bench_line_records_a_failing_degraded_row_as_null(monkeypatch):
+    """A recovery row that fails is null in ``degraded_rows`` and named in
+    ``partial_error``; it is never re-run on the host, and the rows that
+    ran carry their recovery counts."""
+    calls = []
+
+    def fake_row(argv):
+        bench = _setup(port_bench, argv)
+        a = bench.args
+        calls.append((a.workload, a.device))
+        if a.workload == "recovery-churn":
+            raise RuntimeError("recovery-churn: data loss")
+        res = {"gbps": 1.0, "chain": a.chain, "loop": a.loop,
+               "layout": a.layout, "platform": "gpu", "workload":
+               a.workload}
+        if a.workload == "repair-batched":
+            res.update(pattern_batches=4, device_calls=4, host_batches=0)
+        return res, 3
+
+    monkeypatch.setattr(bench_line, "run_row", fake_row)
+    monkeypatch.setattr(bench_line, "_host_run",
+                        lambda batch, iterations: {"gbps": 0.5})
+    monkeypatch.setattr(bench_line, "native_baseline",
+                        lambda: (None, "cpp-rs-avx2: not built"))
+    monkeypatch.setattr(bench_line, "card",
+                        lambda: {"name": None, "power_limit": None})
+    line = bench_line.measure()
+    rows = line["degraded_rows"]
+    assert set(rows) == {n for n, _ in bench_line.DEGRADED_ROWS}
+    assert rows["rs_k8_m3_recovery_churn"] is None
+    assert "degraded/rs_k8_m3_recovery_churn: RuntimeError" in \
+        line["partial_error"]
+    batched = rows["rs_k8_m3_repair_batched_e1"]
+    assert (batched["pattern_batches"], batched["device_calls"],
+            batched["host_batches"], batched["kernel_launches"]) == \
+        (4, 4, 0, 3)
+    assert "pattern_batches" not in rows["rs_k8_m3_scrub_e0"]
+    assert [c for c in calls if c[0] == "recovery-churn"] == \
+        [("recovery-churn", "cuda")]
+    assert ("degraded", "host") in calls and \
+        ("repair-batched", "cuda") in calls
 
 
 def test_row_launch_count_reads_the_counters(monkeypatch):

@@ -989,3 +989,129 @@ def test_crush_bulk_ties_on_the_card(cuda_device):
             assert list(got[x][:len(r)]) == r
         root = max(b.map.buckets, key=lambda bid: b.map.buckets[bid].type)
         args[root] = ChooseArg(weight_set=[[0] * 4])
+
+
+# -- scrub, repair and recovery on the card ------------------------------------
+
+SCRUB_FAMILIES = [
+    ("jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "8", "m": "3",
+                  "packetsize": "32"}),
+    ("isa", {"k": "8", "m": "3"}),
+    ("shec", {"k": "6", "m": "3", "c": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay", {"k": "8", "m": "4", "d": "11"}),
+]
+
+
+def _scrub_objects(ec, count, size, seed):
+    from ceph_tpu_torch.codes.stripe import HashInfo, StripeInfo, encode
+    n, k = ec.get_chunk_count(), ec.get_data_chunk_count()
+    chunk = ec.get_chunk_size(size)
+    sinfo = StripeInfo(k, k * chunk)
+    rng = np.random.default_rng(seed)
+    objs = []
+    for _ in range(count):
+        obj = rng.integers(0, 256, k * chunk, dtype=np.uint8).tobytes()
+        shards = encode(sinfo, ec, obj)
+        hinfo = HashInfo(n)
+        hinfo.append(0, shards)
+        objs.append((shards, hinfo))
+    return sinfo, chunk, objs
+
+
+def _scrub_stores(objs, pats, chunk, seed):
+    from ceph_tpu_torch.chaos import BitFlip, ShardErasure, inject
+    stores = []
+    for i, (shards, _) in enumerate(objs):
+        erased, flipped = pats[i % len(pats)]
+        inj = [ShardErasure(shards=list(erased))] + (
+            [BitFlip(shards=list(flipped), flips=1)] if flipped else [])
+        stores.append(inject(shards, inj, seed=seed + i,
+                             chunk_size=chunk)[0])
+    return stores
+
+
+@pytest.mark.parametrize("plugin,profile", SCRUB_FAMILIES,
+                         ids=[f"{p}-{d.get('technique', '')}"
+                              for p, d in SCRUB_FAMILIES])
+def test_repair_batched_on_the_card_equals_the_host_path(cuda_device,
+                                                         plugin, profile):
+    """Each family's batched repair on the card: one device call per
+    pattern, launches of the port's kernels, and the healed stores equal
+    to the objects and to the host path's (a CPU code on the numpy
+    tier, ``device=False``)."""
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.scrub import repair_batched
+    reg = ErasureCodePluginRegistry.instance()
+    ec = reg.factory(plugin, dict(profile), device="cuda")
+    host = reg.factory(plugin, dict(profile), device="cpu")
+    host.min_xla_bytes = float("inf")
+    n, k = ec.get_chunk_count(), ec.get_data_chunk_count()
+    pats = [([1], []), ([], [k]), ([0], [n - 1])]
+    pats = [p for p in pats if _decodable(ec, p, n)]
+    sinfo, chunk, objs = _scrub_objects(ec, 6, 64 << 10, seed=3)
+    hinfos = [h for _, h in objs]
+    on_card = _scrub_stores(objs, pats, chunk, seed=5)
+    on_host = _scrub_stores(objs, pats, chunk, seed=5)
+    reset_launch_counts()
+    rep = repair_batched(sinfo, ec, on_card, hinfos)
+    launched = {kk: v for kk, v in launch_counts().items() if v}
+    hrep = repair_batched(sinfo, host, on_host, hinfos, device=False)
+    assert rep.device_calls == rep.pattern_batches == len(pats)
+    assert hrep.host_batches == len(pats) and rep.host_batches == 0
+    assert launched
+    for a, b, (shards, _) in zip(on_card, on_host, objs):
+        assert a.snapshot() == b.snapshot() == {
+            s: bytes(v) for s, v in shards.items()}
+
+
+def _decodable(ec, pat, n) -> bool:
+    bad = set(pat[0]) | set(pat[1])
+    try:
+        ec.minimum_to_decode(bad, set(range(n)) - bad)
+        return True
+    except (IOError, ValueError):
+        return False
+
+
+def test_recovery_churn_on_the_card_loses_nothing(cuda_device):
+    """The orchestrator under MapChurn with the fused repair on the card
+    converges with every store healed, as on the CPU."""
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        bench = ErasureCodeBench()
+        bench.setup(["--plugin", "jerasure", "-P", "technique=reed_sol_van",
+                     "-P", "k=8", "-P", "m=3", "--workload",
+                     "recovery-churn", "--size", str(256 << 10), "--batch",
+                     "6", "-e", "1", "--device", dev])
+        res = bench.run()
+        run = bench.last_run
+        for stores in run.runs:
+            for st, (shards, _) in zip(stores, run.objects):
+                assert st.snapshot() == {s: bytes(v)
+                                         for s, v in shards.items()}
+        runs[dev] = {f: res[f] for f in ("pattern_batches", "device_calls",
+                                         "replans", "regroups", "rounds",
+                                         "epochs_advanced")}
+    assert runs["cuda"] == runs["cpu"] and runs["cuda"]["epochs_advanced"]
+
+
+def test_forced_numpy_tier_on_a_card_code_raises(cuda_device):
+    """device=None on a card code never moves the repair to the host: a
+    forced numpy tier raises before anything is written."""
+    from ceph_tpu_torch.scrub import repair_batched
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    sinfo, chunk, objs = _scrub_objects(ec, 2, 64 << 10, seed=1)
+    stores = _scrub_stores(objs, [([1], [])], chunk, seed=2)
+    before = [s.snapshot() for s in stores]
+    prev = fallback.set_global_policy(fallback.FallbackPolicy("numpy"))
+    try:
+        with pytest.raises(ValueError, match="forced"):
+            repair_batched(sinfo, ec, stores, [h for _, h in objs])
+    finally:
+        fallback.set_global_policy(prev)
+    assert [s.snapshot() for s in stores] == before
