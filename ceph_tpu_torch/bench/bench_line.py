@@ -5,7 +5,7 @@ stripes, on the card, as ONE JSON line.
 
 The counterpart of the repo root's ``bench.py`` ``main`` for the rows
 whose workloads the port has (encode, decode, degraded, repair-batched,
-recovery-churn, serving), each run through
+recovery-churn, device-chaos, serving), each run through
 :class:`~ceph_tpu_torch.bench.erasure_code_benchmark.ErasureCodeBench`
 with ``--device cuda``:
 
@@ -25,6 +25,11 @@ with ``--device cuda``:
   erasures + 1 corruption) on the host, as in the reference, and
   ``repair-batched`` and ``recovery-churn`` on the card, each with its
   pattern-batch, device-call and (churn) replan / regroup counts.
+- ``device_chaos_rows``: ``bench.py``'s DEVICE_CHAOS_ROWS, batched
+  recovery through the supervised fused-repair seam while a seeded
+  fault script fires mid-run (transient error, out of memory, a lost
+  backend for two calls), each row with the supervisor's counter
+  deltas, the faults fired and whether the tier ended demoted.
 - ``vs_baseline``: against the in-tree C++ AVX2 RS benchmark
   (``native/build/ceph_erasure_code_benchmark``) run live on this host,
   or null with ``baseline`` saying it is not built.
@@ -133,6 +138,21 @@ DEGRADED_ROWS = [
       "--size", str(1 << 18), "--batch", "8", "-e", "1",
       "--churn-every", "2"]),
 ]
+
+# bench.py's DEVICE_CHAOS_ROWS, on the card: batched recovery while the
+# supervisor absorbs a seeded fault script (a transient error, an
+# out-of-memory error, a backend lost for two calls); the heal is
+# gated in the workload
+DEVICE_CHAOS_ROWS = [
+    ("rs_k8_m3_device_chaos",
+     ["--plugin", "jerasure", "--parameter", "technique=reed_sol_van",
+      "--parameter", "k=8", "--parameter", "m=3",
+      "--size", str(1 << 16), "--workload", "device-chaos",
+      "--device", "cuda", "--batch", "8", "--iterations", "2",
+      "-e", "1", "--seed", "42"]),
+]
+DEVICE_CHAOS_FIELDS = ("supervisor", "faults_fired", "demoted_at_end",
+                       "erasures", "verified")
 
 # the recovery counts a degraded row carries where its workload has them
 RECOVERY_FIELDS = ("erasures", "corruptions", "pattern_batches",
@@ -284,6 +304,18 @@ def measure() -> dict:
             errors.append(f"degraded/{name}: {type(e).__name__}: {e}")
             degraded_rows[name] = None
 
+    device_chaos_rows = {}
+    for name, argv in DEVICE_CHAOS_ROWS:
+        try:
+            res, launches = run_row(argv)
+            row = _row_result(res, launches)
+            for f in DEVICE_CHAOS_FIELDS:
+                row[f] = res.get(f)
+            device_chaos_rows[name] = row
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - recorded
+            errors.append(f"device-chaos/{name}: {type(e).__name__}: {e}")
+            device_chaos_rows[name] = None
+
     results = {name: res for name, (res, _) in encode_rows.items()}
     carry = [r for r in results.values()
              if r["chain"] == "carry" and r["loop"]]
@@ -314,6 +346,7 @@ def measure() -> dict:
         "decode_rows": decode_rows,
         "serving_rows": serving_rows,
         "degraded_rows": degraded_rows,
+        "device_chaos_rows": device_chaos_rows,
         "lat_p50_ms": best.get("lat_p50_ms"),
         "lat_p99_ms": best.get("lat_p99_ms"),
         "lat_p999_ms": best.get("lat_p999_ms"),

@@ -9,7 +9,7 @@ ErasureCodeBench:
   --erasures/-e, --erasures-generation/-E random|exhaustive, --erased
   (repeated chunk ids), --verbose/-v, with the reference's defaults.
 - run() -> encode() | decode() | degraded() | repair_batched() |
-  recovery_churn() | serving(); prints
+  recovery_churn() | device_chaos() | serving(); prints
   "<elapsed seconds>\\t<total KiB processed>" as the reference does (or
   the row, with --json).
 
@@ -43,11 +43,17 @@ fused decode → re-encode call per erasure pattern on the run's device;
 ``--device host`` pins the grouped host path) and ``recovery-churn``
 (the epoch-fenced orchestrator under a seeded MapChurn).
 
+``device-chaos`` (the supervised dispatch plane, ``ops/supervisor.py``)
+runs the batched recovery while a seeded fault script fires at the
+fused-repair seam: a transient error, an out-of-memory error, then a
+lost backend for two calls; ``--device host`` supervises the grouped
+host repair at a bench seam instead.
+
 Not ported yet, each with the ROADMAP Queue A item that brings its
-module: device-chaos (item 4b, the supervisor), multichip and
-host-chaos (item 5), profile and autotune, and --tune-table (item 6),
-cluster, scenario and tenant-week (item 7).  They stay in the flag
-choices, so --help matches the reference, and exit with a CLI error.
+module: multichip and host-chaos (item 5), profile and autotune, and
+--tune-table (item 6), cluster, scenario and tenant-week (item 7).
+They stay in the flag choices, so --help matches the reference, and
+exit with a CLI error.
 """
 
 from __future__ import annotations
@@ -66,10 +72,13 @@ import torch
 from ..codes.registry import ErasureCodePluginRegistry
 from ..telemetry import LatencyHistogram
 
+# device-chaos on the card: passes a run may re-queue after a failure
+# the supervisor raises (the fault script's loss fires on two calls)
+_CARD_PASSES = 4
+
 # workloads whose modules are not ported yet -> the ROADMAP Queue A item
 # that ports them
 UNPORTED_WORKLOADS = {
-    "device-chaos": "item 4b (the supervisor)",
     "multichip": "item 5 (the data plane)",
     "host-chaos": "item 5 (the data plane's host partition)",
     "profile": "item 6 (the program profiler)",
@@ -1018,6 +1027,130 @@ class ErasureCodeBench:
         res["device_calls"] = rep.device_calls
         return res
 
+    # -- device-chaos (the supervised dispatch plane under injected
+    # device-plane faults: recovery-under-fault throughput) --------------
+
+    def device_chaos(self) -> dict:
+        """Recovery throughput while the device plane FAILS mid-run:
+        --batch objects of --size logical bytes, --erasures faults
+        each, repaired through the batched fused-repair seam while a
+        seeded DispatchFault script (transient error, out of memory,
+        then a persistent backend loss) fires at the seam's Nth calls.
+        The supervisor must retry and split the rung; the loss demotes
+        the tier live and completes on the numpy twin for a CPU code,
+        and on the card (whose work never leaves it) raises
+        ``DeviceDispatchError``, upon which the pass is re-queued on the
+        stores as they stand, as recovery re-queues a failed op.
+        Byte-identical heal and zero data loss are gated in-workload,
+        and the row carries the supervisor's counter deltas.
+
+        ``--device host``: the same loop wraps the grouped host repair
+        in the supervisor at a bench seam, so the classification
+        machinery (retry, demoted completion) is still measured
+        without a device."""
+        from ..chaos.dispatch import (DispatchFault, DispatchFaultPlan,
+                                      arm_plan)
+        from ..ops.supervisor import global_supervisor
+        from ..recovery.orchestrator import healed
+        from ..scrub import repair_batched
+        from ..utils.errors import DeviceDispatchError
+        a = self.args
+        ec = self._instance()
+        n = ec.get_chunk_count()
+        if a.erasures < 1 or a.erasures + a.corruptions >= n:
+            raise ValueError("device-chaos needs 1 <= erasures + "
+                             "corruptions < n")
+        sinfo, objects, hinfos, pool = self._recovery_setup(ec)
+        originals = [s for s, _ in objects]
+        dev = a.device != "host"
+        sup = global_supervisor()
+        seam = "engine.fused_repair" if dev else "bench.device_chaos"
+
+        def fault_script():
+            # the seeded production-day failure script: a flaky call,
+            # an out-of-memory error (device mode — the host seam fires
+            # once per repair pass, so its script compresses to retry +
+            # loss), then the backend dies for two calls
+            if dev:
+                faults = [DispatchFault("transient", seam=seam, at=2,
+                                        calls=1),
+                          DispatchFault("oom", seam=seam, at=3,
+                                        calls=1),
+                          DispatchFault("backend_loss", seam=seam,
+                                        at=5, calls=2)]
+            else:
+                faults = [DispatchFault("transient", seam=seam, at=1,
+                                        calls=1),
+                          DispatchFault("backend_loss", seam=seam,
+                                        at=2, calls=2)]
+            return DispatchFaultPlan(faults, seed=a.seed)
+
+        runs = []
+
+        def run_once():
+            stores = self._damaged_stores(sinfo, objects, pool)
+            if dev:
+                for _ in range(_CARD_PASSES):
+                    try:
+                        rep = repair_batched(sinfo, ec, stores, hinfos,
+                                             device=True)
+                        break
+                    except DeviceDispatchError:
+                        continue    # re-queued: the objects healed stay
+                else:
+                    raise RuntimeError(f"device-chaos: no pass completed "
+                                       f"in {_CARD_PASSES}")
+            else:
+                def call():
+                    return repair_batched(sinfo, ec, stores, hinfos,
+                                          device=False)
+                rep = sup.dispatch(seam, call, (), host_fn=call,
+                                   splittable=False)
+            if not healed(stores, originals):
+                raise RuntimeError("device-chaos: data loss under "
+                                   "injected dispatch faults")
+            runs.append(stores)
+            return rep
+
+        # warm pattern caches and kernel builds with NO faults armed
+        run_once()
+        runs.clear()
+        before = {key: v for key, v in sup.stats().items()
+                  if isinstance(v, int)}
+        lat = _LatTimer()
+        plans = []
+        begin = time.perf_counter()
+        for _ in range(a.iterations):
+            plan = fault_script()
+            prev = arm_plan(plan)
+            try:
+                lat.run(run_once)
+                plan.clear()
+                # drive the health probe to re-promotion so every
+                # iteration starts from the healthy tier
+                for _ in range(sup.promote_after + 2):
+                    sup.tick()
+            finally:
+                arm_plan(prev)
+            plans.append(plan.summary())
+        elapsed = time.perf_counter() - begin
+        after = sup.stats()
+        self.last_run = RecoveryRun(sinfo, ec, objects, runs, pool)
+        res = self._result("device-chaos", elapsed,
+                           sinfo.stripe_width * a.batch * a.iterations,
+                           lat)
+        res["erasures"] = a.erasures
+        res["supervisor"] = {
+            key: after[key] - before.get(key, 0)
+            for key in ("retries", "rung_downshifts", "demotions",
+                        "card_failures", "repromotions",
+                        "host_completions", "hangs",
+                        "verify_failures")}
+        res["faults_fired"] = sum(p["fired"] for p in plans)
+        res["demoted_at_end"] = after["demoted"]
+        res["verified"] = True
+        return res
+
     # -- serving (the continuous-batching front end: a seeded mixed
     # request stream through serve/) -------------------------------------
 
@@ -1088,6 +1221,8 @@ class ErasureCodeBench:
             return self.recovery_churn()
         if self.args.workload == "serving":
             return self.serving()
+        if self.args.workload == "device-chaos":
+            return self.device_chaos()
         return self.decode()
 
 

@@ -17,9 +17,10 @@ recovery orchestrator (ceph_tpu_torch.recovery) and the degraded
 benchmark rows all drive the same adversaries, so every robustness
 claim replays from a (seed, scenario) pair — and replays the
 reference's: the same seeds give the same faults, event logs and
-firing tables in both packages.  The dispatch and host plans have no
-consumer in the port until the supervisor and the data plane land
-(ROADMAP Queue A items 4b and 5).
+firing tables in both packages.  The dispatch plans' consumer is the
+supervised dispatch plane (ops/supervisor.py); the host plans are
+polled there too, but their host-granular reshrink waits for the data
+plane (ROADMAP Queue A item 5).
 """
 
 from .adversaries import (  # noqa: F401

@@ -1,11 +1,11 @@
 """Device-plane dispatch faults — the chaos family for the supervised
 dispatch plane; a copy of ``ceph_tpu/chaos/dispatch.py``.
 
-These are host state machines.  Their consumer, the supervisor
-(ops/supervisor.py), comes with ROADMAP Queue A item 4b: until then no
-seam of the port consults an armed plan, and the plans are exercised
-on their own (tests/test_torch_chaos.py holds their firing tables to
-the reference's).
+These are host state machines, consumed by the supervised dispatch
+plane (ops/supervisor.py): every supervised seam polls the armed plan
+once per dispatch attempt.  tests/test_torch_chaos.py holds their
+firing tables to the reference's, and tests/test_torch_supervisor.py
+the supervisor's responses.
 
 The injectors in chaos/injectors.py damage *stored bytes*; the
 adversaries in chaos/adversaries.py attack the *orchestration* (crash
@@ -23,7 +23,8 @@ supervisor must recover):
                       rung and redispatches the halves),
 - ``backend_loss``  — the dispatch raises a backend-unavailable error
                       for every call in the window (the tunnel died;
-                      live FallbackPolicy demotion down the tiers),
+                      live FallbackPolicy demotion down the tiers off
+                      the card, DeviceDispatchError on it),
 - ``hang``          — the dispatch consumes more than the supervisor's
                       deadline on the injectable clock and then fails
                       (a wedged device call; classified like loss),

@@ -1,7 +1,10 @@
 """Host-level fault adversaries — the fault plane above chaos/dispatch.py;
 a copy of ``ceph_tpu/chaos/hosts.py``.  The plans are host state
-machines; their consumers, the supervisor and the host-aware data
-plane, come with ROADMAP Queue A items 4b and 5.
+machines; the supervisor (ops/supervisor.py) polls them at every
+dispatch seam, and their host-granular answer, the host-aware data
+plane, comes with ROADMAP Queue A item 5 (until then a host fault is
+classified ``host_loss`` and the supervisor demotes the tier, or raises
+DeviceDispatchError on the card).
 
 ``DispatchFault`` kills *calls*; a ``HostFault`` kills a *fault
 domain*: every device one host contributes to the data plane goes away
@@ -278,12 +281,11 @@ def host_chaos_selftest() -> dict:
     """The reference's host fault-domain arc (``chaos.host_plane``): a
     seeded HostLoss fires mid-stream on an isolated supervisor and the
     data plane reshrinks, re-dispatches from the journal and
-    re-promotes.  It needs the supervisor (ROADMAP Queue A item 4b) and
-    the data plane (item 5); until both are ported it raises."""
+    re-promotes.  It needs the data plane (ROADMAP Queue A item 5);
+    until that is ported it raises."""
     raise NotImplementedError(
-        "host_chaos_selftest needs the supervisor (ops/supervisor.py, "
-        "ROADMAP Queue A item 4b) and the data plane (parallel/, "
-        "item 5), not ported yet")
+        "host_chaos_selftest needs the data plane (parallel/, ROADMAP "
+        "Queue A item 5), not ported yet")
 
 
 __all__ = [

@@ -28,9 +28,22 @@ callable's key: a CPU instance and a card instance of one profile get
 their own.  The host twin is the numpy batch surfaces, which the
 batcher's ``executor="host"`` runs itself.
 
-Not ported: the mesh variants (ROADMAP Queue A item 5), the supervised
-dispatch plane (item 4b: here a failure raises, it never demotes to the
-numpy twin) and the program profiler (item 6).
+Every call of the cached callables routes through the supervised
+dispatch plane (ops/supervisor.py) under the seams
+``engine.fused_repair``, ``engine.serve-{op}`` and
+``engine.serve-{op}-ragged``: transient errors retry, an out-of-memory
+error splits the batch rung, and persistent backend loss on a CPU code
+demotes the tier live (torch -> numpy; each callable's ``rebuild``
+re-derives it after the pattern cache is cleared, and at the floor its
+numpy host twin completes the dispatch byte-identically).  On the card
+a persistent failure raises ``DeviceDispatchError``: the card's work
+never moves to the plain ops or the host.  While a seam's callable
+runs, the matrix applies inside it go straight to their tier (the
+reference traces them into one program), so one call is one supervised
+dispatch.
+
+Not ported: the mesh variants (ROADMAP Queue A item 5) and the program
+profiler (item 6).
 """
 
 from __future__ import annotations
@@ -38,8 +51,10 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..ops.supervisor import global_supervisor
 from ..ops.torch_ops import mask_pages
 from ..telemetry import metrics as tel
 from ..telemetry import tracing as trc
@@ -212,6 +227,18 @@ def _labels(ec, kind: str, erased: tuple) -> dict:
         engine="device", devices=1)
 
 
+def _host_array(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _on_device(out, device: torch.device):
+    """A host twin's numpy output (an array or a tuple of them) as
+    tensors on the dispatch's device."""
+    if isinstance(out, tuple):
+        return tuple(_on_device(o, device) for o in out)
+    return torch.from_numpy(np.ascontiguousarray(out)).to(device)
+
+
 # -- fused decode -> re-encode --------------------------------------------
 
 def fused_repair_call(ec, available: Tuple[int, ...],
@@ -232,18 +259,37 @@ def fused_repair_call(ec, available: Tuple[int, ...],
         src = _repair_sources(ec, available, erased)
         labels = _labels(ec, "fused-repair", erased)
 
+        def raw(stack: torch.Tensor):
+            rec = ec.decode_chunks_torch(stack, available, erased)
+            data = torch.stack(
+                [stack[:, t] if where == "avail" else rec[:, t]
+                 for where, t in src], dim=1)
+            return rec, ec.encode_chunks_torch(data)
+
+        # the supervised-dispatch couplings (ops/supervisor.py): the
+        # numpy ground-truth twin (serve/batcher.py::_host_repair mirrors
+        # this column assembly) and the rebuild that re-derives the
+        # callable after a live demotion cleared the pattern cache
+        def host_twin(stack: torch.Tensor):
+            from ..serve.batcher import _host_repair
+            return _on_device(_host_repair(ec, _host_array(stack),
+                                           available, erased),
+                              stack.device)
+
+        def rebuild():
+            return fused_repair_call(ec, available, erased)._raw
+
         def call(stack: torch.Tensor):
             if trc.enabled():
                 trc.note_program("engine.fused_repair",
                                  dict(labels, batch=int(stack.shape[0])))
             with tel.record_dispatch("engine_fused_repair_dispatch",
                                      plugin=type(ec).__name__):
-                rec = ec.decode_chunks_torch(stack, available, erased)
-                data = torch.stack(
-                    [stack[:, t] if where == "avail" else rec[:, t]
-                     for where, t in src], dim=1)
-                return rec, ec.encode_chunks_torch(data)
+                return global_supervisor().dispatch(
+                    "engine.fused_repair", raw, (stack,),
+                    host_fn=host_twin, rebuild=rebuild)
 
+        call._raw = raw
         return call
 
     return global_pattern_cache().get_or_build(key, build)
@@ -276,16 +322,36 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
     def build():
         labels = _labels(ec, f"serve-{op}", erased)
 
+        def raw(stack: torch.Tensor):
+            if op == "encode":
+                return ec.encode_chunks_torch(stack)
+            return ec.decode_chunks_torch(stack, available, erased)
+
+        # supervised-dispatch couplings: the numpy batch surfaces are the
+        # ground-truth twin (the batcher's host executor runs them);
+        # rebuild re-derives the callable after a live demotion
+        def host_twin(stack: torch.Tensor):
+            s_np = _host_array(stack)
+            if op == "encode":
+                out = ec.encode_chunks_batch(s_np)
+            else:
+                out = ec.decode_chunks_batch(s_np, available, erased)
+            return _on_device(out, stack.device)
+
+        def rebuild():
+            return serve_dispatch_call(ec, op, available, erased)._raw
+
         def call(stack: torch.Tensor):
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch",
                                  dict(labels, batch=int(stack.shape[0])))
             with tel.record_dispatch("serve_dispatch", op=op,
                                      plugin=type(ec).__name__):
-                if op == "encode":
-                    return ec.encode_chunks_torch(stack)
-                return ec.decode_chunks_torch(stack, available, erased)
+                return global_supervisor().dispatch(
+                    f"engine.serve-{op}", raw, (stack,),
+                    host_fn=host_twin, rebuild=rebuild)
 
+        call._raw = raw
         return call
 
     return global_pattern_cache().get_or_build(key, build)
@@ -354,14 +420,38 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
                  for where, t in src], dim=1)
             return rec, ec.encode_chunks_torch(data)
 
+        # supervised-dispatch couplings (ops/supervisor.py): numpy
+        # ground truth = zero the dead pages, then the same batch
+        # surfaces the dense host twin runs; rebuild re-derives the
+        # callable after a live demotion
+        def host_twin(pool: torch.Tensor, mask: torch.Tensor):
+            x = _host_array(pool) * (_host_array(mask) != 0).astype(
+                np.uint8)[:, None, None]
+            if op == "encode":
+                out = ec.encode_chunks_batch(x)
+            elif op == "decode":
+                out = ec.decode_chunks_batch(x, available, erased)
+            else:
+                from ..serve.batcher import _host_repair
+                out = _host_repair(ec, x, available, erased)
+            return _on_device(out, pool.device)
+
+        def rebuild():
+            return serve_dispatch_ragged(
+                ec, op, available, erased, pages=pages,
+                page_size=page_size)._raw
+
         def call(pool: torch.Tensor, mask: torch.Tensor):
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch_ragged",
                                  dict(labels, batch=int(pool.shape[0])))
             with tel.record_dispatch("serve_dispatch_ragged", op=op,
                                      plugin=type(ec).__name__):
-                return raw(pool, mask)
+                return global_supervisor().dispatch(
+                    f"engine.serve-{op}-ragged", raw, (pool, mask),
+                    host_fn=host_twin, rebuild=rebuild)
 
+        call._raw = raw
         return call
 
     return global_pattern_cache().get_or_build(key, build)

@@ -64,6 +64,18 @@ from ..utils.perf import global_perf
 from .engine import global_pattern_cache, pattern_key
 
 
+def _numpy_tier(device=None) -> bool:
+    """True when the fallback policy runs the numpy ground truth for
+    tensors on ``device``: inside the supervisor's ``numpy_tier()``
+    (self-verify and host-twin completions, which must never dispatch
+    through the backend being verified), or, for a CPU code, at its
+    live numpy floor or forced (``CEPH_TPU_ENGINE=numpy``: a forced
+    numpy tier raises for a card code, which the live tier never
+    moves).  The batch surfaces then never
+    dispatch at any size."""
+    return global_policy().engine(device) == "numpy"
+
+
 class _DeviceCode:
     """A code whose tensors live on ``self.device``."""
 
@@ -98,8 +110,7 @@ class MatrixCodeMixin(_DeviceCode):
         perf = global_perf()
         chunks = np.ascontiguousarray(chunks)
         words = regionops.words_view(chunks, self.w)
-        if (chunks.nbytes < self.min_xla_bytes
-                or global_policy().engine(self.device) == "numpy"):
+        if chunks.nbytes < self.min_xla_bytes or _numpy_tier(self.device):
             perf.inc("ec_host_calls")
             perf.inc("ec_host_bytes", chunks.nbytes)
             with record_dispatch("ec_apply", path="host"):
@@ -251,8 +262,7 @@ class BitmatrixCodeMixin(_DeviceCode):
                bitmatrix_static, sched) -> np.ndarray:
         perf = global_perf()
         chunks = np.ascontiguousarray(chunks)
-        if (chunks.nbytes < self.min_xla_bytes
-                or global_policy().engine(self.device) == "numpy"):
+        if chunks.nbytes < self.min_xla_bytes or _numpy_tier(self.device):
             perf.inc("ec_host_calls")
             perf.inc("ec_host_bytes", chunks.nbytes)
             with record_dispatch("ec_apply", path="host"):

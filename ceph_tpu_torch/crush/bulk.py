@@ -44,8 +44,11 @@ algorithms do), jewel tunables, regular hierarchies, chained steps only
 with n = 1.  Deliberate differences: no jit and no compile step, so
 every rung of the ladder runs (the reference skips a rung it has not
 compiled for a residue under 512 lanes); blocks are sized by the bytes
-their widest grid holds (``block_lanes``), not by a lane budget; no mesh,
-supervisor or profiler seam.
+their widest grid holds (``block_lanes``), not by a lane budget; no mesh
+or profiler seam.  The first rung's block dispatch is the supervised
+seam ``crush.bulk_rule`` (ops/supervisor.py), its host twin the exact
+host mapper (for a map on the CPU; on the card a persistent failure
+raises ``DeviceDispatchError``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import numpy as np
 import torch
 
 from ..ops.fallback import resolve_device
+from ..ops.supervisor import global_supervisor
 from ..utils.perf import global_perf
 from .hash import as_hash_input, hash32_2_torch, hash32_3_torch, \
     hash32_4_torch
@@ -1353,9 +1357,36 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     cnt = torch.zeros(n, dtype=torch.long, device=dev)
     need = torch.zeros(n, dtype=torch.bool, device=dev)
     block = block_lanes(cm, ruleno, result_max, rungs[0][0])
+
+    # the supervised dispatch seam (ops/supervisor.py): the first rung's
+    # block dispatch classifies transient / out-of-memory / backend-loss
+    # failures; the host twin is the exact host mapper the residue
+    # ladder already falls back to, so a demoted completion is
+    # bit-identical by the same invariant (its lanes answer
+    # need_host=False, so they never re-enter the device rungs)
+    def dev_block(xb: torch.Tensor):
+        return fn(xb, wv, all_in)
+
+    def host_block(xb: torch.Tensor):
+        xs_h = xb.cpu().numpy()
+        o_h = np.empty((len(xs_h), result_max), np.int32)
+        c_h = np.empty(len(xs_h), np.int64)
+        for j, x in enumerate(xs_h):
+            r = crush_do_rule(cm.cmap, ruleno, int(x), result_max,
+                              weight=list(weight), choose_args=choose_args)
+            o_h[j] = r + [NONE] * (result_max - len(r))
+            c_h[j] = len(r)
+        return (torch.from_numpy(o_h).to(dev), torch.from_numpy(c_h).to(dev),
+                torch.zeros(len(xs_h), dtype=torch.bool, device=dev))
+
+    sup = global_supervisor()
     for s in range(0, n, block):
         e = min(s + block, n)
-        out[s:e], cnt[s:e], need[s:e] = fn(xs_d[s:e], wv, all_in)
+        # verifiable=False: the device block legitimately differs from
+        # the host twin (need-host flags feed the residue ladder)
+        out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
+            "crush.bulk_rule", dev_block, (xs_d[s:e],),
+            host_fn=host_block, verifiable=False)
         perf.inc("crush_bulk_blocks")
     redo = flagged = _nonzero(need)
 

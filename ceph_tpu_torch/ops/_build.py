@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -80,7 +81,12 @@ def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
         out[src.stem] = target
         if target.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        # a temporary file of this call's own (two threads or processes
+        # building one source never write into one file)
+        fd, name = tempfile.mkstemp(dir=BUILD_DIR, prefix=target.name + ".",
+                                    suffix=".tmp")
+        os.close(fd)
+        tmp = Path(name)
         cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -101,15 +107,23 @@ def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use (a
-    kernel setup in the metrics plane, ``telemetry.metrics``)."""
+    kernel setup in the metrics plane, ``telemetry.metrics``).  The
+    build and the load run outside the lock, which guards only the
+    table of loaded libraries: ``nvcc`` takes seconds, and a second
+    thread racing the first builds into a temporary file of its own
+    (the rename is atomic) and keeps whichever library was loaded
+    first."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
-            path = build([name])[name]
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise KernelBuildError(f"cannot load {path}: {e}") from e
-            _libs[name] = lib
-            tel.note_kernel_setup()
+    if lib is not None:
         return lib
+    path = build([name])[name]
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+    with _lock:
+        first = _libs.setdefault(name, lib)
+    if first is lib:
+        tel.note_kernel_setup()
+    return first

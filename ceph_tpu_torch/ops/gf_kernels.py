@@ -85,8 +85,13 @@ rows this package has (xor / mxu / cuda / torch / numpy); :func:`apply_matrix_be
 dispatch through it.  :func:`select_ragged_engine` projects it onto the
 ragged tiers (cuda / mask / numpy) for :func:`apply_matrix_best_ragged`
 and :func:`apply_matrix_packed_best_ragged`, the paged serving path's
-ops entries.  A forced torch or numpy tier applies to CPU
-tensors only and raises for CUDA tensors (``ops/fallback.py``).
+ops entries.  Those four are the supervised seams ``ops.apply_matrix``,
+``ops.apply_matrix_packed``, ``ops.apply_matrix_ragged`` and
+``ops.apply_matrix_packed_ragged`` (``ops/supervisor.py``): each has a
+rebuild that re-runs the selection under the live tier and, for w=8, a
+numpy twin.  A forced torch or numpy tier, and the supervisor's live
+demotion, apply to CPU tensors only: a CUDA tensor launches its kernel
+or raises (``ops/fallback.py``).
 """
 
 from __future__ import annotations
@@ -105,6 +110,8 @@ from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .launches import device_and_stream, launch_counts, register, \
     reset_launch_counts
+from .supervisor import _tls as _seam_tls
+from .supervisor import global_supervisor
 from .torch_ops import WORD_DTYPE, StaticMatrix, apply_bitmatrix_torch, \
     apply_bitmatrix_xor_torch, apply_matrix_packed_ragged_torch, \
     apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_walk_torch, \
@@ -439,7 +446,7 @@ def dense_plan(batch: int, nbytes: int, matrix_t,
     if err:
         raise KernelLaunchError(
             f"dense_plan failed: CUDA error {err} "
-            f"({lib.gf8_error_string(err).decode()})")
+            f"({lib.gf8_error_string(err).decode()})", code=err)
     return tuple(grid)
 
 
@@ -490,7 +497,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, batch: int, nbytes: int,
     if err:
         raise KernelLaunchError(
             f"GF(2^{w}) matrix kernel failed: CUDA error {err} "
-            f"({lib.gf8_error_string(err).decode()})")
+            f"({lib.gf8_error_string(err).decode()})", code=err)
     return 1
 
 
@@ -811,7 +818,7 @@ def _device_limits(index: int) -> tuple[int, int, int, int]:
     if err:
         raise KernelLaunchError(
             f"gf2_device_limits failed: CUDA error {err} "
-            f"({lib.gf2_error_string(err).decode()})")
+            f"({lib.gf2_error_string(err).decode()})", code=err)
     return tuple(got)
 
 
@@ -991,7 +998,7 @@ def _packet_launch(chunks: torch.Tensor, r: int, w: int, packetsize: int,
     if err:
         raise KernelLaunchError(
             f"the packet kernel failed: CUDA error {err} "
-            f"({lib.gf2_error_string(err).decode()})")
+            f"({lib.gf2_error_string(err).decode()})", code=err)
     return out
 
 
@@ -1141,7 +1148,7 @@ def _launch_xor(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
     if err:
         raise KernelLaunchError(
             f"{fn.__name__} failed: CUDA error {err} "
-            f"({lib.gf8x_error_string(err).decode()})")
+            f"({lib.gf8x_error_string(err).decode()})", code=err)
     fn.launches += 1
 
 
@@ -1271,7 +1278,8 @@ def _device_walk(matrix_t, device: torch.device
 
 def _walk_error(lib, fn, err: int) -> KernelLaunchError:
     return KernelLaunchError(f"{fn.__name__} failed: CUDA error {err} "
-                             f"({lib.gf8cw_error_string(err).decode()})")
+                             f"({lib.gf8cw_error_string(err).decode()})",
+                             code=err)
 
 
 def _launch_walk(fn, x: torch.Tensor, out: torch.Tensor, batch: int,
@@ -1402,21 +1410,26 @@ def unpack_chunks(words: torch.Tensor) -> torch.Tensor:
 
 # -- the numpy tier -----------------------------------------------------------
 
+def _on_host(chunks: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's bytes as a host array; a card tensor raises: the
+    numpy tier never takes the card's work."""
+    if chunks.device.type != "cpu":
+        raise ValueError(f"tensor on {chunks.device}: the numpy tier "
+                         f"takes CPU tensors")
+    return chunks.detach().numpy()
+
+
 def apply_matrix_numpy(chunks: torch.Tensor, matrix_t, w: int = 8
                        ) -> torch.Tensor:
     """The host tier on a CPU tensor's bytes: for w=8
     ``xor_schedule.host_matrix_apply`` (the identical XOR schedule when
     one is preferred, the regionops ground truth otherwise), for w=16/32
     ``regionops.matrix_encode``."""
-    if chunks.device.type != "cpu":
-        raise ValueError(f"tensor on {chunks.device}: the numpy tier "
-                         f"takes CPU tensors")
     mat = np.asarray(matrix_t, dtype=np.int64)
     if w == 8:
-        out = host_matrix_apply(chunks.detach().numpy(), mat,
-                                _static(matrix_t), 8)
+        out = host_matrix_apply(_on_host(chunks), mat, _static(matrix_t), 8)
     else:
-        out = regionops.matrix_encode(chunks.detach().numpy(), mat, w)
+        out = regionops.matrix_encode(_on_host(chunks), mat, w)
     return torch.from_numpy(out)
 
 
@@ -1461,7 +1474,8 @@ def select_matrix_engine(w: int = 8, device=None,
     packet count of a block), reduced to the rows the port has.
     Returns one of:
 
-    - "numpy": the host tier, only when forced on CPU tensors;
+    - "numpy": the host tier: forced, or at the supervisor's live
+               numpy floor, on CPU tensors;
     - "xor":   a w=8 matrix (``matrix_t``, applied to chunks of
                ``shape``) whose XOR schedule the probe prefers
                (``xor_schedule.preferred_schedule``: it beats the dense
@@ -1481,8 +1495,9 @@ def select_matrix_engine(w: int = 8, device=None,
                dense w=8 bytes or packed kernel (any table size:
                ``matrix_kernel_fits``), the w=16/32 word kernel, or a
                bitmatrix kernel;
-    - "torch": the plain torch tier — CPU tensors, and a forced torch
-               tier on CPU tensors.
+    - "torch": the plain torch tier — CPU tensors (a forced torch tier
+               or the supervisor's live demotion, ops/supervisor.py,
+               applies to CPU tensors only).
 
     The order is the reference's (``ceph_tpu/ops/pallas_gf.py``): the
     numpy tier first, then the xor row, then the mxu row and the device
@@ -1544,10 +1559,42 @@ def _run_matrix_packed(words: torch.Tensor, matrix_t, eng: str
     return pack_chunks(apply_matrix_numpy(byts, matrix_t, 8))
 
 
+# -- the supervised seams (ops/supervisor.py).  Their bodies, numpy twins
+# and rebuilds are module functions taking the tier as an argument, so a
+# clean dispatch builds nothing; a rebuilt callable re-runs selection
+# under the live tier
+
+def _bytes_twin(v, matrix_t, w, eng):
+    return _run_matrix_bytes(v, matrix_t, w, "numpy")
+
+
+def _bytes_reselected(v, matrix_t, w, eng):
+    return _run_matrix_bytes(v, matrix_t, w, select_matrix_engine(
+        w, v.device, shape=tuple(v.shape), matrix_t=matrix_t))
+
+
+def _bytes_rebuild():
+    return _bytes_reselected
+
+
+def _packed_twin(v, matrix_t, eng):
+    return _run_matrix_packed(v, matrix_t, "numpy")
+
+
+def _packed_reselected(v, matrix_t, eng):
+    return _run_matrix_packed(v, matrix_t, select_matrix_engine(
+        8, v.device, shape=tuple(v.shape), matrix_t=matrix_t, packed=True))
+
+
+def _packed_rebuild():
+    return _packed_reselected
+
+
 def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
                       ) -> torch.Tensor:
-    """Bytes/words-layout dispatch through select_matrix_engine;
-    byte-identical in every branch.  Each call is timed and counted in
+    """Bytes/words-layout dispatch through select_matrix_engine and the
+    supervised seam ``ops.apply_matrix``; byte-identical in every
+    branch.  Each call is timed and counted in
     ``ops_apply_matrix_{seconds,calls}{engine,layout=bytes}``, as the
     reference's eager dispatch is."""
     if w not in WORD_DTYPE:
@@ -1557,18 +1604,28 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
                                matrix_t=matrix_t)
     with tel.record_dispatch("ops_apply_matrix", engine=eng,
                              layout="bytes"):
-        return _run_matrix_bytes(chunks, matrix_t, w, eng)
+        if _seam_tls.depth:
+            return _run_matrix_bytes(chunks, matrix_t, w, eng)
+        return global_supervisor().dispatch(
+            "ops.apply_matrix", _run_matrix_bytes, (chunks, matrix_t, w, eng),
+            host_fn=_bytes_twin if w == 8 else None, rebuild=_bytes_rebuild)
 
 
 def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
-    """Packed-layout dispatch: (..., s, R, 128) uint32 ->
+    """Packed-layout dispatch through the supervised seam
+    ``ops.apply_matrix_packed``: (..., s, R, 128) uint32 ->
     (..., r, R, 128); byte-identical in every branch.  Recorded in
     ``ops_apply_matrix_*{engine,layout=packed}``."""
     eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
                                matrix_t=matrix_t, packed=True)
     with tel.record_dispatch("ops_apply_matrix", engine=eng,
                              layout="packed"):
-        return _run_matrix_packed(words, matrix_t, eng)
+        if _seam_tls.depth:
+            return _run_matrix_packed(words, matrix_t, eng)
+        return global_supervisor().dispatch(
+            "ops.apply_matrix_packed", _run_matrix_packed,
+            (words, matrix_t, eng), host_fn=_packed_twin,
+            rebuild=_packed_rebuild)
 
 
 # -- the ragged (paged) tier ---------------------------------------------------
@@ -1622,8 +1679,8 @@ def _host_apply_bytes_ragged(pool: torch.Tensor, matrix_t,
                              mask: torch.Tensor) -> torch.Tensor:
     """Numpy ground truth of the ragged bytes dispatch: the host apply
     on the live pages only, scattered into zeros."""
-    arr = pool.detach().numpy()
-    live = mask.numpy() != 0
+    arr = _on_host(pool)
+    live = _on_host(mask) != 0
     out = np.zeros((arr.shape[0], len(matrix_t), arr.shape[-1]), np.uint8)
     if live.any():
         out[live] = apply_matrix_numpy(torch.from_numpy(
@@ -1638,13 +1695,56 @@ def _host_apply_packed_ragged(words: torch.Tensor, matrix_t,
     return pack_chunks(out)
 
 
+def _run_ragged(pool: torch.Tensor, matrix_t, mask: torch.Tensor,
+                packed: bool, eng: str) -> torch.Tensor:
+    """Execute ONE ragged tier (the body of the ragged ops entries)."""
+    if eng == "cuda":
+        return (apply_matrix_cuda_packed_ragged(pool, matrix_t, mask)
+                if packed else apply_matrix_cuda_ragged(pool, matrix_t, mask))
+    if eng == "numpy":
+        return (_host_apply_packed_ragged(pool, matrix_t, mask) if packed
+                else _host_apply_bytes_ragged(pool, matrix_t, mask))
+    x = mask_pages(pool, mask)
+    inner = select_matrix_engine(8, x.device, shape=tuple(x.shape),
+                                 matrix_t=matrix_t, packed=packed)
+    if packed:
+        return _run_matrix_packed(x, matrix_t, inner)
+    return _run_matrix_bytes(x, matrix_t, 8, inner)
+
+
+def _ragged_twin(pool, matrix_t, mask, packed, eng):
+    return _run_ragged(pool, matrix_t, mask, packed, "numpy")
+
+
+def _ragged_reselected(pool, matrix_t, mask, packed, eng):
+    return _run_ragged(pool, matrix_t, mask, packed, select_ragged_engine(
+        pool.shape, matrix_t, 8, packed=packed, device=pool.device))
+
+
+def _ragged_rebuild():
+    return _ragged_reselected
+
+
+def _supervised_ragged_dispatch(seam: str, pool: torch.Tensor, mask,
+                                matrix_t, packed: bool, eng: str
+                                ) -> torch.Tensor:
+    """Supervised-plane routing for one ragged dispatch (a rung split
+    cuts the pool and its mask alike)."""
+    if _seam_tls.depth:
+        return _run_ragged(pool, matrix_t, mask, packed, eng)
+    return global_supervisor().dispatch(
+        seam, _run_ragged, (pool, matrix_t, mask, packed, eng),
+        host_fn=_ragged_twin, rebuild=_ragged_rebuild)
+
+
 def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
                              mask: torch.Tensor, w: int = 8
                              ) -> torch.Tensor:
     """Ragged dispatch over a page pool (P, s, page) of w-bit words under
     a (P,) activity mask -> (P, r, page), dead pages zero in every
-    branch.  w=16/32 pools take the mask tier, as in the reference (the
-    word kernel has no ragged variant)."""
+    branch, through the supervised seam ``ops.apply_matrix_ragged``.
+    w=16/32 pools take the mask tier, unsupervised, as in the reference
+    (the word kernel has no ragged variant)."""
     if pool.dim() != 3:
         raise ValueError(f"need a (P, s, page) pool, got "
                          f"{tuple(pool.shape)}")
@@ -1656,19 +1756,15 @@ def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
     eng = select_ragged_engine(pool.shape, matrix_t, 8, device=pool.device)
     with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
                              layout="bytes"):
-        if eng == "cuda":
-            return apply_matrix_cuda_ragged(pool, matrix_t, mask)
-        if eng == "numpy":
-            return _host_apply_bytes_ragged(pool, matrix_t, mask)
-        x = mask_pages(pool, mask)
-        return _run_matrix_bytes(x, matrix_t, 8, select_matrix_engine(
-            8, x.device, shape=tuple(x.shape), matrix_t=matrix_t))
+        return _supervised_ragged_dispatch("ops.apply_matrix_ragged", pool,
+                                           mask, matrix_t, False, eng)
 
 
 def apply_matrix_packed_best_ragged(words: torch.Tensor, matrix_t,
                                     mask: torch.Tensor) -> torch.Tensor:
     """Packed-layout ragged dispatch: a (P, s, R, 128) uint32 pool under
-    a (P,) mask -> (P, r, R, 128), dead pages zero in every branch."""
+    a (P,) mask -> (P, r, R, 128), dead pages zero in every branch,
+    through the supervised seam ``ops.apply_matrix_packed_ragged``."""
     if words.dim() != 4:
         raise ValueError(f"need a (P, s, R, 128) pool, got "
                          f"{tuple(words.shape)}")
@@ -1677,28 +1773,20 @@ def apply_matrix_packed_best_ragged(words: torch.Tensor, matrix_t,
                                device=words.device)
     with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
                              layout="packed"):
-        if eng == "cuda":
-            return apply_matrix_cuda_packed_ragged(words, matrix_t, mask)
-        if eng == "numpy":
-            return _host_apply_packed_ragged(words, matrix_t, mask)
-        x = mask_pages(words, mask)
-        return _run_matrix_packed(x, matrix_t, select_matrix_engine(
-            8, x.device, shape=tuple(x.shape), matrix_t=matrix_t,
-            packed=True))
+        return _supervised_ragged_dispatch(
+            "ops.apply_matrix_packed_ragged", words, mask, matrix_t, True,
+            eng)
 
 
 def apply_bitmatrix_numpy(chunks: torch.Tensor, bitmatrix_rows, w: int,
                           packetsize: int) -> torch.Tensor:
     """The host ground truth (``regionops.bitmatrix_encode``) on a CPU
     tensor's bytes."""
-    if chunks.device.type != "cpu":
-        raise ValueError(f"tensor on {chunks.device}: the numpy tier "
-                         f"takes CPU tensors")
     sw = chunks.shape[-2] * w
     bits = np.array([[(int(m) >> c) & 1 for c in range(sw)]
                      for m in bitmatrix_rows], dtype=np.uint8)
     return torch.from_numpy(regionops.bitmatrix_encode(
-        chunks.detach().numpy(), bits, w, packetsize))
+        _on_host(chunks), bits, w, packetsize))
 
 
 def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,

@@ -57,7 +57,7 @@ def _raise_on(fn, lib, err: int) -> None:
     if err:
         raise KernelLaunchError(
             f"{fn.__name__} failed: CUDA error {err} "
-            f"({lib.probe_error_string(err).decode()})")
+            f"({lib.probe_error_string(err).decode()})", code=err)
 
 
 def copy_slab_torch(tiles: torch.Tensor) -> torch.Tensor:

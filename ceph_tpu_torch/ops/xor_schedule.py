@@ -13,7 +13,7 @@ A copy of ``ceph_tpu/ops/xor_schedule.py``, kept so that
   (arxiv 1701.07731); :func:`probe_schedule` caches it per matrix and
   :func:`preferred_schedule` is the XOR-density probe the engine table
   consults.  The port has no tuned-config table (ROADMAP Queue A item
-  10), so the reference's ``tuned_cse_topk`` and ``tuned_xor_cutover``
+  6), so the reference's ``tuned_cse_topk`` and ``tuned_xor_cutover``
   are their defaults here, :data:`CSE_TOPK` and :data:`XOR_DENSE_CUTOVER`;
 - the evaluators :func:`eval_schedule` (uint32 SWAR words),
   :func:`apply_schedule_numpy` and :func:`host_matrix_apply` (the host

@@ -3,7 +3,7 @@ the serving plane needs: :func:`run_serving_scenario`, the serving
 event loop, with a ``device`` argument.  Composed scenarios
 (``run_scenario``: churn, recovery and scrub interleaved on one clock)
 and the loop's hooks for them (``sla``, ``interleave``, ``on_result``)
-come with ROADMAP Queue A item 11.
+come with ROADMAP Queue A item 7.
 
 Determinism: with a FakeClock and a deterministic service model, batch
 composition and the SLO report are a pure function of the spec, and

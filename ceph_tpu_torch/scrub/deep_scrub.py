@@ -373,13 +373,19 @@ def repair_batched(sinfo: StripeInfo, ec, stores, hinfos, *,
     budget (before any device work) and ScrubError if any object
     fails a write-back gate (objects that passed are healed first).
 
-    ``device``: None (default) auto-selects — the fused device path on
-    the code's device unless the fallback policy (ops/fallback.py)
-    forces the numpy tier, which it may only for a code on the CPU (a
-    forced numpy tier on a CUDA code raises ValueError; nothing moves
-    to the host when the card fails); False forces the grouped HOST
-    path (same grouping, one plugin batch call per pattern: the
-    bench's ``--device host`` row).
+    ``device``: None (default) auto-selects by the live tier, as the
+    reference does — the fused device path on the code's device unless
+    the fallback policy (ops/fallback.py) runs the numpy tier: inside
+    ``numpy_tier()``, at the supervisor's live numpy floor, or forced,
+    which a forced tier may be only for a code on the CPU (a forced
+    numpy tier on a CUDA code raises ValueError); False forces the
+    grouped HOST path (same grouping, one plugin batch call per
+    pattern: the bench's ``--device host`` row).  A fused call that
+    fails is the supervisor's to survive (ops/supervisor.py: retry and
+    rung split; for a CPU code live demotion and the host twin at the
+    floor; on the card a persistent failure raises
+    ``DeviceDispatchError``, and the objects healed before it stay
+    healed).
 
     ``osdmap``: when given, the grouping is epoch-fenced — the plan is
     stamped with the map's epoch, and before every pattern-batch
@@ -398,8 +404,8 @@ def repair_batched(sinfo: StripeInfo, ec, stores, hinfos, *,
         raise ValueError(f"{len(stores)} stores != {len(hinfos)} "
                          f"HashInfos")
     from ..codes.engine import fused_repair_call
+    from ..codes.techniques import _numpy_tier
     from ..crush.incremental import get_epoch
-    from ..ops.fallback import global_policy
     from ..utils.perf import global_perf
     n = ec.get_chunk_count()
     k = ec.get_data_chunk_count()
@@ -499,8 +505,7 @@ def repair_batched(sinfo: StripeInfo, ec, stores, hinfos, *,
             tel.counter("repair_pattern_batches")
             n_stripes = shard_len // sinfo.chunk_size
             use_device = (device if device is not None
-                          else global_policy().engine(ec.device)
-                          != "numpy")
+                          else not _numpy_tier(ec.device))
             engine_label = "device" if use_device else "host"
             with tracer.span("dispatch", batch=batch_index - 1,
                              engine=engine_label,

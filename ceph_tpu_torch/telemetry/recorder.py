@@ -23,11 +23,17 @@ Triggers (the failure choke points, each wired at its single source):
   tripping (codes/engine.py);
 - ``slo_burn``          — the serving deadline-miss burn-rate monitor
   (serve/sla.py) exceeding its error budget over a rolling window;
-- ``backend_lost``      — the reference's fallback policy dropping,
-  unforced, to the numpy ground-truth tier.  The port's policy is
-  static (ops/fallback.py never demotes; the live tier is ROADMAP
-  Queue A item 4b), so nothing in the port trips it yet; the trigger
-  stays in ``TRIGGERS`` so dumps validate alike in both packages.
+- ``backend_demoted`` / ``repromoted`` / ``output_corruption`` — the
+  supervised dispatch plane (ops/supervisor.py): a live tier demotion
+  (torch -> numpy, CPU tensors and host rows), the health probe's
+  re-promotion, and self-verify catching a corrupted output;
+- ``backend_lost``      — the fallback policy's log-once transition
+  onto the numpy ground-truth tier (ops/fallback.py): in the port a
+  live demotion's first step onto the floor, as a process without a
+  card raises NoDeviceError; and the supervisor's persistent failure
+  on the card, which it raises as DeviceDispatchError.  ``device_quarantined`` stays in
+  ``TRIGGERS`` so dumps validate alike in both packages; its source,
+  the data plane, is ROADMAP Queue A item 5.
 
 Dumps are **deterministic by construction**: entries carry a
 monotonic ``seq`` and clock stamps from the injectable clock, the

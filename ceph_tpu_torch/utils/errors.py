@@ -12,10 +12,11 @@ raises one of them, so consumers can distinguish "retry this"
 (TransientBackendError) from "this read set cannot be decoded, here is
 exactly what is lost" (UnrecoverableError) without string matching.
 
-The port adds three classes for the device tier, so a caller can tell
+The port adds four classes for the device tier, so a caller can tell
 "no card" from "the kernel failed": :class:`NoDeviceError`,
-:class:`KernelBuildError` and :class:`KernelLaunchError`.  None of
-them is ever caught to carry on with a slower tier.
+:class:`KernelBuildError`, :class:`KernelLaunchError` and
+:class:`DeviceDispatchError`.  None of them is ever caught to carry on
+with a slower tier.
 """
 
 from __future__ import annotations
@@ -168,4 +169,30 @@ class KernelBuildError(CephTpuError, RuntimeError):
 
 
 class KernelLaunchError(CephTpuError, RuntimeError):
-    """A kernel launch returned a CUDA error (``cudaGetLastError``)."""
+    """A kernel launch returned a CUDA error (``cudaGetLastError``), or
+    a kernel library disagrees with its wrapper's plan.  ``code`` is the
+    ``cudaError_t`` value where the CUDA runtime returned one (None for
+    a plan mismatch): the supervised dispatch plane
+    (ops/supervisor.py) classifies by this number, never by the
+    message."""
+
+    def __init__(self, msg: str, code: Optional[int] = None) -> None:
+        super().__init__(msg)
+        self.code = None if code is None else int(code)
+
+
+class DeviceDispatchError(CephTpuError, RuntimeError):
+    """A supervised dispatch on the card failed for good: its retries
+    ran out, it ran out of memory at a batch of one, the card was lost
+    (``kind`` "transient" / "oom" / "backend_loss" / "host_loss"), or
+    self-verify caught a corrupted output ("corrupt").  ``seam`` names
+    the dispatch seam; the error it stands for is ``__cause__``.  The
+    supervised dispatch plane (ops/supervisor.py) raises it instead of
+    moving a card tensor's work to the plain ops or to the host; the
+    caller may re-queue the work."""
+
+    def __init__(self, seam: str, kind: str, msg: str) -> None:
+        super().__init__(f"supervised dispatch at seam {seam!r} failed on "
+                         f"the card ({kind}): {msg}")
+        self.seam = seam
+        self.kind = kind

@@ -225,6 +225,51 @@ source, all started together) and then, in order:
    device ms against the pass's wall time; the phase prints its own
    seconds and one ``{"recovery": {...}}`` line.
 
+8. the supervised dispatch plane on the card (``ops/supervisor.py``,
+   ``ops/fallback.py``'s live tier, ``utils/locks.py``):
+
+   - 8a clean: with no fault plan armed, one fused repair per family
+     (``FAMILIES``, one 7d pattern's stack of 6 objects of ~1 MiB)
+     under the supervisor launches exactly the kernels the same call
+     launches with the nested-seam mark set (its body alone), makes one
+     supervised dispatch, returns the host path's bytes, and leaves
+     retries, demotions, host completions and rung downshifts at 0; a
+     warm RS fused call under ``torch.cuda.set_sync_debug_mode("warn")``
+     warns of nothing the unsupervised call does not; the host cost of
+     one clean dispatch (the dispatch alone on a no-op body, the fused
+     repair and ``apply_matrix_best`` on small stacks): issue time per
+     warm call, supervised minus unsupervised, best of 10 turns;
+   - 8b the CLI's ``-w device-chaos --size 4194304 --batch 32 -e 2
+     --device cuda --iterations 1 --seed 42``: 4 faults fired, a retry
+     and a rung downshift (both launch the kernel again), the loss
+     raised twice as ``DeviceDispatchError`` and the pass re-queued (the
+     card's work never moves to the plain ops or the host: no demotion,
+     no host completion, no re-promotion), the heal byte for byte; then
+     one clean fused call launches the dense kernel at tier cuda; GB/s
+     and the split of a pass printed;
+   - 8c a real ``torch.cuda.OutOfMemoryError`` in a child process
+     (``--child oom``): a fused repair of 256 objects of 4 MiB under
+     ``torch.cuda.set_per_process_memory_fraction`` set between the
+     unsplit call's peak and its halves'; the unsplit call raises, the
+     supervised call splits the rung, returns the unsplit bytes and
+     demotes nothing;
+   - 8d CRUSH row A (32 OSDs, chooseleaf firstn host, 3 replicas) over
+     65536 x in blocks of 1024 lanes: a ``transient`` fault at
+     ``crush.bulk_rule`` is retried and the mappings equal the unfailed
+     sweep; a ``backend_loss`` fault raises ``DeviceDispatchError``
+     naming the seam (no host mapper takes the card's block), and the
+     sweep run again once it clears equals the unfailed one;
+   - 8e a 64-request dense serving run (the bench's serving row, cut)
+     with one ``transient`` fault at ``engine.serve-encode``: every
+     request verified, one retry, nothing demoted;
+   - 8f 8b again in a child process under ``CEPH_TPU_LOCKCHECK=1``
+     (``--child lockcheck``): a report that passes
+     ``validate_lockcheck_report``, with no order violation, no blocking
+     event and no unregistered lock.
+
+   8c and 8f start after 8a and run beside 8b, 8d and 8e; the phase
+   prints one ``{"supervisor": {...}}`` line.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
@@ -314,6 +359,21 @@ FAMILIES = (
     ("lrc k=4 m=2 l=3", "lrc", {"k": "4", "m": "2", "l": "3"}),
     ("clay k=8 m=4 d=11", "clay", dict(CLAY)),
 )
+
+# phase 8: the supervised dispatch plane.  8b is the CLI's device-chaos
+# at RADOS's default object size (32 objects, 2 erasures each, 4
+# patterns); 8c a real out-of-memory error on a stack of OOM_OBJECTS
+# 4 MiB objects (1 GiB of data) under a memory fraction the unsplit call
+# cannot fit in and its halves can; 8d CRUSH row A over CHAOS_CRUSH_X x in
+# blocks of 1024 lanes; 8e 64 requests of the bench's serving row
+CHAOS_ARGV = RS_ARGV + ["--workload", "device-chaos", "--size",
+                        str(4 << 20), "--batch", "32", "-e", "2",
+                        "--device", "cuda", "--iterations", "1",
+                        "--seed", "42"]
+SERVE_CHAOS_ARGV = ["--workload", "serving", "--device", "cuda", "--size",
+                    str(1 << 16), "--requests", "64", "--concurrency", "64",
+                    "--seed", "42"]
+OOM_OBJECTS, CHAOS_CRUSH_X = 256, 65536
 
 # the serving stream: 512 closed-loop requests, 64 in flight; RS k=8 m=3
 # at 64 KiB (the bench serving row's size), 1 MiB (the north-star stripe)
@@ -958,6 +1018,9 @@ class PassProbe:
                 end.record()
                 probe.active["events"].append((start, end))
                 return out
+            # the supervisor's rebuild re-derives the body through the
+            # (patched) entry point
+            call._raw = fn._raw
             return call
 
         ecb._LatTimer.run = run
@@ -986,7 +1049,8 @@ def span_seconds(roots: list) -> dict:
     return out
 
 
-def recovery_workload(name: str, argv: list, need=()) -> tuple:
+def recovery_workload(name: str, argv: list, need=(),
+                      phase: str = "phase 7") -> tuple:
     """One recovery workload of the port's CLI on the card, with the
     launch counters at 0 just before it and read just after; every
     kernel in ``need`` must have launched in each timed pass.  Prints the
@@ -1024,12 +1088,12 @@ def recovery_workload(name: str, argv: list, need=()) -> tuple:
         top = {k: v for k, v in spans.items() if k.count("/") <= 1
                or k.endswith(("/scrub", "/plan", "/dispatch", "/verify",
                               "/write_back"))}
-        print(f"phase 7: {name}: pass {i}: wall {p['wall_s']:.3f} s; "
+        print(f"{phase}: {name}: pass {i}: wall {p['wall_s']:.3f} s; "
               f"{len(p['fused_ms'])} fused calls, {fused:.3f} ms on the "
               f"card ({fused / 1e3 / p['wall_s']:.5f} of the pass); "
               f"launches {p['launches']}; span s "
               + ", ".join(f"{k} {v:.3f}" for k, v in sorted(top.items())))
-    print(f"phase 7: {name}: {res['gbps']:.6f} GB/s over "
+    print(f"{phase}: {name}: {res['gbps']:.6f} GB/s over "
           f"{res['total_bytes']} logical bytes, p50 "
           f"{res['lat_p50_ms']:.3f} ms, p99 {res['lat_p99_ms']:.3f} ms "
           f"per pass; {wall:.1f} s with set-up and warm pass; launches "
@@ -1278,10 +1342,469 @@ def recovery_phase(seed: int) -> dict:
     return out
 
 
+# -- phase 8: the supervised dispatch plane on the card -----------------------
+
+def _child(kind: str, env_extra: dict | None = None):
+    """Start ``python3 chip_smoke.py --child KIND`` (8c, 8f) in the
+    background; its last line of output is one JSON object."""
+    env = dict(os.environ)
+    env.update(env_extra or {})
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", kind],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+
+def _child_result(proc, what: str, timeout: float = 600) -> dict:
+    try:
+        out, errs = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"check failed: {what}: child timed out")
+    for line in errs.splitlines()[-5:]:
+        print(f"phase 8: {what} (stderr): {line}")
+    check(proc.returncode == 0, f"{what}: child exit {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _fused_stack(ec, stripes: int, object_size: int, seed: int):
+    """(stack on the card, avail, erased, host stack): ``stripes``
+    stripes of random survivors of objects of ``object_size`` bytes,
+    shard 1 erased.  A fused repair is GF-linear, so any survivor bytes
+    hold the card to the host path."""
+    import numpy as np
+    import torch
+    n = ec.get_chunk_count()
+    chunk = ec.get_chunk_size(object_size)
+    avail = tuple(s for s in range(n) if s != 1)
+    rng = np.random.default_rng(seed)
+    surv = rng.integers(0, 256, (stripes, len(avail), chunk), dtype=np.uint8)
+    return torch.from_numpy(surv).cuda(), avail, (1,), surv
+
+
+def _issue_us(loop, calls: int) -> float:
+    """Host microseconds per call that ``loop()`` (``calls`` warm calls)
+    takes to issue: timed before the barrier, with few enough launches
+    that the card's queue never fills."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def supervisor_phase(seed: int) -> dict:
+    """Phase 8 (the module docstring): the supervised dispatch plane on
+    the card."""
+    import collections
+    import warnings
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.chaos.dispatch import DispatchFault, dispatch_faults
+    from ceph_tpu_torch.codes.engine import fused_repair_call
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.crush.builder import CrushBuilder
+    from ceph_tpu_torch.ops import fallback, supervisor
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_best
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.ops.supervisor import _inside_seam
+    from ceph_tpu_torch.ops.torch_ops import matrix_to_static
+    from ceph_tpu_torch.serve.batcher import _host_repair
+    from ceph_tpu_torch.utils.errors import DeviceDispatchError
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    sup = supervisor.global_supervisor()
+    card = torch.device("cuda")
+    reg = ErasureCodePluginRegistry.instance()
+
+    def delta(before, keys=("retries", "demotions", "host_completions",
+                            "rung_downshifts", "repromotions",
+                            "card_failures", "dispatches")):
+        now = sup.stats()
+        return {k: now[k] - before[k] for k in keys}
+
+    # -- 8a: clean, one fused repair per family --------------------------
+    clean = {}
+    st0 = sup.stats()
+    for label, plugin, profile in FAMILIES:
+        ec = reg.factory(plugin, dict(profile), device="cuda")
+        host = reg.factory(plugin, dict(profile), device="cpu")
+        host.min_xla_bytes = float("inf")
+        # one pattern's stack in 7d: 16 objects over 3 patterns
+        x, avail, erased, surv = _fused_stack(
+            ec, FAMILY_OBJECTS // 3 + 1, FAMILY_SIZE, seed)
+        call = fused_repair_call(ec, avail, erased)
+        call(x)                                         # warm
+        runs = {}
+        for name in ("supervised", "unsupervised"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            d0 = sup.stats()["dispatches"]
+            if name == "supervised":
+                got = call(x)
+            else:
+                with _inside_seam():
+                    got = call(x)
+            torch.cuda.synchronize()
+            runs[name] = ({k: v for k, v in launch_counts().items() if v},
+                          sup.stats()["dispatches"] - d0, got)
+        (l_sup, n_sup, got_sup), (l_raw, n_raw, got_raw) = \
+            runs["supervised"], runs["unsupervised"]
+        check(l_sup == l_raw and l_sup,
+              f"8a {label}: launches {l_sup} supervised, {l_raw} not")
+        check(n_sup == 1 and n_raw == 0,
+              f"8a {label}: one supervised dispatch ({n_sup}, {n_raw})")
+        want = _host_repair(host, surv, avail, erased)
+        for a, b, w in zip(got_sup, got_raw, want):
+            check(torch.equal(a, b) and np.array_equal(a.cpu().numpy(), w),
+                  f"8a {label}: bytes equal the host path")
+        clean[label] = {"launches": l_sup, "stack": list(x.shape)}
+        print(f"phase 8: 8a {label}: fused repair of {tuple(x.shape)}: "
+              f"launches {l_sup} supervised = unsupervised, bytes equal "
+              f"the host path")
+    d = delta(st0)
+    check(d["retries"] == d["demotions"] == d["host_completions"]
+          == d["rung_downshifts"] == d["card_failures"] == 0,
+          f"8a: a clean ladder {d}")
+    # torch's sync debug mode: the supervised call adds no synchronizing
+    # operation to the unsupervised one's
+    ec = reg.factory("jerasure", {"technique": "reed_sol_van", "k": "8",
+                                  "m": "3"}, device="cuda")
+    x, avail, erased, _ = _fused_stack(ec, 4, 1 << 20, seed + 1)
+    call = fused_repair_call(ec, avail, erased)
+    call(x)
+    seen = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for name in ("supervised", "unsupervised"):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                if name == "supervised":
+                    call(x)
+                else:
+                    with _inside_seam():
+                        call(x)
+            seen[name] = collections.Counter(str(m.message) for m in w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    extra = seen["supervised"] - seen["unsupervised"]
+    check(not extra, f"8a: the supervisor adds no synchronize ({extra})")
+    # host cost per clean dispatch: the dispatch alone (a no-op body),
+    # and warm calls of two seams on small stacks, supervised and with
+    # the nested-seam mark set (the same call, unsupervised), in turns
+    xs, avail_s, erased_s, _ = _fused_stack(ec, 1, 8 * 4096, seed + 2)
+    small = fused_repair_call(ec, avail_s, erased_s)
+    ms_rs = matrix_to_static(ec.matrix)
+    enc_x = torch.randint(0, 256, (1, 8, 4096), dtype=torch.uint8,
+                          device=card)
+    noop = np.zeros(1, np.uint8)
+    cost = {}
+    for label, fn, calls in (
+            ("dispatch alone", lambda: sup.dispatch("smoke.noop", len,
+                                                    (noop,)), 20000),
+            ("engine.fused_repair", lambda: small(xs), 200),
+            ("ops.apply_matrix",
+             lambda: apply_matrix_best(enc_x, ms_rs), 400)):
+        fn()
+
+        def supervised():
+            for _ in range(calls):
+                fn()
+
+        def unsupervised():
+            with _inside_seam():
+                for _ in range(calls):
+                    fn()
+        turns = {"supervised": [], "unsupervised": []}
+        for _ in range(5):
+            for name, loop in (("supervised", supervised),
+                               ("unsupervised", unsupervised),
+                               ("unsupervised", unsupervised),
+                               ("supervised", supervised)):
+                turns[name].append(_issue_us(loop, calls))
+        best = {k: min(v) for k, v in turns.items()}
+        cost[label] = {"calls": calls, "supervised_us": turns["supervised"],
+                       "unsupervised_us": turns["unsupervised"],
+                       "us_per_dispatch": best["supervised"]
+                       - best["unsupervised"]}
+        print(f"phase 8: 8a host cost of one clean supervised dispatch, "
+              f"{label}: {cost[label]['us_per_dispatch']:.3f} us (best of "
+              f"10 turns of {calls} warm calls' issue: supervised "
+              f"{best['supervised']:.3f} us a call, unsupervised "
+              f"{best['unsupervised']:.3f}; medians "
+              f"{sorted(turns['supervised'])[5]:.3f} / "
+              f"{sorted(turns['unsupervised'])[5]:.3f})")
+    out["clean"] = {"families": clean, "host_cost": cost,
+                    "sync_warnings": dict(seen["supervised"])}
+
+    # 8c and 8f run in child processes beside 8b, 8d and 8e
+    child_oom = _child("oom")
+    child_lock = _child("lockcheck", {"CEPH_TPU_LOCKCHECK": "1"})
+
+    try:
+        # -- 8b: the CLI's device-chaos at a real size -----------------------
+        bench, res, row = recovery_workload("8b device-chaos", CHAOS_ARGV,
+                                            need=("apply_matrix_cuda",),
+                                            phase="phase 8")
+        sv = res["supervisor"]
+        check(res["verified"] and healed_stores(bench.last_run),
+              "8b: the heal is byte-identical")
+        check(res["faults_fired"] == 4, f"8b: 4 faults fired "
+              f"({res['faults_fired']})")
+        check(sv["card_failures"] == 2, f"8b: the loss raised twice ({sv})")
+        check(sv["rung_downshifts"] >= 1 and sv["retries"] >= 1,
+              f"8b: a retry and a rung split ({sv})")
+        check(sv["demotions"] == sv["host_completions"]
+              == sv["repromotions"] == 0 and not res["demoted_at_end"],
+              f"8b: the card's work stayed on the card ({sv})")
+        check(fallback.global_policy().engine(card) == "cuda",
+              "8b: the tier is cuda")
+        run = bench.last_run
+        x, avail, erased, _ = _fused_stack(run.ec, 2, 1 << 20, seed + 3)
+        reset_launch_counts()
+        fused_repair_call(run.ec, avail, erased)(x)
+        torch.cuda.synchronize()
+        check(launch_counts()["apply_matrix_cuda"] >= 1,
+              "8b: the dense kernel launches after the faults")
+        row.update(supervisor=sv, faults_fired=res["faults_fired"],
+                   demoted_at_end=res["demoted_at_end"])
+        out["device_chaos"] = row
+        print(f"phase 8: 8b: {res['faults_fired']} faults fired; supervisor "
+              f"{sv}; healed byte for byte; the dense kernel launches after "
+              f"the faults at tier cuda")
+
+        # -- 8d: CRUSH row A under a flaky and a lost backend ---------------
+        b = CrushBuilder()
+        root = b.build_two_level(8, 4)
+        b.add_simple_rule(0, root, "host", firstn=True, name="replicated")
+        xs_c = np.arange(CHAOS_CRUSH_X, dtype=np.int64)
+        cm = bulk.CompiledCrushMap(b.map, device="cuda")
+        t0 = time.perf_counter()
+        want, want_n = bulk.bulk_do_rule(cm, 0, xs_c, 3)
+        clean_s = time.perf_counter() - t0
+        iso = supervisor.DispatchSupervisor()
+        prev = supervisor.set_global_supervisor(iso)
+        block_bytes = bulk.BLOCK_BYTES
+        bulk.BLOCK_BYTES = 1                    # blocks of 1024 lanes
+        runs = {}
+        try:
+            for kind in ("transient", "backend_loss"):
+                t0 = time.perf_counter()
+                raised = None
+                with dispatch_faults([DispatchFault(
+                        kind, seam="crush.bulk_rule", at=1, calls=1)],
+                        seed=seed) as plan:
+                    try:
+                        got, got_n = bulk.bulk_do_rule(cm, 0, xs_c, 3)
+                    except DeviceDispatchError as e:
+                        raised = e
+                        got, got_n = bulk.bulk_do_rule(cm, 0, xs_c, 3)
+                    fired = plan.summary()["fired"]
+                check(np.array_equal(got, want)
+                      and np.array_equal(got_n, want_n),
+                      f"8d {kind}: the mappings equal the unfailed sweep")
+                runs[kind] = {"s": time.perf_counter() - t0,
+                              "fired": fired,
+                              "raised": None if raised is None
+                              else f"{raised.seam}: {raised.kind}"}
+        finally:
+            bulk.BLOCK_BYTES = block_bytes
+            supervisor.set_global_supervisor(prev)
+        ist = iso.stats()
+        check(runs["transient"]["raised"] is None
+              and runs["backend_loss"]["raised"]
+              == "crush.bulk_rule: backend_loss",
+              f"8d: the retry heals, the loss raises naming the seam ({runs})")
+        check(ist["retries"] == 1 and ist["card_failures"] == 1
+              and ist["demotions"] == ist["host_completions"] == 0,
+              f"8d: retried once, raised once, nothing moved off the card "
+              f"({ist})")
+        out["crush"] = {"x": CHAOS_CRUSH_X, "clean_s": clean_s, "runs": runs,
+                        "supervisor": {k: ist[k] for k in (
+                            "dispatches", "retries", "card_failures",
+                            "demotions", "host_completions")}}
+        print(f"phase 8: 8d: row A over {CHAOS_CRUSH_X} x (clean "
+              f"{clean_s:.2f} s; blocks of 1024 lanes): a transient fault "
+              f"retried, a lost backend raised and the sweep re-run, both "
+              f"equal to the unfailed sweep: {out['crush']}")
+
+        # -- 8e: serving with one transient fault --------------------------
+        from ceph_tpu_torch.bench.erasure_code_benchmark import \
+            ErasureCodeBench
+        srv = ErasureCodeBench()
+        srv.setup(SERVE_CHAOS_ARGV)
+        st0 = sup.stats()
+        fault = DispatchFault("transient", seam="engine.serve-encode",
+                              at=1, calls=1)
+        with dispatch_faults([fault], seed=seed) as plan:
+            sres = srv.run()
+            fired = plan.summary()
+        d = delta(st0)
+        check(sres["requests"] == 64 and sres["rejected"] == 0,
+              f"8e: 64 requests served ({sres['requests']}, "
+              f"{sres['rejected']} rejected)")
+        check(d["retries"] == 1 and d["demotions"] == 0
+              and fired["fired"] == 1, f"8e: one retry ({d}, {fired})")
+        out["serving"] = {"gbps": sres["gbps"],
+                          "lat_p99_ms": sres["lat_p99_ms"],
+                          "supervisor": d, "plan": fired}
+        print(f"phase 8: 8e: 64 requests verified, {sres['gbps']:.6f} GB/s, "
+              f"p99 {sres['lat_p99_ms']:.3f} ms; supervisor {d}")
+
+        # -- 8f: lockcheck (child) -------------------------------------------
+        lk = _child_result(child_lock, "8f")
+        from ceph_tpu_torch.utils.locks import validate_lockcheck_report
+        rep = lk["lockcheck"]
+        validate_lockcheck_report(rep)
+        check(rep["enabled"] and not rep["order_violations"]
+              and not rep["blocking_events"] and not rep["unregistered"],
+              f"8f: a clean lockcheck report ({rep['order_violations']}, "
+              f"{rep['blocking_events']}, {rep['unregistered']})")
+        check(lk["result"]["faults_fired"] == 4, f"8f: {lk['result']}")
+        out["lockcheck"] = {"locks": len(rep["locks"]),
+                            "edges": len(rep["edges"]),
+                            "held_max_s": max(v["held_max_s"]
+                                              for v in rep["locks"].values()),
+                            "result": lk["result"]}
+        print(f"phase 8: 8f: lockcheck report valid: {len(rep['locks'])} "
+              f"locks, {len(rep['edges'])} edges, 0 order violations, 0 "
+              f"blocking events; the longest hold "
+              f"{out['lockcheck']['held_max_s'] * 1e3:.3f} ms")
+        # -- 8c: a real out-of-memory error (child) --------------------------
+        oom = _child_result(child_oom, "8c")
+        check(oom["oom_raised"] and oom["rung_downshifts"] >= 1
+              and oom["demotions"] == oom["card_failures"] == 0
+              and oom["equal"],
+              f"8c: a real OOM split ({oom})")
+        out["oom"] = oom
+        print(f"phase 8: 8c: {oom}")
+    finally:
+        # a failed check above leaves the children running: stop them
+        for proc in (child_oom, child_lock):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: {out['seconds']:.1f} s")
+    return out
+
+
+def child_main(kind: str) -> int:
+    """The child processes of phase 8: ``oom`` (8c) and ``lockcheck``
+    (8f); each prints one JSON line."""
+    import gc
+    import torch
+    from ceph_tpu_torch.codes.engine import fused_repair_call
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import supervisor
+    from ceph_tpu_torch.ops.supervisor import _inside_seam
+    torch.zeros(1, device="cuda")           # the context, outside any lock
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    if kind == "lockcheck":
+        from ceph_tpu_torch.bench.erasure_code_benchmark import \
+            ErasureCodeBench
+        from ceph_tpu_torch.utils import locks
+        check(locks.lockcheck_enabled(), "8f: CEPH_TPU_LOCKCHECK=1")
+        bench = ErasureCodeBench()
+        bench.setup(list(CHAOS_ARGV) + ["--json"])
+        res = bench.run()
+        check(healed_stores(bench.last_run), "8f: healed")
+        print(json.dumps({"lockcheck": locks.lockcheck_report(),
+                          "result": {k: res[k] for k in (
+                              "supervisor", "faults_fired",
+                              "demoted_at_end", "gbps")}}))
+        return 0
+    # oom: one fused repair of OOM_OBJECTS 4 MiB objects (one shard
+    # erased: the call's temporaries, not its outputs, set its peak)
+    # under a memory fraction the unsplit call cannot fit in and its
+    # halves can
+    n = ec.get_chunk_count()
+    chunk = ec.get_chunk_size(4 << 20)
+    erased = (1,)
+    avail = tuple(s for s in range(n) if s not in erased)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (OOM_OBJECTS, len(avail), chunk),
+                      dtype=torch.uint8, device="cuda", generator=gen)
+    call = fused_repair_call(ec, avail, erased)
+    torch.cuda.synchronize()
+
+    def peak(fn) -> int:
+        """Bytes ``fn`` allocates above what is live when it starts, at
+        its peak; its result is freed before returning."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated() - base
+        return top, tuple(t.cpu() for t in res)
+
+    def split():
+        h = OOM_OBJECTS // 2
+        lo, hi = call(x[:h]), call(x[h:])
+        return tuple(torch.cat([a, b]) for a, b in zip(lo, hi))
+
+    with _inside_seam():
+        p_full, want = peak(lambda: call(x))
+        p_split, _ = peak(split)
+    check(p_split < 0.85 * p_full, f"8c: halves need less ({p_split} "
+          f"against {p_full} bytes)")
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_reserved()
+    limit = base + (p_full + p_split) // 2
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    # the limit holds: one allocation past it raises
+    try:
+        torch.empty(limit - base + (64 << 20), dtype=torch.uint8,
+                    device="cuda")
+        probe_raised = False
+    except torch.cuda.OutOfMemoryError:
+        probe_raised = True
+    torch.cuda.empty_cache()
+    raised = False
+    try:
+        with _inside_seam():
+            call(x)
+    except torch.cuda.OutOfMemoryError as e:
+        raised = True
+        e.__traceback__ = None      # its frames hold the failed call's
+    gc.collect()
+    torch.cuda.empty_cache()
+    sup = supervisor.DispatchSupervisor()
+    supervisor.set_global_supervisor(sup)
+    got = call(x)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    st = sup.stats()
+    print(json.dumps({"oom_raised": raised, "equal": equal,
+                      "limit_probe_raised": probe_raised,
+                      "alloc_conf": os.environ.get(
+                          "PYTORCH_CUDA_ALLOC_CONF"),
+                      "allocator": torch.cuda.get_allocator_backend(),
+                      "reserved_after": torch.cuda.memory_reserved(),
+                      "rung_downshifts": st["rung_downshifts"],
+                      "demotions": st["demotions"],
+                      "card_failures": st["card_failures"],
+                      "retries": st["retries"],
+                      "stack": list(x.shape), "peak_full": p_full,
+                      "peak_split": p_split, "limit": limit,
+                      "reserved_base": base}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random data (default 0)")
+    ap.add_argument("--child", choices=("oom", "lockcheck"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     seed = args.seed
 
@@ -1291,6 +1814,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs a CUDA device", file=sys.stderr)
         return 2
+    if args.child:
+        return child_main(args.child)
     # the port lives beside this script; a bare copy fails here
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.ops import _build, gf_kernels, regionops
@@ -3033,6 +3558,8 @@ def main(argv=None) -> int:
     print(json.dumps({"crush": crush_phase(seed, err)}))
     # -- phase 7: scrub -> repair -> recover on the card ---------------------
     print(json.dumps({"recovery": recovery_phase(seed)}))
+    # -- phase 8: the supervised dispatch plane on the card ------------------
+    print(json.dumps({"supervisor": supervisor_phase(seed)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

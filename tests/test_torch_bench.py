@@ -159,17 +159,23 @@ def test_workload_choices_match_the_reference():
     assert set(port_bench.UNPORTED_WORKLOADS) == (
         set(ref_choices["workload"]) - {"encode", "decode", "serving",
                                         "degraded", "repair-batched",
-                                        "recovery-churn"})
+                                        "recovery-churn", "device-chaos"})
 
 
 def test_device_chaos_names_the_supervisor(capsys):
-    """device-chaos needs the supervisor: its CLI error names item 4b."""
-    with pytest.raises(SystemExit) as exc:
-        port_bench.main(RS + ["--workload", "device-chaos",
-                              "--device", "host"])
-    assert exc.value.code == 2
-    assert ("--workload device-chaos is not ported yet (ROADMAP Queue A "
-            "item 4b (the supervisor))") in capsys.readouterr().err
+    """device-chaos runs on the supervisor: the CLI prints its line, and
+    the row names the supervisor's counter deltas (the reference's, with
+    the card's failures where it has its data plane's quarantines)."""
+    assert "device-chaos" not in port_bench.UNPORTED_WORKLOADS
+    assert port_bench.main(RS + ["--workload", "device-chaos", "--device",
+                                 "host", "--size", "4096", "--batch", "2",
+                                 "--json"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["workload"] == "device-chaos" and row["verified"] is True
+    assert set(row["supervisor"]) == {
+        "retries", "rung_downshifts", "demotions", "card_failures",
+        "repromotions", "host_completions", "hangs", "verify_failures"}
+    assert row["demoted_at_end"] is False
 
 
 # -- the recovery workloads ------------------------------------------------------
@@ -598,6 +604,10 @@ def test_bench_line_rows_are_bench_py_rows_on_the_card():
         bench = _setup(port_bench, bench_line.DEGRADED_COMMON + extra)
         assert bench.args.device == ("host" if bench.args.workload
                                      == "degraded" else "cuda"), name
+    assert bench_line.DEVICE_CHAOS_ROWS == [
+        (n, on_card(a)) for n, a in ref_line.DEVICE_CHAOS_ROWS]
+    assert bench_line.DEVICE_CHAOS_FIELDS == \
+        ref_line.DEVICE_CHAOS_ROW_FIELDS
     assert bench_line.METRIC == \
         "encode_gbps_jerasure_rs_k8_m3_1MiB_stripes"
     for name, argv in bench_line.ENCODE_ROWS:
@@ -713,3 +723,31 @@ def test_profile_dir_and_dump_perf(capsys, tmp_path):
     assert "ceph_tpu_torch" in json.loads(err.strip().splitlines()[-1])
     trace = json.loads((out / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_line_turns_summarises_each_run():
+    """tools/line_turns.py reads one bench line per checkout: the value,
+    each encode row's host ms per step (64 MiB over its GB/s), the
+    decode rows, the device-chaos row and the card."""
+    from ceph_tpu_torch.tools import line_turns
+    line = {"value": 800.0, "carry_chain_gbps": 800.0, "slice_gbps": 700.0,
+            "percall_gbps": 900.0,
+            "encode_rows": {"bytes_carry": {"gbps": 800.0},
+                            "percall": {"gbps": None}},
+            "decode_rows": {"rs_k8_m3_e2": {"gbps": 600.0},
+                            "shec_k6_m3_c2_e1": None},
+            "device_chaos_rows": {"rs_k8_m3_device_chaos": {
+                "gbps": 0.01, "faults_fired": 4, "supervisor": {},
+                "demoted_at_end": False, "kernel_launches": 9}},
+            "topology": {"name": "card", "power_limit": "700.00 W"}}
+    got = line_turns.summary("parent", line)
+    assert got["root"] == "parent" and got["value"] == 800.0
+    assert got["host_ms_per_step"] == {
+        "bytes_carry": 64 * (1 << 20) / 800e9 * 1e3, "percall": None}
+    assert got["decode_gbps"] == {"rs_k8_m3_e2": 600.0,
+                                  "shec_k6_m3_c2_e1": None}
+    assert got["device_chaos"] == {"gbps": 0.01, "faults_fired": 4,
+                                   "supervisor": {},
+                                   "demoted_at_end": False}
+    assert got["card"] == {"name": "card", "power_limit": "700.00 W"}
+    assert got["partial_error"] is None

@@ -422,7 +422,7 @@ def test_host_fault_plan_firing_table_equals_reference():
 
 
 def test_host_chaos_selftest_names_its_items():
-    with pytest.raises(NotImplementedError, match="item 4b.*item 5"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         PORT.hosts.host_chaos_selftest()
 
 

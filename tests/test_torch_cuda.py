@@ -8,7 +8,9 @@ paths that take it), the "mxu" row's column-walk kernel (bytes and
 packed, column splits, row tiles; the clay paths that take it)
 and the roofline tool's copy and fold kernels; and the CRUSH bulk
 evaluator (eager torch, no kernel of its own) and the crushtool /
-osdmaptool CLIs on the card against their CPU runs.  Every test here
+osdmaptool CLIs on the card against their CPU runs; and the supervised
+dispatch plane (clean launches equal to the unsupervised call's, the
+device-chaos row, a lost card raising and the kernel launching after).  Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
 
@@ -1115,3 +1117,131 @@ def test_forced_numpy_tier_on_a_card_code_raises(cuda_device):
     finally:
         fallback.set_global_policy(prev)
     assert [s.snapshot() for s in stores] == before
+
+
+# -- the supervised dispatch plane on the card ----------------------------------
+
+def _isolated_supervisor(**kw):
+    """A fresh policy and supervisor installed globally (on the system
+    clock); returns (supervisor, restore)."""
+    from ceph_tpu_torch.ops import supervisor
+    pol = fallback.FallbackPolicy(force=None)
+    prev_pol = fallback.set_global_policy(pol)
+    sup = supervisor.DispatchSupervisor(**kw)
+    prev = supervisor.set_global_supervisor(sup)
+
+    def restore():
+        supervisor.set_global_supervisor(prev)
+        fallback.set_global_policy(prev_pol)
+    return sup, restore
+
+
+@pytest.mark.parametrize("plugin,profile", [
+    ("jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "8", "m": "3"}),
+    ("shec", {"k": "6", "m": "3", "c": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+], ids=["rs", "cauchy", "shec", "lrc"])
+def test_supervised_fused_repair_launches_as_unsupervised(cuda_device,
+                                                          plugin, profile):
+    """One supervised fused repair on a clean card launches exactly the
+    kernels the same call launches with the supervisor's mark set (its
+    body alone), counts one dispatch, and returns the same bytes."""
+    from ceph_tpu_torch.codes.engine import fused_repair_call
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.ops.supervisor import _inside_seam
+    ec = ErasureCodePluginRegistry.instance().factory(
+        plugin, dict(profile), device="cuda")
+    n = ec.get_chunk_count()
+    avail = tuple(range(1, n))
+    chunk = ec.get_chunk_size(ec.get_data_chunk_count() * (64 << 10))
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, len(avail), chunk), dtype=np.uint8)).to(cuda_device)
+    sup, restore = _isolated_supervisor()
+    try:
+        call = fused_repair_call(ec, avail, (0,))
+        call(x)                                     # warm
+        counts = []
+        outs = []
+        for mark in (False, True):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            d0 = sup.stats()["dispatches"]
+            if mark:
+                with _inside_seam():
+                    outs.append(call(x))
+            else:
+                outs.append(call(x))
+            torch.cuda.synchronize()
+            counts.append(({k: v for k, v in launch_counts().items() if v},
+                           sup.stats()["dispatches"] - d0))
+        assert counts[0][0] == counts[1][0] and counts[0][0]
+        assert counts[0][1] == 1 and counts[1][1] == 0
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        st = sup.stats()
+        assert st["retries"] == st["demotions"] == 0
+        assert st["host_completions"] == st["rung_downshifts"] == 0
+    finally:
+        restore()
+
+
+def test_device_chaos_at_64k_on_the_card(cuda_device):
+    """The bench's device-chaos row on the card: 4 faults fire, the retry
+    and the rung split launch the kernel again, the loss raises at each
+    of its two calls and the pass is re-queued; nothing demotes, no host
+    twin runs, and the heal is byte-identical."""
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    sup, restore = _isolated_supervisor()
+    try:
+        bench = ErasureCodeBench()
+        bench.setup(["--plugin", "jerasure", "-P", "technique=reed_sol_van",
+                     "-P", "k=8", "-P", "m=3", "--size", str(64 << 10),
+                     "--workload", "device-chaos", "--device", "cuda",
+                     "--batch", "8", "--iterations", "1", "-e", "1",
+                     "--seed", "42"])
+        res = bench.run()
+        sv = res["supervisor"]
+        assert res["verified"] and res["faults_fired"] == 4
+        assert sv["retries"] >= 1 and sv["rung_downshifts"] >= 1
+        assert sv["card_failures"] == 2
+        assert sv["demotions"] == sv["host_completions"] == 0
+        assert sv["repromotions"] == 0 and res["demoted_at_end"] is False
+        assert fallback.global_policy().engine(cuda_device) == "cuda"
+    finally:
+        restore()
+
+
+def test_card_loss_raises_and_the_kernel_launches_again(cuda_device):
+    """A persistent loss at ops.apply_matrix on card tensors raises
+    DeviceDispatchError naming the seam: no demotion, no plain ops, no
+    host twin.  Once the fault clears the dense kernel launches again
+    and the bytes are the kernel's."""
+    from ceph_tpu_torch.chaos.dispatch import DispatchFault, dispatch_faults
+    from ceph_tpu_torch.utils.errors import DeviceDispatchError
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    ms = matrix_to_static(ec.matrix)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (4, 8, 65536), dtype=np.uint8)).to(cuda_device)
+    want = apply_matrix_best(x, ms)
+    sup, restore = _isolated_supervisor()
+    try:
+        with dispatch_faults([DispatchFault(
+                "backend_loss", seam="ops.apply_matrix", at=1, calls=2)],
+                seed=1):
+            for _ in range(2):
+                with pytest.raises(DeviceDispatchError) as got:
+                    apply_matrix_best(x, ms)
+                assert got.value.seam == "ops.apply_matrix"
+                assert got.value.kind == "backend_loss"
+            st = sup.stats()
+            assert st["card_failures"] == 2
+            assert st["demotions"] == st["host_completions"] == 0
+            assert not sup.demoted
+            before = apply_matrix_cuda.launches
+            assert torch.equal(apply_matrix_best(x, ms), want)
+            assert apply_matrix_cuda.launches > before
+    finally:
+        restore()

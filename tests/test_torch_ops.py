@@ -334,6 +334,41 @@ def test_build_key_covers_shared_headers(tmp_path):
         assert '#include "on_device.cuh"' in cu.read_text()
 
 
+def test_racing_builds_write_their_own_temporary_files(monkeypatch,
+                                                       tmp_path):
+    """Two threads building one source at once each give nvcc a
+    temporary file of their own, and both end with the one library (a
+    stand-in nvcc writes its -o file after a pause)."""
+    import threading
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// k\n")
+    outs, nvcc = tmp_path / "outs", tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'echo "$2" >> {outs}\nsleep 0.3\necho lib > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    got, errs = [], []
+
+    def run():
+        try:
+            got.append(_build.build(["k"])["k"])
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errs.append(e)
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errs and len(got) == 2 and got[0] == got[1]
+    written = outs.read_text().split()
+    assert len(written) == 2 and len(set(written)) == 2
+    assert got[0].read_text() == "lib\n"
+    assert not list(build.glob("*.tmp"))
+
+
 def test_dense_op_count_matches_reference_model():
     from ceph_tpu_torch.matrices.jerasure import \
         reed_sol_vandermonde_coding_matrix
