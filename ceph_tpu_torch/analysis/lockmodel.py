@@ -27,9 +27,9 @@ that are never held together may share a band.  The bands:
 =========  ==========================================================
 
 The reference's locks the port has no counterpart of yet are left out:
-the data plane's (item 5), the tuning table's and the profiler's (item
-6), the compile-cache, config and sanitizer-mode locks, and the jaxpr
-audit's counter, which has no torch analog.
+the tuning table's and the profiler's (item 6), the compile-cache,
+config and sanitizer-mode locks, and the jaxpr audit's counter, which
+has no torch analog.
 """
 
 from __future__ import annotations
@@ -77,6 +77,8 @@ LOCKS: Tuple[LockSpec, ...] = (
              "lock", "decode-pattern compile cache table"),
     LockSpec("ops._build._lock", "ops._build", 235, "lock",
              "loaded kernel-library table (builds run unlocked)"),
+    LockSpec("parallel.plane._lock", "parallel.plane", 240, "lock",
+             "active data plane + env-resolution flag"),
     LockSpec("chaos.dispatch._lock", "chaos.dispatch", 250, "lock",
              "active fault-plan install/uninstall"),
     LockSpec("chaos.dispatch.DispatchFaultPlan._lock", "chaos.dispatch",

@@ -33,8 +33,9 @@ with ``--device cuda``:
 - ``vs_baseline``: against the in-tree C++ AVX2 RS benchmark
   (``native/build/ceph_erasure_code_benchmark``) run live on this host,
   or null with ``baseline`` saying it is not built.
-- ``topology``: platform, device count, mesh shape (null: no data plane
-  yet), and the card's name and power limit (``nvidia-smi``).
+- ``topology``: platform, device count, mesh shape (the active data
+  plane's, null without one), and the card's name and power limit
+  (``nvidia-smi``).
 - every row carries ``kernel_launches``: the kernel launches of its run
   (``ops/launches.py``).
 
@@ -183,6 +184,8 @@ def _row_result(res: dict, launches: int) -> dict:
     for f in ("lat_p50_ms", "lat_p99_ms", "lat_p999_ms", "lat_samples",
               "config_source", "tune_key_hash", "platform"):
         row[f] = res.get(f)
+    if res.get("mesh_shape") is not None:
+        row["mesh_shape"] = res["mesh_shape"]
     row["kernel_launches"] = launches
     return row
 
@@ -221,9 +224,10 @@ def native_baseline() -> tuple:
 
 
 def _topology(on_card: bool) -> dict:
+    from ..parallel.plane import plane_topology
     topo = {"platform": "gpu" if on_card else None,
             "device_count": torch.cuda.device_count() if on_card else 0,
-            "mesh_shape": None}
+            "mesh_shape": plane_topology() if on_card else None}
     topo.update(card() if on_card else {"name": None,
                                         "power_limit": None})
     return topo

@@ -49,9 +49,18 @@ fused-repair seam: a transient error, an out-of-memory error, then a
 lost backend for two calls; ``--device host`` supervises the grouped
 host repair at a bench seam instead.
 
+``multichip`` (the data plane, ``parallel/``) times the serving encode
+seam's mesh variant over every visible member against the
+single-device call it must equal; ``host-chaos`` runs the batched
+recovery on a plane of ``--hosts`` fault domains while a seeded
+HostLoss takes the last one out, and the supervisor halves the hosts,
+reclaims the in-flight work and re-promotes.  ``--device host`` runs
+both at width 1 (no plane: the host region ops, and a loss that demotes
+to the numpy twin).
+
 Not ported yet, each with the ROADMAP Queue A item that brings its
-module: multichip and host-chaos (item 5), profile and autotune, and
---tune-table (item 6), cluster, scenario and tenant-week (item 7).
+module: profile and autotune, and --tune-table (item 6), cluster,
+scenario and tenant-week (item 7).
 They stay in the flag choices, so --help matches the reference, and
 exit with a CLI error.
 """
@@ -72,15 +81,14 @@ import torch
 from ..codes.registry import ErasureCodePluginRegistry
 from ..telemetry import LatencyHistogram
 
-# device-chaos on the card: passes a run may re-queue after a failure
-# the supervisor raises (the fault script's loss fires on two calls)
+# device-chaos and host-chaos on the card: passes a run may re-queue
+# after a failure the supervisor raises (the scripts' losses fire on two
+# calls)
 _CARD_PASSES = 4
 
 # workloads whose modules are not ported yet -> the ROADMAP Queue A item
 # that ports them
 UNPORTED_WORKLOADS = {
-    "multichip": "item 5 (the data plane)",
-    "host-chaos": "item 5 (the data plane's host partition)",
     "profile": "item 6 (the program profiler)",
     "autotune": "item 6 (tuning)",
     "cluster": "item 7 (cluster)",
@@ -315,8 +323,8 @@ class ErasureCodeBench:
         ap.add_argument("--profile-dir", default=None,
                         help="record a torch.profiler trace here")
         ap.add_argument("--hosts", type=int, default=2,
-                        help="host-chaos workload (not ported yet): "
-                             "simulated host fault domains")
+                        help="host-chaos workload: simulated host fault "
+                             "domains the plane spans")
         ap.add_argument("--seed", type=int, default=42)
         self.args = ap.parse_args(argv)
         if self.args.iterations < 1:
@@ -714,16 +722,18 @@ class ErasureCodeBench:
     def _topology(self) -> dict:
         """Which hardware ran this number: ``platform`` "gpu" for
         --device cuda, "cpu" for --device cpu, null for the host
-        region ops; ``mesh_shape`` null until the data plane is ported
-        (ROADMAP Queue A item 5)."""
+        region ops; ``mesh_shape`` the active data plane's [dp, tp]
+        (parallel/plane.py), null without one."""
         if self.args.device == "host":
             return {"platform": None, "device_count": 0,
                     "mesh_shape": None}
+        from ..parallel.plane import plane_topology
         if self.args.device == "cuda":
             return {"platform": "gpu",
                     "device_count": torch.cuda.device_count(),
-                    "mesh_shape": None}
-        return {"platform": "cpu", "device_count": 1, "mesh_shape": None}
+                    "mesh_shape": plane_topology()}
+        return {"platform": "cpu", "device_count": 1,
+                "mesh_shape": plane_topology()}
 
     def _result(self, workload: str, elapsed: float, total_bytes: int,
                 lat: "_LatTimer | None" = None) -> dict:
@@ -833,6 +843,23 @@ class ErasureCodeBench:
                               chunk_size=sinfo.chunk_size)
             stores.append(store)
         return stores
+
+    @staticmethod
+    def _repair_on_card(workload: str, sinfo, ec, stores, hinfos):
+        """One batched repair of ``stores`` on the card, re-queued on the
+        stores as they stand (the objects healed stay healed) each time
+        the supervisor raises ``DeviceDispatchError``, as recovery
+        re-queues a failed op: the card's work never leaves it."""
+        from ..scrub import repair_batched
+        from ..utils.errors import DeviceDispatchError
+        for _ in range(_CARD_PASSES):
+            try:
+                return repair_batched(sinfo, ec, stores, hinfos,
+                                      device=True)
+            except DeviceDispatchError:
+                continue
+        raise RuntimeError(f"{workload}: no pass completed in "
+                           f"{_CARD_PASSES}")
 
     def _check_faults(self, n: int) -> None:
         a = self.args
@@ -1053,7 +1080,6 @@ class ErasureCodeBench:
         from ..ops.supervisor import global_supervisor
         from ..recovery.orchestrator import healed
         from ..scrub import repair_batched
-        from ..utils.errors import DeviceDispatchError
         a = self.args
         ec = self._instance()
         n = ec.get_chunk_count()
@@ -1090,16 +1116,8 @@ class ErasureCodeBench:
         def run_once():
             stores = self._damaged_stores(sinfo, objects, pool)
             if dev:
-                for _ in range(_CARD_PASSES):
-                    try:
-                        rep = repair_batched(sinfo, ec, stores, hinfos,
-                                             device=True)
-                        break
-                    except DeviceDispatchError:
-                        continue    # re-queued: the objects healed stay
-                else:
-                    raise RuntimeError(f"device-chaos: no pass completed "
-                                       f"in {_CARD_PASSES}")
+                rep = self._repair_on_card("device-chaos", sinfo, ec,
+                                           stores, hinfos)
             else:
                 def call():
                     return repair_batched(sinfo, ec, stores, hinfos,
@@ -1143,10 +1161,197 @@ class ErasureCodeBench:
         res["supervisor"] = {
             key: after[key] - before.get(key, 0)
             for key in ("retries", "rung_downshifts", "demotions",
-                        "card_failures", "repromotions",
+                        "quarantines", "card_failures", "repromotions",
                         "host_completions", "hangs",
                         "verify_failures")}
         res["faults_fired"] = sum(p["fired"] for p in plans)
+        res["demoted_at_end"] = after["demoted"]
+        res["verified"] = True
+        return res
+
+    # -- multichip (the data plane: encode fanned out across the plane's
+    # members through the engine's mesh variant) ------------------------
+
+    def multichip(self) -> dict:
+        """Mesh-sharded encode throughput: --batch stripes of --size
+        bytes through the serving encode seam's mesh variant
+        (serve_dispatch_call under a plane over every visible member:
+        the stripe batch cut into equal member shards, one supervised
+        dispatch per call).  The output is checked byte for byte
+        against the single-device call before timing, and the row
+        carries the mesh shape, the member partition and
+        ``physical_devices`` (the distinct devices among the members: a
+        row over virtual members of one card labels itself).  With one
+        member the plane degrades and the row IS the single-device
+        number, labelled as such; ``--device host`` is that width-1 row
+        on the host region ops."""
+        from ..codes.engine import serve_dispatch_call
+        from ..parallel.plane import mesh_plane, plane_topology
+        from ..utils.shard import last_partition
+        a = self.args
+        ec = self._instance()
+        data = self._make_batch(ec)
+        lat = _LatTimer()
+        if a.device == "host":
+            ec.encode_chunks_batch(data)  # warm caches
+            begin = time.perf_counter()
+            for _ in range(a.iterations):
+                lat.run(lambda: ec.encode_chunks_batch(data))
+            elapsed = time.perf_counter() - begin
+            res = self._result("multichip", elapsed,
+                               data.nbytes * a.iterations, lat)
+            res.update(n_devices=1, physical_devices=1,
+                       stripes_per_device=[a.batch], verified=True)
+            return res
+        dev = self._device()
+        staged = torch.from_numpy(data).to(dev)
+        # the single-device call OUTSIDE the plane: the bytes to equal
+        ref = serve_dispatch_call(ec, "encode", mesh=False)(staged)
+        with mesh_plane(kind=dev.type) as plane:
+            fn = serve_dispatch_call(ec, "encode")
+            out = fn(staged)  # warmup
+            if not torch.equal(out, ref):
+                raise RuntimeError(
+                    "multichip: sharded encode diverged from the "
+                    "single-device engine")
+            shards = last_partition() if plane is not None else [a.batch]
+            _sync(dev)
+            begin = time.perf_counter()
+            for _ in range(a.iterations):
+                out = lat.run(lambda: fn(staged))
+            _sync(dev)
+            elapsed = time.perf_counter() - begin
+            res = self._result("multichip", elapsed,
+                               data.nbytes * a.iterations, lat)
+            res["mesh_shape"] = plane_topology(plane)
+        res["n_devices"] = plane.n_devices if plane is not None else 1
+        res["physical_devices"] = (len(set(plane.members))
+                                   if plane is not None else 1)
+        res["stripes_per_device"] = shards
+        res["verified"] = True
+        return res
+
+    # -- host-chaos (a whole host fault domain drops mid-repair:
+    # recovery-under-host-loss throughput) ------------------------------
+
+    def host_chaos(self) -> dict:
+        """Recovery throughput while a whole HOST fault domain fails
+        mid-run: the batched fused-repair stream of device-chaos, on a
+        plane of ``--hosts`` simulated fault domains over the visible
+        members, while a seeded HostLoss (chaos/hosts.py) takes the last
+        domain out at the seam's 2nd call for two calls.  The supervisor
+        classifies ``host_loss``, halves the hosts (the survivor keeps
+        its members, the work stays on the card), runs the journal
+        reclaim hook, completes the batch and re-promotes to the full
+        host width once the plan clears; zero data loss and the heal
+        byte for byte are gated in-workload, and the row carries the
+        supervisor's counter deltas.  Where no plane of two or more
+        hosts forms on the card (one card, no virtual members), the
+        process is its one fault domain: losing host 0 raises
+        ``DeviceDispatchError`` and the pass is re-queued, as
+        device-chaos does.
+
+        ``--device host``: no plane forms, so the process is its one
+        fault domain — losing host 0 demotes straight to the
+        ground-truth twin (the width-1 ladder) at a bench seam around
+        the grouped host repair."""
+        from ..chaos.hosts import HostFaultPlan, HostLoss, arm_host_plan
+        from ..ops.supervisor import global_supervisor
+        from ..parallel import plane as planemod
+        from ..recovery.orchestrator import healed
+        from ..scrub import repair_batched
+        a = self.args
+        ec = self._instance()
+        n = ec.get_chunk_count()
+        if a.erasures < 1 or a.erasures + a.corruptions >= n:
+            raise ValueError("host-chaos needs 1 <= erasures + "
+                             "corruptions < n")
+        sinfo, objects, hinfos, pool = self._recovery_setup(ec)
+        originals = [s for s, _ in objects]
+        dev = a.device != "host"
+        sup = global_supervisor()
+        seam = "engine.fused_repair" if dev else "bench.host_chaos"
+        prev_plane = None
+        plane = None
+        if dev:
+            prev_plane = planemod.data_plane()
+            plane = planemod.activate(None, hosts=max(2, a.hosts),
+                                      kind=self._device().type)
+        hosts0 = plane.hosts if plane is not None else 1
+        # the victim: the LAST host domain (host 0 when no plane can
+        # form: the process itself is the one fault domain)
+        lost = hosts0 - 1 if hosts0 > 1 else 0
+        reclaims: List[str] = []
+        prev_reclaim = sup.set_inflight_reclaim(
+            lambda s: reclaims.append(s) or 0)
+
+        def fault_script():
+            return HostFaultPlan(
+                [HostLoss(lost, seam=seam, at=(2 if dev else 1),
+                          calls=2)],
+                seed=a.seed)
+
+        runs = []
+
+        def run_once():
+            stores = self._damaged_stores(sinfo, objects, pool)
+            if dev:
+                rep = self._repair_on_card("host-chaos", sinfo, ec,
+                                           stores, hinfos)
+            else:
+                def call():
+                    return repair_batched(sinfo, ec, stores, hinfos,
+                                          device=False)
+                rep = sup.dispatch(seam, call, (), host_fn=call,
+                                   splittable=False)
+            if not healed(stores, originals):
+                raise RuntimeError("host-chaos: data loss under "
+                                   "injected host loss")
+            runs.append(stores)
+            return rep
+
+        try:
+            # warm pattern caches and kernel builds with NO faults armed
+            run_once()
+            runs.clear()
+            before = {key: v for key, v in sup.stats().items()
+                      if isinstance(v, int)}
+            lat = _LatTimer()
+            plans = []
+            begin = time.perf_counter()
+            for _ in range(a.iterations):
+                plan = fault_script()
+                prev = arm_host_plan(plan)
+                try:
+                    lat.run(run_once)
+                    plan.clear()
+                    # drive the health probe to re-promotion so every
+                    # iteration starts at full host width
+                    for _ in range(sup.promote_after + 2):
+                        sup.tick()
+                finally:
+                    arm_host_plan(prev)
+                plans.append(plan.summary())
+            elapsed = time.perf_counter() - begin
+            after = sup.stats()
+        finally:
+            sup.set_inflight_reclaim(prev_reclaim)
+            if dev:
+                planemod.set_data_plane(prev_plane)
+        self.last_run = RecoveryRun(sinfo, ec, objects, runs, pool)
+        res = self._result("host-chaos", elapsed,
+                           sinfo.stripe_width * a.batch * a.iterations,
+                           lat)
+        res["erasures"] = a.erasures
+        res["hosts"] = hosts0
+        res["supervisor"] = {
+            key: after[key] - before.get(key, 0)
+            for key in ("host_quarantines", "host_repromotions",
+                        "journal_redispatches", "retries",
+                        "demotions", "quarantines", "repromotions",
+                        "host_completions", "card_failures")}
+        res["faults_fired"] = sum(p["fired"] for p in plans)
+        res["reclaim_calls"] = len(reclaims)
         res["demoted_at_end"] = after["demoted"]
         res["verified"] = True
         return res
@@ -1223,6 +1428,10 @@ class ErasureCodeBench:
             return self.serving()
         if self.args.workload == "device-chaos":
             return self.device_chaos()
+        if self.args.workload == "multichip":
+            return self.multichip()
+        if self.args.workload == "host-chaos":
+            return self.host_chaos()
         return self.decode()
 
 

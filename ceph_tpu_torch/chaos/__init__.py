@@ -19,8 +19,8 @@ claim replays from a (seed, scenario) pair — and replays the
 reference's: the same seeds give the same faults, event logs and
 firing tables in both packages.  The dispatch plans' consumer is the
 supervised dispatch plane (ops/supervisor.py); the host plans are
-polled there too, but their host-granular reshrink waits for the data
-plane (ROADMAP Queue A item 5).
+polled there too, and answered by the data plane's host-granular
+reshrink (parallel/plane.py).
 """
 
 from .adversaries import (  # noqa: F401

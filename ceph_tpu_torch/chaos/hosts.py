@@ -1,10 +1,10 @@
 """Host-level fault adversaries — the fault plane above chaos/dispatch.py;
 a copy of ``ceph_tpu/chaos/hosts.py``.  The plans are host state
 machines; the supervisor (ops/supervisor.py) polls them at every
-dispatch seam, and their host-granular answer, the host-aware data
-plane, comes with ROADMAP Queue A item 5 (until then a host fault is
-classified ``host_loss`` and the supervisor demotes the tier, or raises
-DeviceDispatchError on the card).
+dispatch seam, and their host-granular answer is the host-aware data
+plane (parallel/plane.py): on a multi-host plane a host fault is
+classified ``host_loss`` and the supervisor halves the hosts; with no
+plane it demotes the tier, or raises DeviceDispatchError on the card.
 
 ``DispatchFault`` kills *calls*; a ``HostFault`` kills a *fault
 domain*: every device one host contributes to the data plane goes away
@@ -278,14 +278,85 @@ def host_faults(plan: HostFaultPlan):
 
 
 def host_chaos_selftest() -> dict:
-    """The reference's host fault-domain arc (``chaos.host_plane``): a
-    seeded HostLoss fires mid-stream on an isolated supervisor and the
-    data plane reshrinks, re-dispatches from the journal and
-    re-promotes.  It needs the data plane (ROADMAP Queue A item 5);
-    until that is ported it raises."""
-    raise NotImplementedError(
-        "host_chaos_selftest needs the data plane (parallel/, ROADMAP "
-        "Queue A item 5), not ported yet")
+    """The host fault-domain arc (the reference's ``chaos.host_plane``
+    audit entry): on an isolated supervisor (own FakeClock and
+    FallbackPolicy, no pattern cache), a seeded HostLoss fires
+    mid-stream and the full survival arc must run; the dispatched
+    callables are numpy, the plane (over the CPU's members, the kind of
+    a host row) is bookkeeping.
+
+    When two or more fault domains can form over the visible members
+    the host-granular arc runs: loss → reshrink (hosts halve, the
+    survivor keeps its members) → journal reclaim hook → quiet plan →
+    health-probe re-promotion restoring the original topology.  With a
+    single member the planeless arc runs instead: the process is its
+    one fault domain, so losing host 0 demotes straight to the
+    ground-truth twin and heals by re-promotion."""
+    import numpy as np
+
+    from ..ops.fallback import FallbackPolicy
+    from ..ops.supervisor import DispatchSupervisor
+    from ..parallel import plane as planemod
+    from ..utils.retry import FakeClock
+
+    pol = FallbackPolicy(force="torch")
+    sup = DispatchSupervisor(
+        clock=FakeClock(), policy=pol, cache_clear=lambda: None,
+        promote_after=2, probe_every=1)
+    data = np.arange(64, dtype=np.uint8).reshape(4, 16)
+
+    def body(x):
+        return x ^ np.uint8(0x5A)
+
+    want = body(data)
+    reclaimed: List[str] = []
+    sup.set_inflight_reclaim(lambda seam: reclaimed.append(seam) or 2)
+
+    prev_plane = planemod.set_data_plane(None)
+    # the dispatches are host rows: only a plane of the host's kind
+    # narrows for them
+    plane0 = planemod.activate(None, hosts=2, kind="cpu")
+    multi = plane0 is not None and plane0.hosts >= 2
+    plan = HostFaultPlan(
+        [HostLoss(1 if multi else 0, seam="selftest.host", at=2,
+                  calls=2)], seed=11)
+    prev = arm_host_plan(plan)
+    try:
+        for _ in range(4):
+            got = sup.dispatch("selftest.host", body, (data,),
+                               host_fn=body, rebuild=lambda: body)
+            if not np.array_equal(np.asarray(got), want):
+                raise AssertionError("host-chaos output diverged")
+        st = sup.stats()
+        if multi:
+            # the reshrink itself (2xN -> 1xN) is transient state: a
+            # finite-window fault heals as soon as the probes run
+            # clean, so the counters are the durable evidence
+            if st["host_quarantines"] < 1:
+                raise AssertionError(f"no host quarantine: {st}")
+            if st["journal_redispatches"] != 2 or not reclaimed:
+                raise AssertionError(f"in-flight reclaim skipped: {st}")
+        elif st["demotions"] < 1 or st["host_completions"] < 1:
+            raise AssertionError(f"planeless loss not demoted: {st}")
+        plan.clear()
+        for _ in range(sup.promote_after + 2):
+            sup.tick()
+        st = sup.stats()
+        if multi:
+            if st["host_repromotions"] < 1:
+                raise AssertionError(f"host width not restored: {st}")
+            p = planemod.data_plane()
+            if p is None or p.hosts != plane0.hosts:
+                raise AssertionError("plane topology not restored")
+        elif st["demoted"]:
+            raise AssertionError(f"planeless loss never healed: {st}")
+    finally:
+        arm_host_plan(prev)
+        planemod.set_data_plane(prev_plane)
+    out = dict(sup.stats())
+    out["plan"] = plan.summary()
+    out["multi_host"] = multi
+    return out
 
 
 __all__ = [

@@ -42,8 +42,19 @@ runs, the matrix applies inside it go straight to their tier (the
 reference traces them into one program), so one call is one supervised
 dispatch.
 
-Not ported: the mesh variants (ROADMAP Queue A item 5) and the program
-profiler (item 6).
+With a data plane active (parallel/plane.py; the ``mesh`` argument
+overrides it: a DataPlane, or falsy for the single-device callable) of
+two or more members of the code's device kind, each callable is its
+mesh variant: the stripe batch (the page axis of a ragged pool, its
+mask alongside) cut into equal member shards, each shard through the
+single-device body, the outputs gathered on the code's device
+(``utils/shard.py``) — still one supervised dispatch per call, byte for
+byte the single-device result, cached under a ``("mesh", n)``-suffixed
+key in the same keyspace, and counted in ``engine_mesh_dispatches``.
+A plane reshrink (the supervisor's quarantine) clears the cache, and
+the rebuild lands on the narrowed plane.
+
+Not ported: the program profiler (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -56,10 +67,12 @@ import torch
 
 from ..ops.supervisor import global_supervisor
 from ..ops.torch_ops import mask_pages
+from ..parallel.plane import plane_for
 from ..telemetry import metrics as tel
 from ..telemetry import tracing as trc
 from ..utils.log import dout
 from ..utils.locks import make_lock
+from ..utils.shard import shard_batch
 from .stripe import _chunk_mapping
 
 DEFAULT_MAX_PATTERNS = 512
@@ -189,11 +202,19 @@ def pattern_key(ec, kind: str, available: tuple, erased: tuple,
 
 
 def _callable_key(ec, kind: str, available: tuple, erased: tuple,
-                  extra: tuple = ()) -> tuple:
+                  extra: tuple = (), plane=None) -> tuple:
     """pattern_key of a cached callable: the code's device joins the
-    extras, since the callable runs on it."""
+    extras, since the callable runs on it, and a mesh variant's key
+    ends in ``("mesh", n)``."""
+    mesh = ("mesh", plane.n_devices) if plane is not None else ()
     return pattern_key(ec, kind, available, erased,
-                       tuple(extra) + ("device", str(ec.device)))
+                       tuple(extra) + ("device", str(ec.device)) + mesh)
+
+
+def _sharded(raw, plane, n_out: int):
+    """``raw`` over the plane's members (utils/shard.py::shard_batch),
+    with ``raw``'s signature: the mesh variant's callable."""
+    return lambda *args: shard_batch(raw, plane, args, n_out=n_out)
 
 
 def _repair_sources(ec, available: tuple, erased: tuple) -> list:
@@ -217,14 +238,15 @@ def _repair_sources(ec, available: tuple, erased: tuple) -> list:
     return src
 
 
-def _labels(ec, kind: str, erased: tuple) -> dict:
+def _labels(ec, kind: str, erased: tuple, plane=None) -> dict:
     """The program series a dispatch rides (the causal-trace link)."""
     return dict(
         plugin=type(ec).__name__, kind=kind,
         profile=",".join(f"{pk}={pv}" for pk, pv in
                          sorted(ec.get_profile().items())),
         pattern="e" + "_".join(map(str, erased)),
-        engine="device", devices=1)
+        engine="mesh" if plane is not None else "device",
+        devices=plane.n_devices if plane is not None else 1)
 
 
 def _host_array(x: torch.Tensor) -> np.ndarray:
@@ -242,7 +264,7 @@ def _on_device(out, device: torch.device):
 # -- fused decode -> re-encode --------------------------------------------
 
 def fused_repair_call(ec, available: Tuple[int, ...],
-                      erased: Tuple[int, ...]):
+                      erased: Tuple[int, ...], mesh=None):
     """One cached callable: survivors (B, n_avail, C) uint8 on the code's
     device -> (rec (B, n_erased, C), parity (B, m, C)) — the decode of
     every erased shard plus the full parity re-encode.
@@ -250,21 +272,25 @@ def fused_repair_call(ec, available: Tuple[int, ...],
     Shard space follows the plugin's decode surface (identity chunk
     ids, or lrc's global positions via get_chunk_mapping); the data
     chunks for the re-encode are assembled from survivor and decoded
-    columns by index, as the reference does."""
+    columns by index, as the reference does.  With a data plane (or a
+    ``mesh``), the mesh variant (module docstring)."""
     available = tuple(available)
     erased = tuple(erased)
-    key = _callable_key(ec, "fused-repair", available, erased)
+    plane = plane_for(mesh, ec.device)
+    key = _callable_key(ec, "fused-repair", available, erased, (), plane)
 
     def build():
         src = _repair_sources(ec, available, erased)
-        labels = _labels(ec, "fused-repair", erased)
+        labels = _labels(ec, "fused-repair", erased, plane)
 
-        def raw(stack: torch.Tensor):
+        def body(stack: torch.Tensor):
             rec = ec.decode_chunks_torch(stack, available, erased)
             data = torch.stack(
                 [stack[:, t] if where == "avail" else rec[:, t]
                  for where, t in src], dim=1)
             return rec, ec.encode_chunks_torch(data)
+
+        raw = body if plane is None else _sharded(body, plane, 2)
 
         # the supervised-dispatch couplings (ops/supervisor.py): the
         # numpy ground-truth twin (serve/batcher.py::_host_repair mirrors
@@ -277,9 +303,12 @@ def fused_repair_call(ec, available: Tuple[int, ...],
                               stack.device)
 
         def rebuild():
-            return fused_repair_call(ec, available, erased)._raw
+            return fused_repair_call(ec, available, erased, mesh=mesh)._raw
 
         def call(stack: torch.Tensor):
+            if plane is not None:
+                tel.counter("engine_mesh_dispatches", tier="fused-repair",
+                            devices=str(plane.n_devices))
             if trc.enabled():
                 trc.note_program("engine.fused_repair",
                                  dict(labels, batch=int(stack.shape[0])))
@@ -298,7 +327,7 @@ def fused_repair_call(ec, available: Tuple[int, ...],
 # -- serving dispatch seams (serve/batcher.py's device calls) -------------
 
 def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
-                        erased: Tuple[int, ...] = ()):
+                        erased: Tuple[int, ...] = (), mesh=None):
     """One cached callable per (plugin, profile, op, erasure pattern,
     device): the seam the continuous batcher fires its shape buckets
     through.
@@ -310,22 +339,27 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
 
     The cache key is :func:`pattern_key` with ``kind=f"serve-{op}"``,
     the keying the decode matrices use, so a warm bucket builds nothing
-    (an armed recompile budget turns a violation into a RuntimeError)."""
+    (an armed recompile budget turns a violation into a RuntimeError).
+    With a data plane (or a ``mesh``), the mesh variant (module
+    docstring)."""
     if op == "repair":
-        return fused_repair_call(ec, available, erased)
+        return fused_repair_call(ec, available, erased, mesh=mesh)
     if op not in ("encode", "decode"):
         raise ValueError(f"serve op {op!r} must be encode|decode|repair")
     available = tuple(available)
     erased = tuple(erased)
-    key = _callable_key(ec, f"serve-{op}", available, erased)
+    plane = plane_for(mesh, ec.device)
+    key = _callable_key(ec, f"serve-{op}", available, erased, (), plane)
 
     def build():
-        labels = _labels(ec, f"serve-{op}", erased)
+        labels = _labels(ec, f"serve-{op}", erased, plane)
 
-        def raw(stack: torch.Tensor):
+        def body(stack: torch.Tensor):
             if op == "encode":
                 return ec.encode_chunks_torch(stack)
             return ec.decode_chunks_torch(stack, available, erased)
+
+        raw = body if plane is None else _sharded(body, plane, 1)
 
         # supervised-dispatch couplings: the numpy batch surfaces are the
         # ground-truth twin (the batcher's host executor runs them);
@@ -339,9 +373,13 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
             return _on_device(out, stack.device)
 
         def rebuild():
-            return serve_dispatch_call(ec, op, available, erased)._raw
+            return serve_dispatch_call(ec, op, available, erased,
+                                       mesh=mesh)._raw
 
         def call(stack: torch.Tensor):
+            if plane is not None:
+                tel.counter("engine_mesh_dispatches", tier=f"serve-{op}",
+                            devices=str(plane.n_devices))
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch",
                                  dict(labels, batch=int(stack.shape[0])))
@@ -366,7 +404,7 @@ def _ragged_surface(ec, op: str):
 
 def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
                           erased: Tuple[int, ...] = (), *,
-                          pages: int, page_size: int):
+                          pages: int, page_size: int, mesh=None):
     """One cached callable per (plugin, profile, op, erasure pattern,
     pool geometry, device): the paged batcher's device seam.
 
@@ -382,23 +420,26 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
     - ``repair``: the fused decode -> column assembly -> re-encode of
       fused_repair_call on the masked page batch -> (rec, parity)
 
-    Not ported: the reference's page sharding over a mesh (ROADMAP
-    Queue A item 5)."""
+    With a data plane (or a ``mesh``) the mesh variant shards the PAGE
+    axis (pages are independent mini-chunks) with the mask alongside; a
+    pool that does not divide pads with zero-mask pages, dead by
+    construction."""
     if op not in ("encode", "decode", "repair"):
         raise ValueError(f"serve op {op!r} must be encode|decode|repair")
     available = tuple(available)
     erased = tuple(erased)
+    plane = plane_for(mesh, ec.device)
     key = _callable_key(ec, f"serve-{op}-ragged", available, erased,
-                        ("paged", int(pages), int(page_size)))
+                        ("paged", int(pages), int(page_size)), plane)
 
     def build():
         src = (_repair_sources(ec, available, erased) if op == "repair"
                else None)
         dec = _ragged_surface(ec, "decode")
         enc = _ragged_surface(ec, "encode")
-        labels = _labels(ec, f"serve-{op}-ragged", erased)
+        labels = _labels(ec, f"serve-{op}-ragged", erased, plane)
 
-        def raw(pool: torch.Tensor, mask: torch.Tensor):
+        def body(pool: torch.Tensor, mask: torch.Tensor):
             if op == "encode":
                 if enc is not None:
                     return enc(ec, pool, mask)
@@ -420,6 +461,9 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
                  for where, t in src], dim=1)
             return rec, ec.encode_chunks_torch(data)
 
+        raw = body if plane is None else _sharded(
+            body, plane, 2 if op == "repair" else 1)
+
         # supervised-dispatch couplings (ops/supervisor.py): numpy
         # ground truth = zero the dead pages, then the same batch
         # surfaces the dense host twin runs; rebuild re-derives the
@@ -439,9 +483,13 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
         def rebuild():
             return serve_dispatch_ragged(
                 ec, op, available, erased, pages=pages,
-                page_size=page_size)._raw
+                page_size=page_size, mesh=mesh)._raw
 
         def call(pool: torch.Tensor, mask: torch.Tensor):
+            if plane is not None:
+                tel.counter("engine_mesh_dispatches",
+                            tier=f"serve-{op}-ragged",
+                            devices=str(plane.n_devices))
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch_ragged",
                                  dict(labels, batch=int(pool.shape[0])))

@@ -1300,12 +1300,26 @@ def block_lanes(cm: CompiledCrushMap, ruleno: int, result_max: int,
     return max(1 << 10, min(MAX_BLOCK, BLOCK_BYTES // per_lane))
 
 
+def _member_map(cm: "CompiledCrushMap", device: torch.device
+                ) -> "CompiledCrushMap":
+    """The compiled map with its tables on ``device``: ``cm`` itself on
+    its own device, else a copy built once per device and kept on
+    ``cm``."""
+    if device == cm.device:
+        return cm
+    copies = cm.__dict__.setdefault("_member_maps", {})
+    if device not in copies:
+        copies[device] = CompiledCrushMap(cm.cmap, cm.choose_args,
+                                          device=device)
+    return copies[device]
+
+
 def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                  weight: Optional[Sequence[int]] = None,
                  bulk_tries: Optional[int] = None,
                  return_stats: bool = False,
                  choose_args: Optional[Dict[int, "ChooseArg"]] = None,
-                 device=None):
+                 device=None, mesh=None):
     """Evaluate a rule for many inputs at once on the device; identical
     to the host mapper.
 
@@ -1320,6 +1334,16 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     lane that completes within a budget is identical at any larger
     budget, so the ladder never changes results — only where they are
     computed.
+
+    ``mesh``: shard the x axis over a data plane's members — a
+    DataPlane or Mesh, or None to follow the active data plane
+    (parallel/plane.py; single-device when none is active, or when its
+    members are not of the map's device kind).  Blocks round up to the
+    member count and a short batch pads by repetition (lane results are
+    x-pure, so pad lanes are dropped); each member evaluates its shard
+    with the map's tables on its own device.  Same rung ladder, same
+    host residue, identical results: the mesh only moves where lanes
+    are computed.
 
     Returns (results (N, result_max) int32 numpy with CRUSH_ITEM_NONE
     holes, counts (N,)); with return_stats also the host-fallback lane
@@ -1351,12 +1375,45 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     rungs = auto_ladder(cm.cmap, ruleno, result_max, bulk_tries)
     perf = global_perf()
     n = len(xs)
-    fn = _get_fn(cm, ruleno, result_max, *rungs[0])
     xs_d = torch.from_numpy(xs).to(dev)
     out = torch.full((n, result_max), NONE, dtype=torch.int32, device=dev)
     cnt = torch.zeros(n, dtype=torch.long, device=dev)
     need = torch.zeros(n, dtype=torch.bool, device=dev)
     block = block_lanes(cm, ruleno, result_max, rungs[0][0])
+    from ..parallel.plane import plane_for
+    plane = plane_for(mesh, dev)
+    nd = plane.n_devices if plane is not None else 1
+    if nd > 1:
+        block = -(-block // nd) * nd        # member-divisible blocks
+        from ..telemetry import metrics as tel
+        tel.counter("engine_mesh_dispatches", tier="crush-bulk",
+                    devices=str(nd))
+    member_wv = {dev: wv}
+
+    def rung(tries, lcap, fix):
+        """The rung's evaluator over x lanes on the map's device: the
+        compiled rule, sharded over the plane's members when one is
+        active (each member's tables and weights on its own device)."""
+        def local(xb: torch.Tensor):
+            cm_d = _member_map(cm, xb.device)
+            if xb.device not in member_wv:
+                member_wv[xb.device] = wv.to(xb.device)
+            return _get_fn(cm_d, ruleno, result_max, tries, lcap, fix)(
+                xb, member_wv[xb.device], all_in)
+        if plane is None:
+            return local
+
+        def sharded(xb: torch.Tensor):
+            from ..utils.shard import shard_batch
+            m = xb.shape[0]
+            pad = (-m) % nd
+            if pad:
+                xb = torch.cat([xb, xb[:1].repeat(pad)])
+            o, c, nh = shard_batch(local, plane, (xb,), n_out=3)
+            return o[:m], c[:m], nh[:m]
+        return sharded
+
+    fn = rung(*rungs[0])
 
     # the supervised dispatch seam (ops/supervisor.py): the first rung's
     # block dispatch classifies transient / out-of-memory / backend-loss
@@ -1365,7 +1422,7 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     # bit-identical by the same invariant (its lanes answer
     # need_host=False, so they never re-enter the device rungs)
     def dev_block(xb: torch.Tensor):
-        return fn(xb, wv, all_in)
+        return fn(xb)
 
     def host_block(xb: torch.Tensor):
         xs_h = xb.cpu().numpy()
@@ -1396,12 +1453,12 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     for tries, lcap, fix in rungs[1:]:
         if not redo.numel():
             break
-        fn2 = _get_fn(cm, ruleno, result_max, tries, lcap, fix)
+        fn2 = rung(tries, lcap, fix)
         rblock = block_lanes(cm, ruleno, result_max, tries)
         host_lanes = []
         for s in range(0, redo.numel(), rblock):
             idx = redo[s:s + rblock]
-            out[idx], cnt[idx], nh = fn2(xs_d[idx], wv, all_in)
+            out[idx], cnt[idx], nh = fn2(xs_d[idx])
             host_lanes.append(idx[_nonzero(nh)])
             perf.inc("crush_bulk_blocks")
         redo = torch.cat(host_lanes)

@@ -329,11 +329,16 @@ class OSDMap:
         pool = self.pools[pool_id]
         pps = pool.pps_all()
         if engine == "sharded":
-            raise ValueError(
-                "engine='sharded' needs the data plane "
-                "(parallel/sharded_crush.py), not ported yet: ROADMAP "
-                "Queue A item 5")
-        if engine == "bulk":
+            # the whole-pool sweep sharded over every visible member of
+            # the map's device kind
+            from ..parallel.sharded_crush import (default_crush_mesh,
+                                                  sharded_bulk_do_rule)
+            cm = self._compiled_map()
+            raw_arr, _ = sharded_bulk_do_rule(
+                default_crush_mesh(kind=cm.device.type), cm,
+                pool.crush_rule, pps, pool.size,
+                weight=list(self.osd_weight))
+        elif engine == "bulk":
             from .bulk import bulk_do_rule
             raw_arr, _ = bulk_do_rule(
                 self._compiled_map(), pool.crush_rule, pps, pool.size,

@@ -106,6 +106,7 @@ import numpy as np
 import torch
 
 from . import regionops
+from ..parallel import plane as _planes
 from ._build import load
 from .fallback import FallbackPolicy, global_policy
 from .launches import device_and_stream, launch_counts, register, \
@@ -120,6 +121,7 @@ from .xor_schedule import RowProgram, XorSchedule, host_matrix_apply, \
     plain_row_program, preferred_schedule, row_program, word_program
 from ..telemetry import metrics as tel
 from ..utils.errors import KernelLaunchError
+from ..utils.shard import shard_batch
 
 LANE = 128             # words per row of the packed layout
 PACKED_ROW_BYTES = 4 * LANE
@@ -1468,7 +1470,8 @@ def _matrix_nnz(matrix_t) -> int:
 
 def select_matrix_engine(w: int = 8, device=None,
                          engine: str | None = None, *, shape=None,
-                         matrix_t=None, packed: bool = False) -> str:
+                         matrix_t=None, packed: bool = False,
+                         mesh=None) -> str:
     """THE engine-selection table for GF(2^w) matrix applies (w in
     {8, 16, 32}) and GF(2) bitmatrix applies (``w`` then names the
     packet count of a block), reduced to the rows the port has.
@@ -1476,6 +1479,12 @@ def select_matrix_engine(w: int = 8, device=None,
 
     - "numpy": the host tier: forced, or at the supervisor's live
                numpy floor, on CPU tensors;
+    - "mesh":  an active data plane (``parallel/plane.py``; ``mesh``
+               overrides it: a DataPlane, or falsy to disable the row)
+               with two or more members of the tensor's device kind, and
+               a stripe-batched shape (rank >= 3, >= 4 packed) of two or
+               more stripes: equal stripe shards, one per member, each
+               on the single-device tier below (``_apply_matrix_mesh``);
     - "xor":   a w=8 matrix (``matrix_t``, applied to chunks of
                ``shape``) whose XOR schedule the probe prefers
                (``xor_schedule.preferred_schedule``: it beats the dense
@@ -1500,13 +1509,13 @@ def select_matrix_engine(w: int = 8, device=None,
                applies to CPU tensors only).
 
     The order is the reference's (``ceph_tpu/ops/pallas_gf.py``): the
-    numpy tier first, then the xor row, then the mxu row and the device
-    tier, which only a device tensor reaches (the reference's "xla" is
-    the port's "torch").  ``engine`` forces a tier for this call in
-    place of the process policy; like the policy's, a forced torch or
-    numpy tier raises for a CUDA ``device``, so a card tensor never
-    leaves the kernels.  Not ported: the mesh row (it comes with the
-    data plane) and the tuned pins and cutover (with the tuning table).
+    numpy tier first, then the mesh row, the xor row, then the mxu row
+    and the device tier, which only a device tensor reaches (the
+    reference's "xla" is the port's "torch").  ``engine`` forces a tier
+    for this call in place of the process policy; like the policy's, a
+    forced torch or numpy tier raises for a CUDA ``device``, so a card
+    tensor never leaves the kernels.  Not ported: the tuned pins and
+    cutover (they come with the tuning table, ROADMAP Queue A item 6).
     """
     if w < 1:
         raise ValueError(f"w={w} must be positive")
@@ -1514,6 +1523,13 @@ def select_matrix_engine(w: int = 8, device=None,
     eng = policy.engine(device)
     if eng == "numpy":
         return "numpy"
+    if (shape is not None and len(shape) >= (4 if packed else 3)
+            and shape[0] >= 2
+            # no plane and no override: one module-global read, no call
+            and (mesh is not None or _planes._active is not None
+                 or not _planes._env_resolved)
+            and _planes.plane_for(mesh, device) is not None):
+        return "mesh"
     static = _static(matrix_t) if matrix_t else None
     if (w == 8 and static
             and (packed or (shape is not None and len(shape) >= 2
@@ -1527,10 +1543,12 @@ def select_matrix_engine(w: int = 8, device=None,
     return eng
 
 
-def _run_matrix_bytes(chunks: torch.Tensor, matrix_t, w: int, eng: str
-                      ) -> torch.Tensor:
+def _run_matrix_bytes(chunks: torch.Tensor, matrix_t, w: int, eng: str,
+                      mesh=None) -> torch.Tensor:
     """Execute ONE engine tier on bytes/words-layout chunks (the body of
     apply_matrix_best, and of the ragged mask tier, unrecorded)."""
+    if eng == "mesh":
+        return _apply_matrix_mesh(chunks, matrix_t, w, False, mesh)
     if eng == "xor":
         return apply_matrix_xor_cuda(chunks, _xor_static(matrix_t))
     if eng == "mxu":
@@ -1544,9 +1562,11 @@ def _run_matrix_bytes(chunks: torch.Tensor, matrix_t, w: int, eng: str
     return apply_matrix_numpy(chunks, matrix_t, w)
 
 
-def _run_matrix_packed(words: torch.Tensor, matrix_t, eng: str
+def _run_matrix_packed(words: torch.Tensor, matrix_t, eng: str, mesh=None
                        ) -> torch.Tensor:
     """Packed-layout twin of _run_matrix_bytes."""
+    if eng == "mesh":
+        return _apply_matrix_mesh(words, matrix_t, 8, True, mesh)
     if eng == "xor":
         return apply_matrix_xor_cuda_packed(words, _xor_static(matrix_t))
     if eng == "mxu":
@@ -1559,72 +1579,107 @@ def _run_matrix_packed(words: torch.Tensor, matrix_t, eng: str
     return pack_chunks(apply_matrix_numpy(byts, matrix_t, 8))
 
 
+def _apply_matrix_mesh(x: torch.Tensor, matrix_t, w: int, packed: bool,
+                       mesh) -> torch.Tensor:
+    """The mesh tier: the stripe batch cut into equal shards, one per
+    plane member (zero-padded to a multiple of the member count, the
+    pad rows dropped from the output: GF region math is row-local),
+    each shard on the single-device tier, the output gathered on
+    ``x``'s device; byte-identical to the single-device tier by
+    construction (``utils/shard.py``).  One supervised dispatch at the
+    seam above it; the per-member applies run bare."""
+    plane = _planes.plane_for(mesh, x.device)
+    # the per-member tier, selected on a one-stripe shape with the mesh
+    # row off (the batch size never changes the other rows)
+    inner = select_matrix_engine(w, x.device, shape=(1,) + tuple(x.shape[1:]),
+                                 matrix_t=matrix_t, packed=packed, mesh=0)
+    if plane is None:
+        # the plane went away between selection and dispatch (a
+        # reshrink): the single-device tier, never the host
+        if packed:
+            return _run_matrix_packed(x, matrix_t, inner)
+        return _run_matrix_bytes(x, matrix_t, w, inner)
+    tel.counter("engine_mesh_dispatches",
+                tier=f"apply-{'packed' if packed else 'bytes'}",
+                devices=str(plane.n_devices))
+    if packed:
+        return shard_batch(lambda v: _run_matrix_packed(v, matrix_t, inner),
+                           plane, (x,))
+    return shard_batch(lambda v: _run_matrix_bytes(v, matrix_t, w, inner),
+                       plane, (x,))
+
+
 # -- the supervised seams (ops/supervisor.py).  Their bodies, numpy twins
 # and rebuilds are module functions taking the tier as an argument, so a
 # clean dispatch builds nothing; a rebuilt callable re-runs selection
 # under the live tier
 
-def _bytes_twin(v, matrix_t, w, eng):
+def _bytes_twin(v, matrix_t, w, eng, mesh=None):
     return _run_matrix_bytes(v, matrix_t, w, "numpy")
 
 
-def _bytes_reselected(v, matrix_t, w, eng):
+def _bytes_reselected(v, matrix_t, w, eng, mesh=None):
     return _run_matrix_bytes(v, matrix_t, w, select_matrix_engine(
-        w, v.device, shape=tuple(v.shape), matrix_t=matrix_t))
+        w, v.device, shape=tuple(v.shape), matrix_t=matrix_t), None)
 
 
 def _bytes_rebuild():
     return _bytes_reselected
 
 
-def _packed_twin(v, matrix_t, eng):
+def _packed_twin(v, matrix_t, eng, mesh=None):
     return _run_matrix_packed(v, matrix_t, "numpy")
 
 
-def _packed_reselected(v, matrix_t, eng):
+def _packed_reselected(v, matrix_t, eng, mesh=None):
     return _run_matrix_packed(v, matrix_t, select_matrix_engine(
-        8, v.device, shape=tuple(v.shape), matrix_t=matrix_t, packed=True))
+        8, v.device, shape=tuple(v.shape), matrix_t=matrix_t, packed=True),
+        None)
 
 
 def _packed_rebuild():
     return _packed_reselected
 
 
-def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8
-                      ) -> torch.Tensor:
+def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8,
+                      mesh=None) -> torch.Tensor:
     """Bytes/words-layout dispatch through select_matrix_engine and the
     supervised seam ``ops.apply_matrix``; byte-identical in every
-    branch.  Each call is timed and counted in
-    ``ops_apply_matrix_{seconds,calls}{engine,layout=bytes}``, as the
+    branch.  ``mesh`` overrides the active data plane (a DataPlane, or
+    falsy for the single-device tiers).  Each call is timed and counted
+    in ``ops_apply_matrix_{seconds,calls}{engine,layout=bytes}``, as the
     reference's eager dispatch is."""
     if w not in WORD_DTYPE:
         raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
                          f"got w={w}")
     eng = select_matrix_engine(w, chunks.device, shape=tuple(chunks.shape),
-                               matrix_t=matrix_t)
+                               matrix_t=matrix_t, mesh=mesh)
     with tel.record_dispatch("ops_apply_matrix", engine=eng,
                              layout="bytes"):
         if _seam_tls.depth:
-            return _run_matrix_bytes(chunks, matrix_t, w, eng)
+            return _run_matrix_bytes(chunks, matrix_t, w, eng, mesh)
         return global_supervisor().dispatch(
-            "ops.apply_matrix", _run_matrix_bytes, (chunks, matrix_t, w, eng),
+            "ops.apply_matrix", _run_matrix_bytes,
+            (chunks, matrix_t, w, eng, mesh),
             host_fn=_bytes_twin if w == 8 else None, rebuild=_bytes_rebuild)
 
 
-def apply_matrix_packed_best(words: torch.Tensor, matrix_t) -> torch.Tensor:
+def apply_matrix_packed_best(words: torch.Tensor, matrix_t, mesh=None
+                             ) -> torch.Tensor:
     """Packed-layout dispatch through the supervised seam
     ``ops.apply_matrix_packed``: (..., s, R, 128) uint32 ->
-    (..., r, R, 128); byte-identical in every branch.  Recorded in
+    (..., r, R, 128); byte-identical in every branch.  ``mesh`` as in
+    apply_matrix_best.  Recorded in
     ``ops_apply_matrix_*{engine,layout=packed}``."""
     eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
-                               matrix_t=matrix_t, packed=True)
+                               matrix_t=matrix_t, packed=True, mesh=mesh)
     with tel.record_dispatch("ops_apply_matrix", engine=eng,
                              layout="packed"):
         if _seam_tls.depth:
-            return _run_matrix_packed(words, matrix_t, eng)
+            return _run_matrix_packed(words, matrix_t, eng, mesh)
         return global_supervisor().dispatch(
             "ops.apply_matrix_packed", _run_matrix_packed,
-            (words, matrix_t, eng), host_fn=_packed_twin,
+            (words, matrix_t, eng, mesh), host_fn=_packed_twin,
             rebuild=_packed_rebuild)
 
 
@@ -1667,7 +1722,7 @@ def select_ragged_engine(shape, matrix_t, w: int = 8, packed: bool = False,
     - "numpy": the numpy tier was forced (CPU tensors only).
     """
     inner = select_matrix_engine(w, device, engine, shape=tuple(shape),
-                                 matrix_t=matrix_t, packed=packed)
+                                 matrix_t=matrix_t, packed=packed, mesh=0)
     if inner == "numpy":
         return "numpy"
     if inner == "cuda" and shape[0] >= tuned_ragged_cutover():
@@ -1706,7 +1761,7 @@ def _run_ragged(pool: torch.Tensor, matrix_t, mask: torch.Tensor,
                 else _host_apply_bytes_ragged(pool, matrix_t, mask))
     x = mask_pages(pool, mask)
     inner = select_matrix_engine(8, x.device, shape=tuple(x.shape),
-                                 matrix_t=matrix_t, packed=packed)
+                                 matrix_t=matrix_t, packed=packed, mesh=0)
     if packed:
         return _run_matrix_packed(x, matrix_t, inner)
     return _run_matrix_bytes(x, matrix_t, 8, inner)
@@ -1752,7 +1807,7 @@ def apply_matrix_best_ragged(pool: torch.Tensor, matrix_t,
     if w != 8:
         x = mask_pages(pool, mask)
         return _run_matrix_bytes(x, matrix_t, w, select_matrix_engine(
-            w, x.device, shape=tuple(x.shape), matrix_t=matrix_t))
+            w, x.device, shape=tuple(x.shape), matrix_t=matrix_t, mesh=0))
     eng = select_ragged_engine(pool.shape, matrix_t, 8, device=pool.device)
     with tel.record_dispatch("ops_apply_matrix_ragged", engine=eng,
                              layout="bytes"):

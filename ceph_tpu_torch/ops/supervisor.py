@@ -19,6 +19,16 @@ oom                 batch-rung downshift: split the stripe batch in
                     half and redispatch the halves (recursively, to
                     rung 1), outputs re-joined by ``torch.cat`` on
                     their own device, byte-identically
+mesh-member loss    device quarantine: with a data plane of two or
+                    more members active, a persistent failure halves
+                    the plane (8 -> 4 -> 2 -> single-device) and the
+                    seam's callable rebuilds on the narrowed plane; the
+                    work stays where it was (card or CPU)
+host loss           host quarantine: on a multi-host plane the hosts
+                    halve (every member the lost domain contributed at
+                    once), the journaled in-flight intents of the lost
+                    host are reclaimed (``set_inflight_reclaim``), then
+                    the device ladder runs inside the survivor
 backend_loss        LIVE ``FallbackPolicy.demote()`` down the
                     torch -> numpy ladder (CPU tensors and host rows),
                     with the pattern cache cleared and the seam's
@@ -71,22 +81,25 @@ illegal instruction, a launch failure, a kernel that runs until the
 watchdog stops it) are never classified: demoting past a bug in our
 own kernel would hide it.
 
-**The card's work stays on the card.**  On the card a wrapper launches
+**The card's work stays on the card.** On the card a wrapper launches
 its kernel or raises, so the ladder's tier steps apply only to
-dispatches on CPU tensors and host rows.  A dispatch on CUDA tensors
-keeps the retry and the rung split, both of which launch the kernel
-again; a failure that would demote there (retries exhausted, out of
-memory at a batch of one, a lost card or host, a hang, a corrupted
-output caught by self-verify) raises :class:`DeviceDispatchError`
-naming the seam and the class, counted as ``card_failures`` and frozen
-in the flight recorder (``backend_lost``).  The caller may re-queue
-the work, as the bench's device-chaos row does.
+dispatches on CPU tensors and host rows; a plane's reshrink keeps the
+work on the plane's surviving members, so it applies on the card too.
+A dispatch on CUDA tensors keeps the retry and the rung split, both of
+which launch the kernel again; a failure that would demote there
+(retries exhausted, out of memory at a batch of one, a lost card or
+host, a hang, a corrupted output caught by self-verify) raises
+:class:`DeviceDispatchError` naming the seam and the class, counted as
+``card_failures`` and frozen in the flight recorder
+(``backend_lost``). The caller may re-queue the work, as the bench's
+device-chaos row does. A plane already at width 1 cannot reshrink: on
+the card its loss raises the same way.
 
 What else differs from the reference:
 
-- **No data plane yet** (ROADMAP Queue A item 5): the ladder has no
-  mesh or host quarantine step.  :func:`plane_degraded` is here,
-  because the plane imports it.
+- **Re-promotion** restores the tier, the plane's width and its host
+  partition once the fault plans hold nothing persistent
+  (``_probe_ok``); there is no health probe of the card itself.
 - **The clean path is lean.**  With no fault plan armed, nothing
   demoted, self-verify off and no deadline, a dispatch is one counter
   increment and ``fn(*args)`` inside a ``try``: no synchronize, no host
@@ -271,15 +284,21 @@ def _cut_batch(args, b: int, cut: slice) -> tuple:
                  and a.ndim and a.shape[0] == b else a for a in args)
 
 
+def _dispatch_kind(args) -> str:
+    """The device type this dispatch runs on: its first tensor
+    argument's ("cuda" or "cpu"), "cpu" for host rows."""
+    for a in args:
+        dev = getattr(a, "device", None)
+        if isinstance(dev, torch.device):
+            return dev.type
+    return "cpu"
+
+
 def _on_card(args) -> bool:
     """Does this dispatch run on the card (its first tensor argument a
     CUDA tensor)?  Its work then stays there: no tier step, no host
     twin."""
-    for a in args:
-        dev = getattr(a, "device", None)
-        if isinstance(dev, torch.device):
-            return dev.type == "cuda"
-    return False
+    return _dispatch_kind(args) == "cuda"
 
 
 def _to_host(args) -> tuple:
@@ -303,10 +322,10 @@ class DispatchSupervisor:
       (``CEPH_TPU_SELF_VERIFY=1``); detected corruption is
       reclassified as a backend fault and never returned.
     - ``promote_after``: consecutive clean health probes before a
-      demoted tier re-promotes.
+      demoted tier / quarantined plane re-promotes.
     - ``policy`` / ``cache_clear``: injectable process couplings (the
       global FallbackPolicy, the engine PatternCache clear) so the
-      selftest runs on isolated state.
+      selftests run on isolated state.
     """
 
     def __init__(self, clock=None, retry_policy: Optional[RetryPolicy]
@@ -341,12 +360,21 @@ class DispatchSupervisor:
         # demotion state (what re-promotion must restore)
         self._floor: Optional[str] = None      # "numpy" once demoted
         self._tier_demotions = 0
+        self._plane_width0: Optional[int] = None
+        self._plane_hosts0: Optional[int] = None
+        self._plane_kind0: Optional[str] = None
         self._clean_probes = 0
         self._since_probe = 0
         self._verify_seq = 0
+        # journal-backed in-flight reclaim: the recovery layer registers
+        # a callback that replays the lost host's intent records onto
+        # the shrunken plane after a host quarantine
+        self._inflight_reclaim: Optional[Callable[[str], int]] = None
         self.counters: Dict[str, int] = {
             "dispatches": 0, "retries": 0, "rung_downshifts": 0,
-            "demotions": 0, "repromotions": 0, "card_failures": 0,
+            "demotions": 0, "quarantines": 0, "repromotions": 0,
+            "host_quarantines": 0, "host_repromotions": 0,
+            "journal_redispatches": 0, "card_failures": 0,
             "hangs": 0, "slow_dispatches": 0, "host_completions": 0,
             "verify_failures": 0, "verified_clean": 0,
             "injected_faults": 0, "probe_clean": 0, "probe_failed": 0,
@@ -376,16 +404,33 @@ class DispatchSupervisor:
     @property
     def demoted(self) -> bool:
         with self._lock:
-            return self._tier_demotions > 0
+            return (self._tier_demotions > 0
+                    or self._plane_width0 is not None)
 
     def stats(self) -> dict:
         with self._lock:
             out = dict(self.counters)
-            out["demoted"] = self._tier_demotions > 0
+            out["demoted"] = (self._tier_demotions > 0
+                              or self._plane_width0 is not None)
             out["tier_floor"] = self._floor
             out["tier_demotions"] = self._tier_demotions
+            out["plane_width0"] = self._plane_width0
+            out["plane_hosts0"] = self._plane_hosts0
             out["clean_probes"] = self._clean_probes
         return out
+
+    def set_inflight_reclaim(
+            self, cb: Optional[Callable[[str], int]]
+    ) -> Optional[Callable[[str], int]]:
+        """Register the journal-backed in-flight reclaim hook: after a
+        host quarantine, ``cb(seam)`` replays the lost host's intent
+        records (recovery/journal.py, epoch-fenced) onto the shrunken
+        plane and returns how many ops were re-dispatched.  Returns the
+        previous hook so callers can restore it."""
+        with self._lock:
+            prev = self._inflight_reclaim
+            self._inflight_reclaim = cb
+        return prev
 
     def reset_pacing(self) -> None:
         """Zero the probe/verify pacing counters WITHOUT touching the
@@ -403,6 +448,9 @@ class DispatchSupervisor:
                 self.counters[k] = 0
             self._floor = None
             self._tier_demotions = 0
+            self._plane_width0 = None
+            self._plane_hosts0 = None
+            self._plane_kind0 = None
             self._clean_probes = 0
             self._since_probe = 0
             self._verify_seq = 0
@@ -421,18 +469,20 @@ class DispatchSupervisor:
         ``host_fn(*args)`` is the seam's numpy ground-truth twin
         (byte-identical by construction) — the numpy-floor completion
         path and the self-verify reference.  ``rebuild()`` re-derives
-        the dispatch callable after a tier demotion (the seams pass
-        their own cached-call constructors, so a rebuilt callable lands
-        on the demoted tier).  ``splittable``: the first argument
-        carries the stripe batch on axis 0, so an OOM can downshift the
-        rung by splitting it (and every argument whose leading axis is
-        the batch's).  ``verifiable=False`` opts the seam out of
-        self-verify (crush bulk's need-host residue flags legitimately
-        differ from the exact mapper's twin).  Called from inside
-        another seam's callable, it runs ``fn`` and nothing else.  On
-        CUDA tensors a failure that would step the tier down raises
-        :class:`DeviceDispatchError` instead (the card's work stays on
-        the card).
+        the dispatch callable after a tier demotion or a plane reshrink
+        (the seams pass their own cached-call constructors, so a rebuilt
+        callable lands on the demoted tier or the narrowed plane).
+        ``splittable``: the first argument carries the stripe batch on
+        axis 0, so an OOM can downshift the rung by splitting it (and
+        every argument whose leading axis is the batch's).
+        ``verifiable=False`` opts the seam out of self-verify (crush
+        bulk's need-host residue flags legitimately differ from the
+        exact mapper's twin). Called from inside
+        another seam's callable, it runs ``fn`` and nothing else.  A
+        persistent failure first narrows an active data plane (host,
+        then member quarantine); on CUDA tensors a failure that would
+        then step the tier down raises :class:`DeviceDispatchError`
+        instead (the card's work stays on the card).
         """
         if _tls.depth:
             return fn(*args)
@@ -443,6 +493,7 @@ class DispatchSupervisor:
         plan = chaos_dispatch._active
         first_err: Optional[BaseException] = None
         if (plan is None and self._floor is None and not self._tier_demotions
+                and self._plane_width0 is None
                 and not self.self_verify and self.deadline_s is None
                 and chaos_hosts._active is None):
             # the clean path: the call and nothing else (the nested-seam
@@ -496,14 +547,14 @@ class DispatchSupervisor:
                             depth=_depth)
                     # nothing left to split: the device genuinely
                     # cannot hold rung 1 — treat as backend loss
-                if on_card:
-                    raise self._card_failure(seam, cls, e) from e
                 escalations += 1
                 if escalations > _MAX_ESCALATIONS:
                     raise
                 verdict = self._escalate(seam, e, cur_fn,
                                          rebuild=rebuild,
-                                         host_fn=host_fn)
+                                         host_fn=host_fn, cls=cls,
+                                         on_card=on_card,
+                                         kind=_dispatch_kind(args))
                 if verdict is _HOST:
                     out = self._host_complete(seam, host_fn, args)
                     break
@@ -552,16 +603,21 @@ class DispatchSupervisor:
                           clock=self.clock, on_retry=on_retry)
 
     def _poll_host_plan(self, seam) -> None:
-        """One host-fault-plan poll per dispatch attempt, with the
-        plane's host count: 1, since the port has no data plane yet
-        (the process itself is one fault domain)."""
+        """One host-fault-plan poll per dispatch attempt: does this
+        dispatch land on a host the adversary holds down?  The plan is
+        polled with the plane's CURRENT host count (1 with no plane: the
+        process itself is one fault domain), so a fault whose host the
+        reshrink already evicted goes quiet."""
         from ..chaos.hosts import (InjectedHostLoss,
                                    InjectedHostPartition,
                                    active_host_plan)
         hplan = active_host_plan()
         if hplan is None:
             return
-        fault = hplan.poll(seam, 1)
+        from ..parallel import plane as planemod
+        p = planemod.data_plane()
+        hosts = 1 if p is None else p.hosts
+        fault = hplan.poll(seam, hosts)
         if fault is None:
             return
         self._count("injected_faults")
@@ -669,11 +725,139 @@ class DispatchSupervisor:
                       f"raising ({what})")
         return DeviceDispatchError(seam, cls, what)
 
-    def _escalate(self, seam, err, cur_fn, *, rebuild, host_fn):
-        """Persistent failure off the card: demote the backend tier (the
-        reference first quarantines a mesh member or a host fault domain
-        when a data plane is active; the port has none yet).  Returns
-        the next callable to try, or ``_HOST``."""
+    def _escalate(self, seam, err, cur_fn, *, rebuild, host_fn, cls=None,
+                  on_card=False, kind="cpu"):
+        """Persistent failure: quarantine a whole host fault domain
+        (``host_loss`` on a multi-host plane), else a mesh member (a
+        plane of two or more members and a seam that can rebuild), else
+        — on the card — raise DeviceDispatchError, else demote the
+        backend tier.  A plane is narrowed only for a dispatch of its own
+        device ``kind``: a card plane is no help to a CPU tensor or a
+        host row, nor a CPU plane to the card.  Returns the next callable
+        to try, or ``_HOST``."""
+        if rebuild is not None:
+            from ..parallel import plane as planemod
+            p = planemod.data_plane()
+            if p is not None and p.kind == kind:
+                if cls == "host_loss" and p.hosts > 1:
+                    return self._host_quarantine(seam, p, rebuild)
+                if p.n_devices > 1:
+                    return self._quarantine(seam, p, rebuild)
+        if on_card:
+            raise self._card_failure(seam, cls or "backend_loss", err) \
+                from err
+        return self._demote_tier(seam, err, cur_fn, rebuild=rebuild,
+                                 host_fn=host_fn)
+
+    def _narrowed(self, p) -> None:
+        """Remember the plane's original width, host partition and kind
+        (what re-promotion restores), at its first reshrink."""
+        with self._lock:
+            if self._plane_width0 is None:
+                self._plane_width0 = p.n_devices
+                self._plane_kind0 = p.kind
+            if self._plane_hosts0 is None and p.hosts > 1:
+                self._plane_hosts0 = p.hosts
+
+    def _host_quarantine(self, seam, p, rebuild):
+        """Evict one host fault domain: halve the host count (every
+        member the lost domain contributed goes at once), replay the
+        lost host's journaled in-flight intents onto the survivor plane,
+        and rebuild the seam's callable."""
+        from ..parallel import plane as planemod
+        from ..telemetry import metrics as tel
+        from ..telemetry import recorder, tracing
+        n_hosts, dph, n = p.hosts, p.devices_per_host, p.n_devices
+        if tracing.enabled():
+            tracing.annotate("supervisor_host_quarantine",
+                             self.clock.monotonic(), seam=seam,
+                             from_hosts=n_hosts, from_devices=n)
+        self._narrowed(p)
+        nxt_h = n_hosts // 2
+        nxt = nxt_h * dph
+        self._count("host_quarantines")
+        tel.counter("supervisor_host_quarantines", seam=seam)
+        tel.event("supervisor_host_quarantine", seam=seam,
+                  from_hosts=n_hosts, to_hosts=max(nxt_h, 1),
+                  from_devices=n, to_devices=max(nxt, 1))
+        recorder.trip(
+            "host_quarantined",
+            f"host fault domain lost at {seam}: plane reshrink "
+            f"{n_hosts}x{dph} -> {max(nxt_h, 1)}x{dph} hosts",
+            seam=seam, from_hosts=n_hosts, to_hosts=max(nxt_h, 1),
+            from_devices=n, to_devices=max(nxt, 1))
+        plane_degraded(
+            f"host quarantine at {seam}: {n_hosts} -> "
+            f"{max(nxt_h, 1)} hosts", seam=seam,
+            from_devices=n, to_devices=max(nxt, 1))
+        dout("ec", 1, f"supervisor: quarantining host domain at "
+                      f"{seam}; plane {n_hosts}x{dph} -> "
+                      f"{max(nxt_h, 1)}x{dph}")
+        if nxt >= 2:
+            planemod.activate(nxt, hosts=nxt_h, kind=p.kind)
+        else:
+            planemod.deactivate()
+        self._cache_clear()
+        self._reclaim_inflight(seam)
+        return rebuild()
+
+    def _reclaim_inflight(self, seam) -> int:
+        """Run the registered journal reclaim hook (if any): replay the
+        lost host's intent records onto the shrunken plane; counted and
+        flight-noted so the re-dispatch is attributable."""
+        with self._lock:
+            cb = self._inflight_reclaim
+        if cb is None:
+            return 0
+        n = int(cb(seam) or 0)
+        if n:
+            from ..telemetry import metrics as tel
+            from ..telemetry import recorder
+            self._count("journal_redispatches", n)
+            tel.counter("supervisor_journal_redispatches", seam=seam)
+            tel.event("supervisor_journal_redispatch", seam=seam, ops=n)
+            recorder.note("journal_redispatch", seam=seam, ops=n)
+        return n
+
+    def _quarantine(self, seam, p, rebuild):
+        """Evict mesh members: halve the plane's width (keeping its host
+        partition where it still divides the narrowed width) and rebuild
+        the seam's callable."""
+        from ..parallel import plane as planemod
+        from ..telemetry import metrics as tel
+        from ..telemetry import recorder, tracing
+        n = p.n_devices
+        if tracing.enabled():
+            tracing.annotate("supervisor_quarantine",
+                             self.clock.monotonic(), seam=seam,
+                             from_devices=n)
+        self._narrowed(p)
+        nxt = n // 2
+        self._count("quarantines")
+        tel.counter("supervisor_quarantines", seam=seam)
+        tel.event("supervisor_quarantine", seam=seam, from_devices=n,
+                  to_devices=nxt)
+        recorder.trip(
+            "device_quarantined",
+            f"mesh-member dispatch failure at {seam}: plane reshrink "
+            f"{n} -> {max(nxt, 1)}",
+            seam=seam, from_devices=n, to_devices=max(nxt, 1))
+        plane_degraded(
+            f"mesh-member quarantine at {seam}: {n} -> "
+            f"{max(nxt, 1)} devices", seam=seam,
+            from_devices=n, to_devices=max(nxt, 1))
+        dout("ec", 1, f"supervisor: quarantining mesh member at "
+                      f"{seam}; plane {n} -> {max(nxt, 1)}")
+        if nxt >= 2:
+            h = p.hosts if nxt % p.hosts == 0 else 1
+            planemod.activate(nxt, hosts=h, kind=p.kind)
+        else:
+            planemod.deactivate()
+        self._cache_clear()
+        return rebuild()
+
+    def _demote_tier(self, seam, err, cur_fn, *, rebuild, host_fn):
+        """Step the backend tier down (CPU tensors and host rows)."""
         from ..telemetry import metrics as tel
         from ..telemetry import recorder
         pol = self._policy()
@@ -760,10 +944,13 @@ class DispatchSupervisor:
         err = RuntimeError(
             f"self-verify CRC mismatch at seam {seam!r}")
         if on_card:
+            # the ground truth lies on the host: a card dispatch raises
+            # rather than re-run on a narrowed plane and return host bytes
             raise self._card_failure(seam, "corrupt", err)
         try:
             verdict = self._escalate(seam, err, fn, rebuild=rebuild,
-                                     host_fn=host_fn)
+                                     host_fn=host_fn,
+                                     kind=_dispatch_kind(args))
         except RuntimeError:
             return truth        # ladder exhausted: ground truth wins
         if verdict is _HOST:
@@ -830,31 +1017,51 @@ class DispatchSupervisor:
         with self._lock:
             n_demotions = self._tier_demotions
             self._tier_demotions = 0
+            width0, self._plane_width0 = self._plane_width0, None
+            hosts0, self._plane_hosts0 = self._plane_hosts0, None
+            kind0, self._plane_kind0 = self._plane_kind0, None
             self._floor = None
             self._clean_probes = 0
         restored = None
         for _ in range(n_demotions):
             restored = pol.promote()
+        if width0 is not None:
+            from ..parallel import plane as planemod
+            # the recovered host re-joins: full width AND the original
+            # host partition come back together
+            planemod.activate(width0, hosts=hosts0 or 1, kind=kind0)
         self._cache_clear()
         from ..telemetry import tracing
         if tracing.enabled():
             tracing.annotate("supervisor_repromote",
                              self.clock.monotonic(),
-                             tier=restored or "")
+                             tier=restored or "",
+                             plane_width=width0 or 0,
+                             plane_hosts=hosts0 or 0)
         self._count("repromotions")
         tel.counter("supervisor_repromotions")
-        tel.event("supervisor_repromote", tier=restored)
+        if hosts0 and hosts0 > 1:
+            self._count("host_repromotions")
+            tel.counter("supervisor_host_repromotions")
+        tel.event("supervisor_repromote", tier=restored,
+                  plane_width=width0, plane_hosts=hosts0)
         recorder.trip(
             "repromoted",
             f"health probe clean x{self.promote_after}: tier restored "
-            f"to {restored or 'probed'}", tier=restored or "")
-        dout("ec", 1, f"supervisor: re-promoted (tier={restored})")
+            f"to {restored or 'probed'}"
+            + (f", plane restored to {width0} devices"
+               if width0 else "")
+            + (f" across {hosts0} hosts" if hosts0 else ""),
+            tier=restored or "", plane_width=width0 or 0,
+            plane_hosts=hosts0 or 0)
+        dout("ec", 1, f"supervisor: re-promoted (tier={restored}, "
+                      f"plane={width0}, hosts={hosts0})")
 
 
 # ----------------------------------------------------------------------
 # shared degrade bookkeeping: ONE emission shape for every path that
-# narrows the data plane (activation-time degrade, device and host
-# quarantine), which the data plane (ROADMAP Queue A item 5) imports
+# narrows the data plane (activation-time degrade in parallel/plane.py,
+# device and host quarantine)
 
 def plane_degraded(reason: str, *, seam: str = "parallel.plane",
                    from_devices: Optional[int] = None,

@@ -31,9 +31,10 @@ Triggers (the failure choke points, each wired at its single source):
   onto the numpy ground-truth tier (ops/fallback.py): in the port a
   live demotion's first step onto the floor, as a process without a
   card raises NoDeviceError; and the supervisor's persistent failure
-  on the card, which it raises as DeviceDispatchError.  ``device_quarantined`` stays in
-  ``TRIGGERS`` so dumps validate alike in both packages; its source,
-  the data plane, is ROADMAP Queue A item 5.
+  on the card, which it raises as DeviceDispatchError;
+- ``device_quarantined`` / ``host_quarantined`` — the supervisor's
+  reshrink of an active data plane (parallel/plane.py): a mesh member,
+  or a whole host fault domain, evicted.
 
 Dumps are **deterministic by construction**: entries carry a
 monotonic ``seq`` and clock stamps from the injectable clock, the

@@ -199,13 +199,13 @@ source, all started together) and then, in order:
    probed (``PassProbe``: launches, wall time, span roots, the fused
    calls' device time by CUDA events):
 
-   - 7a ``-w repair-batched --size 4194304 --batch 64 -e 2
-     --corruptions 1 --iterations 1``: 64 objects, 3 bad shards each
+   - 7a ``-w repair-batched --size 4194304 --batch 32 -e 2
+     --corruptions 1 --iterations 1``: 32 objects, 3 bad shards each
      (the whole budget), 4 patterns; one device call per pattern, no
      host batch, the dense kernel in every timed pass, every healed
      store equal to its object and to the host path's heal
      (``device=False`` on a CPU instance pinned to the numpy tier);
-   - 7b ``-w recovery-churn --size 4194304 --batch 32 -e 1
+   - 7b ``-w recovery-churn --size 4194304 --batch 16 -e 1
      --churn-every 2 --iterations 1``: converged, nothing
      unrecoverable, every store healed, the map advanced; replans,
      regroups and rounds printed;
@@ -213,7 +213,7 @@ source, all started together) and then, in order:
      the per-object repair through the stripe layer, healed;
    - 7d each family once (``FAMILIES``: jerasure reed_sol_van and
      cauchy_good, isa k=8 m=3, shec k=6 m=3 c=2, lrc k=4 m=2 l=3, clay
-     k=8 m=4 d=11): ``repair_batched`` on 16 objects of ~1 MiB with 3
+     k=8 m=4 d=11): ``repair_batched`` on 8 objects of ~1 MiB with 3
      decodable patterns, equal to the objects and the host path; the
      kernel ``select_matrix_engine`` names for each pattern's decode and
      for the encode must have launched;
@@ -229,7 +229,7 @@ source, all started together) and then, in order:
    ``ops/fallback.py``'s live tier, ``utils/locks.py``):
 
    - 8a clean: with no fault plan armed, one fused repair per family
-     (``FAMILIES``, one 7d pattern's stack of 6 objects of ~1 MiB)
+     (``FAMILIES``, a stack of ``REPAIR_STRIPES`` 6 objects of ~1 MiB)
      under the supervisor launches exactly the kernels the same call
      launches with the nested-seam mark set (its body alone), makes one
      supervised dispatch, returns the host path's bytes, and leaves
@@ -269,6 +269,51 @@ source, all started together) and then, in order:
 
    8c and 8f start after 8a and run beside 8b, 8d and 8e; the phase
    prints one ``{"supervisor": {...}}`` line.
+
+9. the data plane on the card (``parallel/``, the mesh row of
+   ``select_matrix_engine``, the engine's mesh variants, the
+   supervisor's member and host quarantine), over 4 virtual members of
+   the card (``CEPH_TPU_TORCH_VIRTUAL_DEVICES=4``, set around the phase):
+
+   - 9a the mesh tier at full width: RS k=8 m=3, 64 stripes of 1 MiB,
+     bytes and packed, and 63 stripes (padded to 64): equal to the
+     single-device call and (two stripes at each end) the numpy tier;
+     one ``engine_mesh_dispatches``, the partition [16, 16, 16, 16],
+     launches 4 x the single-device call's; device ms (profiler) and
+     host issue ms per call beside the single-device call's;
+   - 9b each family's fused repair, serving encode and decode on stacks
+     of ``MESH_STRIPES`` (16 and 14) objects of ~1 MiB, 4 stripes a
+     member (the 14 padded to 16), and the page-sharded ragged encode
+     on the (512, 8, 4096)
+     pool at half-live pages, each equal to its single-device callable;
+     the pattern-cache keys with and without the plane;
+   - 9c row B (the canonical EC rule, 1M x) through
+     ``sharded_bulk_do_rule``: equal to the single-device sweep on every
+     lane and to the host mapper on 100 seeded x; ``--test-map-pgs``
+     (``osdmaptool.test_map_pgs``) with ``engine="sharded"`` equal to
+     ``"bulk"`` on a 16384-PG EC pool of row C's map;
+   - 9d ``sharded_encode`` on (2, 2) and (1, 4) meshes equal to the
+     single-device encode, ``sharded_roundtrip_step`` and
+     ``sharded_single_erasure_repair`` for jerasure, shec and clay
+     (``n_read`` = ``minimum_to_decode``'s size);
+   - 9e the CLI's ``-w multichip`` at the north-star argv (batch 64 of
+     1 MiB, 100 iterations): GB/s, ``mesh_shape`` [4, 1], ``n_devices``
+     4, ``physical_devices`` 1, the partition, verified; beside it the
+     per-call resident encode row;
+   - 9f the CLI's ``-w host-chaos --size 4194304 --batch 16 -e 1 --hosts
+     2``: one host quarantine (2 hosts -> 1), the reclaim hook, one host
+     re-promotion, no card failure, no demotion, healed byte for byte;
+     then a loss of two calls at ``engine.fused_repair`` on the 4-member
+     plane: quarantines 4 -> 2 -> 1 on the card and a re-promotion to 4;
+     the same loss with no plane raises ``DeviceDispatchError``; and the
+     host-chaos row again with no virtual members (one card, no plane):
+     host 0's loss raises twice, the pass is re-queued, no demotion;
+   - 9g ``host_chaos_selftest()`` (its rows are numpy, so its plane is
+     4 virtual members of the CPU), and 9f's row in a child
+     under ``CEPH_TPU_LOCKCHECK=1`` (``--child plane-lockcheck``, started
+     at the phase's start): a clean report that holds the plane's lock.
+
+   The phase prints one ``{"data_plane": {...}}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
@@ -331,24 +376,30 @@ STRAW2_DRAW_OPS = 5 * 9 * 3 + 2 + 1 + 24 + 4
 # star's code, jerasure reed_sol_van k=8 m=3
 RS_ARGV = ["--plugin", "jerasure", "-P", "technique=reed_sol_van",
            "-P", "k=8", "-P", "m=3"]
-# 64 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
+# 32 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
 # One timed pass each (after the workload's warm pass): the host CRC sets
-# a pass's pace (~16 s and ~45 s on the chip machine's host), so
-# --iterations is the cut that keeps the phase's time down; the object
-# size and the fault budget are Ceph's and stay
+# a pass's pace, so --iterations and the object counts (7a 32, 7b 16,
+# 7d 8: halved so the script keeps its time with the data plane's
+# phase) are the cuts that keep the phase's time down; the object size
+# and the fault budget are Ceph's and stay
 REPAIR_ARGV = RS_ARGV + ["--workload", "repair-batched", "--size",
-                         str(4 << 20), "--batch", "64", "-e", "2",
+                         str(4 << 20), "--batch", "32", "-e", "2",
                          "--corruptions", "1", "--iterations", "1",
                          "--device", "cuda"]
 CHURN_ARGV = RS_ARGV + ["--workload", "recovery-churn", "--size",
-                        str(4 << 20), "--batch", "32", "-e", "1",
+                        str(4 << 20), "--batch", "16", "-e", "1",
                         "--churn-every", "2", "--iterations", "1",
                         "--device", "cuda"]
 DEGRADED_ARGV = RS_ARGV + ["--workload", "degraded", "--size",
                            str(1 << 20), "--batch", "4", "-e", "2",
                            "--corruptions", "1", "--device", "cuda"]
-# each family once: 16 objects of about 1 MiB
-FAMILY_OBJECTS, FAMILY_SIZE = 16, 1 << 20
+# each family once: 8 objects of about 1 MiB
+FAMILY_OBJECTS, FAMILY_SIZE = 8, 1 << 20
+# 8a's fused-repair stack (stripes of FAMILY_SIZE objects)
+REPAIR_STRIPES = 6
+# 9b's stacks over the plane's members: 4 stripes a member, and a batch
+# the member count does not divide
+MESH_STRIPES = (16, 14)
 FAMILIES = (
     ("jerasure reed_sol_van k=8 m=3", "jerasure",
      {"technique": "reed_sol_van", "k": "8", "m": "3"}),
@@ -374,6 +425,23 @@ SERVE_CHAOS_ARGV = ["--workload", "serving", "--device", "cuda", "--size",
                     str(1 << 16), "--requests", "64", "--concurrency", "64",
                     "--seed", "42"]
 OOM_OBJECTS, CHAOS_CRUSH_X = 256, 65536
+# phase 9: the data plane over PLANE_MEMBERS virtual members of the card
+# (CEPH_TPU_TORCH_VIRTUAL_DEVICES, set around the phase); 9c checks the
+# sharded row B against the host mapper on PLANE_CRUSH_SAMPLE seeded x;
+# 9e the CLI's multichip row at the north-star argv beside the per-call
+# encode row; 9f the CLI's host-chaos row at RADOS's object size, 16
+# objects (enough for a mid-stream loss: 4 patterns, the loss at the
+# 2nd fused call), 2 hosts of 2 members
+PLANE_ENV, PLANE_MEMBERS, PLANE_CRUSH_SAMPLE = \
+    "CEPH_TPU_TORCH_VIRTUAL_DEVICES", 4, 100
+NORTH_STAR_ARGV = RS_ARGV + ["--size", str(1 << 20), "--batch", "64",
+                             "--iterations", "100", "--device", "cuda"]
+MULTICHIP_ARGV = NORTH_STAR_ARGV + ["--workload", "multichip"]
+PERCALL_ARGV = NORTH_STAR_ARGV + ["--workload", "encode", "--resident"]
+HOST_CHAOS_ARGV = RS_ARGV + ["--workload", "host-chaos", "--size",
+                             str(4 << 20), "--batch", "16", "-e", "1",
+                             "--hosts", "2", "--device", "cuda",
+                             "--iterations", "1", "--seed", "42"]
 
 # the serving stream: 512 closed-loop requests, 64 in flight; RS k=8 m=3
 # at 64 KiB (the bench serving row's size), 1 MiB (the north-star stripe)
@@ -1435,9 +1503,8 @@ def supervisor_phase(seed: int) -> dict:
         ec = reg.factory(plugin, dict(profile), device="cuda")
         host = reg.factory(plugin, dict(profile), device="cpu")
         host.min_xla_bytes = float("inf")
-        # one pattern's stack in 7d: 16 objects over 3 patterns
         x, avail, erased, surv = _fused_stack(
-            ec, FAMILY_OBJECTS // 3 + 1, FAMILY_SIZE, seed)
+            ec, REPAIR_STRIPES, FAMILY_SIZE, seed)
         call = fused_repair_call(ec, avail, erased)
         call(x)                                         # warm
         runs = {}
@@ -1694,9 +1761,492 @@ def supervisor_phase(seed: int) -> dict:
     return out
 
 
+# -- phase 9: the data plane on the card -------------------------------------
+
+def _plane_child():
+    """Start 9g's child: 9f's host-chaos row under CEPH_TPU_LOCKCHECK=1
+    (``--child plane-lockcheck``) on 4 virtual members of the card."""
+    return _child("plane-lockcheck", {"CEPH_TPU_LOCKCHECK": "1",
+                                      PLANE_ENV: str(PLANE_MEMBERS)})
+
+
+def _pct(a: float, b: float) -> str:
+    return f"{a / b:.3f}x" if b else "n/a"
+
+
+def data_plane_phase(seed: int) -> dict:
+    """Phase 9 (the module docstring): the data plane on the card, over
+    PLANE_MEMBERS virtual members of it."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.bench import crushtool, osdmaptool
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.chaos.dispatch import DispatchFault, dispatch_faults
+    from ceph_tpu_torch.chaos.hosts import host_chaos_selftest
+    from ceph_tpu_torch.codes import engine
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.crush.builder import CrushBuilder
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE, \
+        step_chooseleaf_indep
+    from ceph_tpu_torch.matrices.jerasure import \
+        reed_sol_vandermonde_coding_matrix
+    from ceph_tpu_torch.ops import fallback, supervisor
+    from ceph_tpu_torch.ops.gf_kernels import (
+        apply_matrix_best, apply_matrix_numpy, apply_matrix_packed_best,
+        pack_chunks, select_matrix_engine, unpack_chunks)
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.ops.torch_ops import matrix_to_static
+    from ceph_tpu_torch.parallel import plane as planemod
+    from ceph_tpu_torch.parallel.mesh import make_mesh
+    from ceph_tpu_torch.parallel.sharded_codes import (
+        sharded_encode, sharded_roundtrip_step, sharded_single_erasure_repair)
+    from ceph_tpu_torch.parallel.sharded_crush import (default_crush_mesh,
+                                                       sharded_bulk_do_rule)
+    from ceph_tpu_torch.telemetry import metrics as tel
+    from ceph_tpu_torch.tools.dense_times import kernel_ms
+    from ceph_tpu_torch.utils.errors import DeviceDispatchError
+    from ceph_tpu_torch.utils.shard import last_partition
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    reg = ErasureCodePluginRegistry.instance()
+    metrics = tel.global_metrics()
+    child = _plane_child()
+    prev_env = os.environ.get(PLANE_ENV)
+    os.environ[PLANE_ENV] = str(PLANE_MEMBERS)
+    prev_plane = planemod.set_data_plane(None)
+    try:
+        p4 = planemod.activate(PLANE_MEMBERS, kind="cuda")
+        check(p4 is not None and p4.n_devices == PLANE_MEMBERS
+              and p4.kind == "cuda" and len(set(p4.members)) == 1,
+              f"9: a plane of {PLANE_MEMBERS} members over one card")
+        n = PLANE_MEMBERS
+
+        def mesh_count(tier: str) -> float:
+            return metrics.counter_value("engine_mesh_dispatches",
+                                         tier=tier, devices=str(n))
+
+        def launched(fn):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, {k: v for k, v in launch_counts().items() if v}
+
+        # -- 9a: the mesh tier at full width -----------------------------
+        ec = reg.factory("jerasure", {"technique": "reed_sol_van",
+                                      "k": str(K), "m": str(M)},
+                         device="cuda")
+        ms = matrix_to_static(ec.matrix)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randint(0, 256, (BATCH, K, CHUNK), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        check(select_matrix_engine(8, x.device, shape=tuple(x.shape),
+                                   matrix_t=ms) == "mesh",
+              "9a: the mesh row on the north-star shape")
+        single, l_single = launched(lambda: apply_matrix_best(x, ms, mesh=0))
+        c0 = mesh_count("apply-bytes")
+        got, l_mesh = launched(lambda: apply_matrix_best(x, ms))
+        part = last_partition()
+        dispatches = mesh_count("apply-bytes") - c0
+        check(torch.equal(got, single), "9a: mesh bytes = single-device")
+        for cut in (slice(0, 2), slice(BATCH - 2, BATCH)):
+            check(np.array_equal(got[cut].cpu().numpy(), apply_matrix_numpy(
+                x[cut].cpu(), ms).numpy()), "9a: mesh bytes = numpy tier")
+        check(part == [BATCH // n] * n, f"9a: partition {part}")
+        check(dispatches == 1, f"9a: engine_mesh_dispatches {dispatches}")
+        check(set(l_mesh) == set(l_single) and all(
+            l_mesh[k] == n * l_single[k] for k in l_single),
+            f"9a: launches {l_mesh} = {n} x {l_single}")
+        words = pack_chunks(x)
+        pgot, l_pmesh = launched(lambda: apply_matrix_packed_best(words, ms))
+        psingle = apply_matrix_packed_best(words, ms, mesh=0)
+        check(torch.equal(unpack_chunks(pgot), single)
+              and torch.equal(unpack_chunks(psingle), single),
+              "9a: packed mesh bytes = single-device")
+        odd = apply_matrix_best(x[:BATCH - 1], ms)
+        check(torch.equal(odd, single[:BATCH - 1])
+              and last_partition() == [BATCH // n] * n,
+              f"9a: {BATCH - 1} stripes pad to {BATCH} "
+              f"({last_partition()})")
+        t_mesh = kernel_ms(lambda: apply_matrix_best(x, ms),
+                           "gf_matrix_kernel")
+        t_single = kernel_ms(lambda: apply_matrix_best(x, ms, mesh=0),
+                             "gf_matrix_kernel")
+        ev_mesh, host_mesh = time_ms(lambda: apply_matrix_best(x, ms), 20)
+        ev_single, host_single = time_ms(
+            lambda: apply_matrix_best(x, ms, mesh=0), 20)
+        out["9a"] = {"partition": part, "launches": l_mesh,
+                     "launches_single": l_single,
+                     "launches_packed": l_pmesh,
+                     "mesh_dispatches": dispatches,
+                     "device_ms": t_mesh, "device_ms_single": t_single,
+                     "event_ms": ev_mesh, "event_ms_single": ev_single,
+                     "host_ms": host_mesh, "host_ms_single": host_single}
+        print(f"phase 9: 9a RS k={K} m={M} {tuple(x.shape)} over {n} "
+              f"members: bytes and packed equal the single-device call and"
+              f" the numpy tier ({BATCH - 1} stripes too); partition {part};"
+              f" engine_mesh_dispatches {dispatches}; launches {l_mesh} "
+              f"against {l_single}; device ms per call (profiler) "
+              f"{t_mesh} mesh, {t_single} single; events {ev_mesh:.6f} / "
+              f"{ev_single:.6f} ms; host issue {host_mesh:.6f} / "
+              f"{host_single:.6f} ms ({_pct(host_mesh, host_single)})")
+
+        # -- 9b: the engine's mesh variants ------------------------------
+        fams = {}
+        for label, plugin, profile in FAMILIES:
+            fec = reg.factory(plugin, dict(profile), device="cuda")
+            kf = fec.get_data_chunk_count()
+            for stripes in MESH_STRIPES:
+                st, avail, erased, _ = _fused_stack(
+                    fec, stripes, FAMILY_SIZE, seed)
+                data = torch.randint(0, 256, (stripes, kf, st.shape[2]),
+                                     dtype=torch.uint8, device="cuda",
+                                     generator=gen)
+                tag = f"9b {label} x{stripes}"
+                c_rep = mesh_count("fused-repair")
+                rep, l_rep = launched(
+                    lambda: engine.fused_repair_call(fec, avail,
+                                                     erased)(st))
+                part = last_partition()
+                check(mesh_count("fused-repair") - c_rep == 1,
+                      f"{tag}: one mesh dispatch")
+                check(part == [-(-stripes // n)] * n,
+                      f"{tag}: partition {part}")
+                want = engine.fused_repair_call(fec, avail, erased,
+                                                mesh=False)(st)
+                check(all(torch.equal(a, b) for a, b in zip(rep, want)),
+                      f"{tag}: fused repair = single-device")
+                enc = engine.serve_dispatch_call(fec, "encode")(data)
+                check(torch.equal(enc, engine.serve_dispatch_call(
+                    fec, "encode", mesh=False)(data)),
+                    f"{tag}: serve encode = single-device")
+                dec = engine.serve_dispatch_call(fec, "decode", avail,
+                                                 erased)(st)
+                check(torch.equal(dec, engine.serve_dispatch_call(
+                    fec, "decode", avail, erased, mesh=False)(st)),
+                    f"{tag}: serve decode = single-device")
+                check(bool(l_rep), f"{tag}: kernels launched")
+                fams[f"{label} x{stripes}"] = {
+                    "stack": list(st.shape), "launches": l_rep,
+                    "partition": part}
+                print(f"phase 9: {tag}: fused repair of "
+                      f"{tuple(st.shape)} over partition {part}, serve "
+                      f"encode and decode equal the single-device "
+                      f"callables; launches {l_rep}")
+        pool = torch.randint(0, 256, (RAG_PAGES, K, PAGE), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        mask = (torch.rand(RAG_PAGES, device="cuda", generator=gen)
+                < 0.5).to(torch.uint8)
+        kw = dict(pages=RAG_PAGES, page_size=PAGE)
+        c_rag = mesh_count("serve-encode-ragged")
+        rag, l_rag = launched(lambda: engine.serve_dispatch_ragged(
+            ec, "encode", **kw)(pool, mask))
+        check(mesh_count("serve-encode-ragged") - c_rag == 1,
+              "9b ragged: one mesh dispatch")
+        check(torch.equal(rag, engine.serve_dispatch_ragged(
+            ec, "encode", mesh=False, **kw)(pool, mask))
+            and not rag[mask == 0].any(),
+            "9b ragged: page-sharded = single-device, dead pages zero")
+        keys = [k for k in engine.global_pattern_cache()._entries
+                if k[2] == "serve-encode-ragged" and k[0] == type(ec).__name__]
+        check(any(k[-2:] == ("mesh", n) for k in keys)
+              and any(k[-2:] != ("mesh", n) for k in keys),
+              f"9b: cache keys with and without the plane: {keys}")
+        fams["ragged"] = {"pool": list(pool.shape), "launches": l_rag,
+                          "partition": last_partition(),
+                          "live": int(mask.sum())}
+        out["9b"] = fams
+        print(f"phase 9: 9b ragged pool {tuple(pool.shape)} at "
+              f"{int(mask.sum())} live pages: page-sharded = single-device,"
+              f" partition {last_partition()}, launches {l_rag}; cache keys "
+              + " | ".join(str(k[-4:]) for k in keys))
+
+        # -- 9c: sharded CRUSH -------------------------------------------
+        t9c = time.perf_counter()
+        b = CrushBuilder()
+        root = b.build_two_level(8, 4)
+        rule = b.add_erasure_rule(
+            "root", [step_chooseleaf_indep(0, b.type_id("host"))],
+            name="ec_canonical")
+        xs = np.arange(CRUSH_X)
+        cm = bulk.CompiledCrushMap(b.map, device="cuda")
+        bulk.bulk_do_rule(cm, rule, xs[:4096], 6, mesh=0)       # warm
+        t0 = time.perf_counter()
+        one, one_cnt = bulk.bulk_do_rule(cm, rule, xs, 6, mesh=0)
+        one_s = time.perf_counter() - t0
+        cmesh = default_crush_mesh(kind="cuda")
+        check(cmesh.shape == {"x": n}, f"9c: crush mesh {cmesh.shape}")
+        c_cr = mesh_count("crush-bulk")
+        t0 = time.perf_counter()
+        shd, shd_cnt = sharded_bulk_do_rule(cmesh, cm, rule, xs, 6)
+        shd_s = time.perf_counter() - t0
+        check(mesh_count("crush-bulk") - c_cr == 1, "9c: one mesh sweep")
+        err_lanes = int((shd != one).any(axis=1).sum())
+        check(err_lanes == 0 and np.array_equal(shd_cnt, one_cnt),
+              f"9c: row B sharded = single-device on every lane "
+              f"({err_lanes} differ)")
+        pick = np.sort(np.random.default_rng(seed).choice(
+            CRUSH_X, PLANE_CRUSH_SAMPLE, replace=False))
+        for xv in pick:
+            r = crush_do_rule(b.map, rule, int(xv), 6)
+            r = r + [CRUSH_ITEM_NONE] * (6 - len(r))
+            check(list(shd[xv]) == r, f"9c: x={xv} vs the host mapper")
+        work = os.path.abspath(CRUSH_WORK + "_plane")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+
+        def run(tool, argv) -> str:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tool.main(argv)
+            check(rc == 0, f"{tool.__name__} {argv}: rc {rc}")
+            return buf.getvalue()
+        cpath = os.path.join(work, "c.txt")
+        run(crushtool, ["--build-two-level", "100", "12", "-o", cpath])
+        from ceph_tpu_torch.crush.osdmap import OSDMap
+        plain = os.path.join(work, "osdmap.json")
+        with open(plain, "w") as f:
+            json.dump(osdmaptool.dump_osdmap(
+                OSDMap(crush=crushtool.read_map(cpath)), []), f)
+        ec_map = os.path.join(work, "osdmap_ec.json")
+        prof_argv = []
+        for k_, v in [("plugin", "jerasure")] + list(EC_PROFILE.items()):
+            prof_argv += ["--ec-profile", f"{k_}={v}"]
+        run(osdmaptool, [plain, "--create-ec-pool", "ecpool", *prof_argv,
+                         "--pg-num", str(EC_PG_NUM), "-o", ec_map,
+                         "--device", "cuda"])
+        m = osdmaptool.load_osdmap(ec_map)
+        m.device = "cuda"
+        pid = max(m.pools)
+        texts = {}
+        for eng in ("bulk", "sharded"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                osdmaptool.test_map_pgs(m, [pid], eng)
+            texts[eng] = buf.getvalue().splitlines()
+        raw_b, _ = m.pg_to_raw_bulk(pid, engine="bulk")
+        raw_s, _ = m.pg_to_raw_bulk(pid, engine="sharded")
+        check(np.array_equal(raw_b, raw_s)
+              and texts["bulk"][:-1] == texts["sharded"][:-1],
+              "9c: --test-map-pgs engine=sharded = engine=bulk")
+        shutil.rmtree(work, ignore_errors=True)
+        out["9c"] = {"x": CRUSH_X, "single_s": one_s, "sharded_s": shd_s,
+                     "host_sample": int(pick.size), "pg_num": EC_PG_NUM,
+                     "test_map_pgs": texts["sharded"][-1].strip(),
+                     "seconds": time.perf_counter() - t9c}
+        print(f"phase 9: 9c row B over {CRUSH_X} x: sharded over {n} "
+              f"members ({shd_s:.3f} s) = single-device ({one_s:.3f} s) "
+              f"on every lane, = the host mapper on {pick.size} seeded x; "
+              f"--test-map-pgs engine=sharded = bulk on {EC_PG_NUM} PGs "
+              f"({texts['sharded'][-1].strip()})")
+
+        # -- 9d: sharded_encode on the tp meshes, the roundtrip, and the
+        # minimum-read repair ---------------------------------------------
+        rs = reed_sol_vandermonde_coding_matrix(K, M, 8)
+        devs = [torch.device("cuda", 0)] * n
+        tp_rows = {}
+        for dp, tp in ((2, 2), (1, 4)):
+            mesh = make_mesh(n, tp=tp, devices=devs)
+            check(mesh.shape == {"stripe": dp, "chunk": tp},
+                  f"9d: mesh {mesh.shape}")
+            par, l_enc = launched(lambda: sharded_encode(mesh, x, rs))
+            check(torch.equal(par, single),
+                  f"9d: sharded_encode ({dp}, {tp}) = single-device")
+            tp_rows[f"{dp}x{tp}"] = {"launches": l_enc,
+                                     "partition": last_partition()}
+        dec, par = sharded_roundtrip_step(make_mesh(n, tp=2, devices=devs),
+                                          x[:8], m=M)
+        check(torch.equal(dec, x[:8]) and torch.equal(par, single[:8]),
+              "9d: sharded_roundtrip_step decodes the data")
+        reads = {}
+        for plugin, profile in (
+                ("jerasure", {"technique": "reed_sol_van", "k": str(K),
+                              "m": str(M)}),
+                ("shec", {"k": "6", "m": "3", "c": "2"}),
+                ("clay", dict(CLAY))):
+            rec_ = reg.factory(plugin, dict(profile), device="cuda")
+            kk, nn = rec_.get_data_chunk_count(), rec_.get_chunk_count()
+            cs = rec_.get_chunk_size(FAMILY_SIZE)
+            data = np.random.default_rng(seed).integers(
+                0, 256, (8, kk, cs), dtype=np.uint8)
+            repaired, n_read, n_chunks = sharded_single_erasure_repair(
+                make_mesh(n, tp=1, devices=devs), plugin, profile, data)
+            minimum = rec_.minimum_to_decode({0}, set(range(1, nn)))
+            check(n_read == len(minimum) and n_chunks == nn
+                  and np.array_equal(repaired, data[:, :1, :]),
+                  f"9d: {plugin} minimum-read repair (n_read {n_read})")
+            reads[plugin] = {"n_read": n_read, "n": nn}
+        out["9d"] = {"tp": tp_rows, "reads": reads}
+        print(f"phase 9: 9d sharded_encode on (2, 2) and (1, 4) = "
+              f"single-device ({tp_rows}); roundtrip decodes; minimum-read "
+              f"repair n_read {reads}")
+
+        # -- 9e: the CLI's multichip row ---------------------------------
+        bench = ErasureCodeBench()
+        bench.setup(MULTICHIP_ARGV)
+        row = bench.run()
+        check(row["verified"] and row["n_devices"] == n
+              and row["physical_devices"] == 1
+              and row["mesh_shape"] == [n, 1]
+              and row["stripes_per_device"] == [BATCH // n] * n,
+              f"9e: multichip row {row}")
+        # the single-device per-call row beside it: no plane
+        planemod.set_data_plane(None)
+        bench = ErasureCodeBench()
+        bench.setup(PERCALL_ARGV)
+        percall = bench.run()
+        check(percall["mesh_shape"] is None, "9e: the per-call row unsharded")
+        out["9e"] = {k: row[k] for k in (
+            "gbps", "mesh_shape", "n_devices", "physical_devices",
+            "stripes_per_device", "verified", "lat_p50_ms")}
+        out["9e"]["percall_gbps"] = percall["gbps"]
+        print(f"phase 9: 9e multichip {row['gbps']:.6f} GB/s over "
+              f"{row['n_devices']} members of {row['physical_devices']} "
+              f"card, mesh_shape {row['mesh_shape']}, stripes "
+              f"{row['stripes_per_device']}, verified; the single-device "
+              f"per-call encode {percall['gbps']:.6f} GB/s")
+
+        # -- 9f: host chaos, member quarantine, the width-1 loss ---------
+        sup = supervisor.global_supervisor()
+        bench = ErasureCodeBench()
+        bench.setup(HOST_CHAOS_ARGV)
+        row = bench.run()
+        sv = row["supervisor"]
+        check(row["verified"] and row["hosts"] == 2
+              and healed_stores(bench.last_run), "9f: host-chaos healed")
+        check(sv["host_quarantines"] == 1 and sv["host_repromotions"] == 1
+              and row["reclaim_calls"] >= 1 and sv["card_failures"] == 0
+              and sv["demotions"] == 0 and sv["host_completions"] == 0
+              and not row["demoted_at_end"],
+              f"9f: host-chaos counters {sv}, reclaims "
+              f"{row['reclaim_calls']}")
+        out["9f"] = {"gbps": row["gbps"], "supervisor": sv,
+                     "faults_fired": row["faults_fired"],
+                     "reclaim_calls": row["reclaim_calls"],
+                     "lat_p50_ms": row.get("lat_p50_ms")}
+        print(f"phase 9: 9f host-chaos {row['gbps']:.6f} GB/s, "
+              f"{row['faults_fired']} faults, supervisor {sv}, reclaims "
+              f"{row['reclaim_calls']}, healed")
+        # the same row on the one card with no virtual members: no
+        # plane forms, so losing host 0 raises and the pass is re-queued
+        os.environ.pop(PLANE_ENV)
+        try:
+            solo = ErasureCodeBench()
+            solo.setup(HOST_CHAOS_ARGV)
+            srow = solo.run()
+        finally:
+            os.environ[PLANE_ENV] = str(PLANE_MEMBERS)
+        ssv = srow["supervisor"]
+        check(srow["verified"] and srow["hosts"] == 1
+              and healed_stores(solo.last_run),
+              "9f: host-chaos with no plane healed")
+        check(ssv["card_failures"] == srow["faults_fired"] == 2
+              and ssv["demotions"] == 0 and ssv["host_completions"] == 0
+              and ssv["host_quarantines"] == 0
+              and not srow["demoted_at_end"],
+              f"9f: host-chaos with no plane re-queues on the card {ssv}")
+        out["9f"]["no_plane"] = {"gbps": srow["gbps"], "supervisor": ssv}
+        print(f"phase 9: 9f host-chaos with no plane {srow['gbps']:.6f} "
+              f"GB/s: host 0 lost, {ssv['card_failures']} card failures, "
+              f"the pass re-queued, no demotion, healed")
+        pol = fallback.FallbackPolicy(force=None)
+        prev_pol = fallback.set_global_policy(pol)
+        # re-promotion after two clean probes, driven by hand below
+        qsup = supervisor.DispatchSupervisor(promote_after=2, probe_every=8)
+        prev_sup = supervisor.set_global_supervisor(qsup)
+        try:
+            planemod.activate(n, kind="cuda")
+            st, avail, erased, _ = _fused_stack(ec, 16, FAMILY_SIZE, seed)
+            want = engine.fused_repair_call(ec, avail, erased,
+                                            mesh=False)(st)
+            widths = []
+            with dispatch_faults([DispatchFault(
+                    "backend_loss", seam="engine.fused_repair", at=1,
+                    calls=2)], seed=seed):
+                got = engine.fused_repair_call(ec, avail, erased)(st)
+                p = planemod.data_plane()
+                widths.append(p.n_devices if p is not None else 1)
+            q = qsup.stats()
+            check(all(torch.equal(a, b) for a, b in zip(got, want))
+                  and q["quarantines"] == 2 and widths == [1]
+                  and q["card_failures"] == 0 and q["demotions"] == 0,
+                  f"9f: member quarantine {n} -> 2 -> 1 on the card: {q}")
+            qsup.tick()
+            qsup.tick()
+            p = planemod.data_plane()
+            check(p is not None and p.n_devices == n and not qsup.demoted
+                  and qsup.stats()["repromotions"] == 1,
+                  f"9f: re-promoted to {n} members")
+            planemod.set_data_plane(None)
+            raised = False
+            with dispatch_faults([DispatchFault(
+                    "backend_loss", seam="engine.fused_repair", at=1,
+                    calls=2)], seed=seed):
+                try:
+                    engine.fused_repair_call(ec, avail, erased)(st)
+                except DeviceDispatchError:
+                    raised = True
+            check(raised and qsup.stats()["card_failures"] == 1,
+                  "9f: the same loss with no plane raises "
+                  "DeviceDispatchError")
+            out["9f"]["member_quarantine"] = {
+                k: qsup.stats()[k] for k in ("quarantines", "repromotions",
+                                             "card_failures", "demotions")}
+        finally:
+            supervisor.set_global_supervisor(prev_sup)
+            fallback.set_global_policy(prev_pol)
+        print(f"phase 9: 9f member quarantine {n} -> 2 -> 1, re-promoted "
+              f"to {n}, no demotion; with no plane the loss raises "
+              f"DeviceDispatchError")
+
+        # -- 9g: the selftest (host rows), and 9f under lockcheck ---------
+        planemod.set_data_plane(None)
+        st9 = host_chaos_selftest()
+        check(st9["multi_host"] and st9["host_quarantines"] >= 1
+              and st9["host_repromotions"] >= 1 and not st9["demoted"],
+              f"9g: host_chaos_selftest {st9}")
+        lk = _child_result(child, "9g lockcheck")
+        rep = lk["lockcheck"]
+        from ceph_tpu_torch.utils.locks import validate_lockcheck_report
+        validate_lockcheck_report(rep)
+        check(rep["enabled"] and not rep["order_violations"]
+              and not rep["blocking_events"] and not rep["unregistered"],
+              f"9g: a clean lockcheck report ({rep['order_violations']}, "
+              f"{rep['blocking_events']}, {rep['unregistered']})")
+        check("parallel.plane._lock" in rep["locks"],
+              "9g: the plane lock was taken under lockcheck")
+        out["9g"] = {"selftest": {k: st9[k] for k in (
+            "host_quarantines", "host_repromotions",
+            "journal_redispatches", "multi_host")},
+            "lockcheck_locks": len(rep["locks"]),
+            "child": lk["result"]}
+        print(f"phase 9: 9g host_chaos_selftest (host rows): "
+              f"{out['9g']['selftest']}; 9f under CEPH_TPU_LOCKCHECK=1: "
+              f"valid, {len(rep['locks'])} locks, 0 violations, "
+              f"supervisor {lk['result']['supervisor']}")
+    finally:
+        planemod.set_data_plane(prev_plane)
+        if prev_env is None:
+            os.environ.pop(PLANE_ENV, None)
+        else:
+            os.environ[PLANE_ENV] = prev_env
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['seconds']:.1f} s")
+    return out
+
+
 def child_main(kind: str) -> int:
-    """The child processes of phase 8: ``oom`` (8c) and ``lockcheck``
-    (8f); each prints one JSON line."""
+    """The child processes of phases 8 and 9: ``oom`` (8c), ``lockcheck``
+    (8f) and ``plane-lockcheck`` (9g); each prints one JSON line."""
     import gc
     import torch
     from ceph_tpu_torch.codes.engine import fused_repair_call
@@ -1707,15 +2257,16 @@ def child_main(kind: str) -> int:
     ec = ErasureCodePluginRegistry.instance().factory(
         "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
         device="cuda")
-    if kind == "lockcheck":
+    if kind in ("lockcheck", "plane-lockcheck"):
         from ceph_tpu_torch.bench.erasure_code_benchmark import \
             ErasureCodeBench
         from ceph_tpu_torch.utils import locks
-        check(locks.lockcheck_enabled(), "8f: CEPH_TPU_LOCKCHECK=1")
+        check(locks.lockcheck_enabled(), f"{kind}: CEPH_TPU_LOCKCHECK=1")
         bench = ErasureCodeBench()
-        bench.setup(list(CHAOS_ARGV) + ["--json"])
+        bench.setup(list(CHAOS_ARGV if kind == "lockcheck"
+                         else HOST_CHAOS_ARGV) + ["--json"])
         res = bench.run()
-        check(healed_stores(bench.last_run), "8f: healed")
+        check(healed_stores(bench.last_run), f"{kind}: healed")
         print(json.dumps({"lockcheck": locks.lockcheck_report(),
                           "result": {k: res[k] for k in (
                               "supervisor", "faults_fired",
@@ -1803,7 +2354,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random data (default 0)")
-    ap.add_argument("--child", choices=("oom", "lockcheck"),
+    ap.add_argument("--child", choices=("oom", "lockcheck",
+                                        "plane-lockcheck"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     seed = args.seed
@@ -3560,6 +4112,8 @@ def main(argv=None) -> int:
     print(json.dumps({"recovery": recovery_phase(seed)}))
     # -- phase 8: the supervised dispatch plane on the card ------------------
     print(json.dumps({"supervisor": supervisor_phase(seed)}))
+    # -- phase 9: the data plane on the card ---------------------------------
+    print(json.dumps({"data_plane": data_plane_phase(seed)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,13 +159,14 @@ def test_workload_choices_match_the_reference():
     assert set(port_bench.UNPORTED_WORKLOADS) == (
         set(ref_choices["workload"]) - {"encode", "decode", "serving",
                                         "degraded", "repair-batched",
-                                        "recovery-churn", "device-chaos"})
+                                        "recovery-churn", "device-chaos",
+                                        "multichip", "host-chaos"})
 
 
 def test_device_chaos_names_the_supervisor(capsys):
     """device-chaos runs on the supervisor: the CLI prints its line, and
-    the row names the supervisor's counter deltas (the reference's, with
-    the card's failures where it has its data plane's quarantines)."""
+    the row names the supervisor's counter deltas (the reference's, and
+    the card's failures)."""
     assert "device-chaos" not in port_bench.UNPORTED_WORKLOADS
     assert port_bench.main(RS + ["--workload", "device-chaos", "--device",
                                  "host", "--size", "4096", "--batch", "2",
@@ -173,8 +174,9 @@ def test_device_chaos_names_the_supervisor(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["workload"] == "device-chaos" and row["verified"] is True
     assert set(row["supervisor"]) == {
-        "retries", "rung_downshifts", "demotions", "card_failures",
-        "repromotions", "host_completions", "hangs", "verify_failures"}
+        "retries", "rung_downshifts", "demotions", "quarantines",
+        "card_failures", "repromotions", "host_completions", "hangs",
+        "verify_failures"}
     assert row["demoted_at_end"] is False
 
 

@@ -422,8 +422,12 @@ def test_host_fault_plan_firing_table_equals_reference():
 
 
 def test_host_chaos_selftest_names_its_items():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PORT.hosts.host_chaos_selftest()
+    """The selftest runs (the data plane is ported): with no virtual
+    members the planeless arc — a demotion to the twin, healed."""
+    st = PORT.hosts.host_chaos_selftest()
+    assert st["multi_host"] is False
+    assert st["demotions"] >= 1 and st["host_completions"] >= 1
+    assert not st["demoted"] and st["plan"]["fired"] >= 1
 
 
 # -- bounded retry under a FakeClock (the reference's tests/test_retry.py) ----

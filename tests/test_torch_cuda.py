@@ -10,7 +10,10 @@ and the roofline tool's copy and fold kernels; and the CRUSH bulk
 evaluator (eager torch, no kernel of its own) and the crushtool /
 osdmaptool CLIs on the card against their CPU runs; and the supervised
 dispatch plane (clean launches equal to the unsupervised call's, the
-device-chaos row, a lost card raising and the kernel launching after).  Every test here
+device-chaos row, a lost card raising and the kernel launching after)
+and the data plane over 4 virtual members of the card (the mesh tier,
+a member quarantine that stays on the card, a width-1 loss raising).
+Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
 
@@ -36,6 +39,7 @@ from ceph_tpu_torch.ops import gf_kernels
 from ceph_tpu_torch.ops.gf_kernels import (
     apply_bitmatrix_cuda, apply_bitmatrix_xor_cuda, apply_matrix_best,
     apply_matrix_cuda, apply_matrix_cuda_packed, apply_matrix_cuda_words,
+    apply_matrix_packed_best,
     apply_matrix_xor_cuda, apply_matrix_xor_cuda_packed, pack_chunks,
     select_matrix_engine, unpack_chunks)
 from ceph_tpu_torch.ops.probe_kernels import (
@@ -1243,5 +1247,108 @@ def test_card_loss_raises_and_the_kernel_launches_again(cuda_device):
             before = apply_matrix_cuda.launches
             assert torch.equal(apply_matrix_best(x, ms), want)
             assert apply_matrix_cuda.launches > before
+    finally:
+        restore()
+
+
+# -- the data plane on the card: 4 virtual members over one card -------------
+
+@pytest.fixture
+def card_plane(cuda_device, monkeypatch):
+    """A plane of 4 virtual members over the card, torn down after."""
+    from ceph_tpu_torch.parallel import plane
+    monkeypatch.setenv("CEPH_TPU_TORCH_VIRTUAL_DEVICES", "4")
+    prev = plane.set_data_plane(None)
+    p = plane.activate(4, kind="cuda")
+    assert p is not None and p.kind == "cuda"
+    yield p
+    plane.set_data_plane(prev)
+
+
+def test_mesh_tier_on_four_members_equals_the_kernel(card_plane):
+    """The mesh row on card tensors: 4 shards of 16 stripes, each on the
+    dense kernel (4 launches where the single-device call makes 1), the
+    bytes the single-device call's, bytes and packed, and a batch of 63
+    padded to 64."""
+    from ceph_tpu_torch.utils.shard import last_partition
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    ms = matrix_to_static(ec.matrix)
+    x = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (64, 8, 65536), dtype=np.uint8)).cuda()
+    assert select_matrix_engine(8, x.device, shape=tuple(x.shape),
+                                matrix_t=ms) == "mesh"
+    before = apply_matrix_cuda.launches
+    want = apply_matrix_best(x, ms, mesh=0)
+    single = apply_matrix_cuda.launches - before
+    before = apply_matrix_cuda.launches
+    got = apply_matrix_best(x, ms)
+    assert apply_matrix_cuda.launches - before == 4 * single
+    assert torch.equal(got, want) and last_partition() == [16] * 4
+    words = pack_chunks(x)
+    assert torch.equal(unpack_chunks(apply_matrix_packed_best(words, ms)),
+                       want)
+    assert torch.equal(apply_matrix_best(x[:63], ms), want[:63])
+    assert last_partition() == [16] * 4
+
+
+def test_member_quarantine_stays_on_the_card(card_plane):
+    """A loss of two calls at the fused-repair seam on a 4-member card
+    plane halves the plane twice (4 -> 2 -> single-device) and the
+    dispatch completes with the kernel's bytes on the card — no
+    demotion, no host twin, no DeviceDispatchError; re-promotion
+    restores the 4 members."""
+    from ceph_tpu_torch.chaos.dispatch import DispatchFault, dispatch_faults
+    from ceph_tpu_torch.codes.engine import fused_repair_call
+    from ceph_tpu_torch.parallel import plane
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    avail, erased = tuple(range(1, 11)), (0,)
+    stack = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (16, 10, 65536), dtype=np.uint8)).cuda()
+    want = fused_repair_call(ec, avail, erased, mesh=False)(stack)
+    sup, restore = _isolated_supervisor(promote_after=1, probe_every=1)
+    try:
+        with dispatch_faults([DispatchFault(
+                "backend_loss", seam="engine.fused_repair", at=1,
+                calls=2)], seed=2):
+            got = fused_repair_call(ec, avail, erased)(stack)
+        assert all(torch.equal(a, b) and a.is_cuda
+                   for a, b in zip(got, want))
+        st = sup.stats()
+        assert st["quarantines"] == 2 and st["card_failures"] == 0
+        assert st["demotions"] == st["host_completions"] == 0
+        sup.tick()
+        assert plane.data_plane().n_devices == 4 and not sup.demoted
+        assert fallback.global_policy().engine(stack.device) == "cuda"
+    finally:
+        restore()
+
+
+def test_width1_loss_on_the_card_raises(card_plane):
+    """With the plane gone (width 1), a loss on card tensors raises
+    DeviceDispatchError naming the seam, as it does with no plane."""
+    from ceph_tpu_torch.chaos.dispatch import DispatchFault, dispatch_faults
+    from ceph_tpu_torch.parallel import plane
+    from ceph_tpu_torch.utils.errors import DeviceDispatchError
+    plane.set_data_plane(None)
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cuda")
+    ms = matrix_to_static(ec.matrix)
+    x = torch.zeros((8, 8, 4096), dtype=torch.uint8, device="cuda")
+    sup, restore = _isolated_supervisor()
+    try:
+        with dispatch_faults([DispatchFault(
+                "backend_loss", seam="ops.apply_matrix", at=1,
+                calls=None)], seed=1):
+            with pytest.raises(DeviceDispatchError) as got:
+                apply_matrix_best(x, ms)
+        assert got.value.seam == "ops.apply_matrix"
+        st = sup.stats()
+        assert st["card_failures"] == 1 and st["quarantines"] == 0
+        assert st["demotions"] == 0
     finally:
         restore()

@@ -116,10 +116,17 @@ def test_calc_pg_upmaps_equals_reference():
                                                           engine="host")[0])
 
 
-def test_sharded_engine_names_its_queue_item():
+def test_sharded_engine_names_its_queue_item(monkeypatch):
+    """engine="sharded" (the data plane's x sweep over every visible
+    member) is mapping for mapping engine="bulk": over 3 virtual CPU
+    members, and at width 1 (no virtual members)."""
     port, _ = osdmaps()
-    with pytest.raises(ValueError, match="Queue A item 5"):
-        port.pg_to_raw_bulk(1, engine="sharded")
+    raw, pps = port.pg_to_raw_bulk(1, engine="bulk")
+    for n in ("3", ""):
+        monkeypatch.setenv("CEPH_TPU_TORCH_VIRTUAL_DEVICES", n)
+        got, gpps = port.pg_to_raw_bulk(1, engine="sharded")
+        np.testing.assert_array_equal(got, raw)
+        np.testing.assert_array_equal(gpps, pps)
 
 
 def test_bulk_path_without_a_card_raises(monkeypatch):

@@ -27,10 +27,11 @@ must be equal: tolerance 0.
   lean clean path entering the ladder with the reference's counts, and
   the live tier on the ops seams.
 
-The reference's data plane is set to None (its ``no_plane`` fixture): the
-port has none yet, so the reference's plane counters must stay at zero
-and are left out of the comparison, as is the port's ``card_failures``
-(zero off the card).  The reference's "xla" tier is the port's "torch".
+Both packages' data planes are set to None (the reference's ``no_plane``
+fixture), so their plane counters stay at zero and compare equal
+(tests/test_torch_host_plane.py and test_torch_multichip.py drive the
+planes); the port's ``card_failures`` (zero off the card) is left out of
+the comparison.  The reference's "xla" tier is the port's "torch".
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def world(name: str) -> SimpleNamespace:
             "sup": "ops.supervisor", "errors": "utils.errors",
             "retry": "utils.retry", "recorder": "telemetry.recorder",
             "scrub": "scrub", "orch": "recovery.orchestrator",
-            "crush": "crush", "bulk": "crush.bulk"}
+            "crush": "crush", "bulk": "crush.bulk",
+            "plane": "parallel.plane"}
     return SimpleNamespace(name=name, **{
         k: importlib.import_module(f"{name}.{v}") for k, v in mods.items()})
 
@@ -80,10 +82,7 @@ def isolated(W, policy_force=None, **sup_kw):
     prev_rec = W.recorder.set_global_flight_recorder(
         W.recorder.FlightRecorder())
     prev_cache = W.engine.set_global_pattern_cache(W.engine.PatternCache())
-    prev_plane = None
-    if W is REF:
-        from ceph_tpu.parallel import plane
-        prev_plane = plane.set_data_plane(None)
+    prev_plane = W.plane.set_data_plane(None)
     try:
         yield s
     finally:
@@ -92,9 +91,7 @@ def isolated(W, policy_force=None, **sup_kw):
         W.recorder.set_global_flight_recorder(prev_rec)
         W.engine.set_global_pattern_cache(prev_cache)
         W.dispatch.arm_plan(None)
-        if W is REF:
-            from ceph_tpu.parallel import plane
-            plane.set_data_plane(prev_plane)
+        W.plane.set_data_plane(prev_plane)
 
 
 def triggers(W) -> list:
@@ -123,10 +120,9 @@ def same_bytes(a, b) -> bool:
         np.array_equal(a, b)
 
 
-# supervisor counters only one package has: the reference's data plane's
-# (the port has no plane) and the port's card rule's
-REF_ONLY = {"quarantines", "host_quarantines", "host_repromotions",
-            "journal_redispatches", "plane_width0", "plane_hosts0"}
+# supervisor counters only one package has: the port's card rule's (both
+# have the data plane's; tests/test_torch_host_plane.py drives them)
+REF_ONLY: set = set()
 PORT_ONLY = {"card_failures"}
 
 
@@ -473,10 +469,10 @@ def test_probe_failure_resets_clean_streak():
 
 
 def test_no_plane_demotes_instead_of_quarantine():
-    """The reference's quarantine test needs a data plane (ROADMAP Queue
-    A item 5).  Without one, a persistent loss on a batch of 8 takes the
-    tier ladder in both packages: no quarantine, a live demotion, the
-    host twin, and re-promotion restores the tier."""
+    """Without a data plane (tests/test_torch_host_plane.py has the
+    quarantines), a persistent loss on a batch of 8 takes the tier
+    ladder in both packages: no quarantine, a live demotion, the host
+    twin, and re-promotion restores the tier."""
     def run(W):
         with isolated(W) as sup:
             call = _fused_seam(W, B=8)
