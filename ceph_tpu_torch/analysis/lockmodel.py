@@ -19,17 +19,19 @@ that are never held together may share a band.  The bands:
 100–199    orchestration front doors (serve queue, dispatch
            supervisor, fallback policy) — outermost
 200–299    engine/caches + plugin registry + kernel builds + chaos
-           plans (taken while orchestration locks may be held)
+           plans + the tuning table (taken while orchestration locks
+           may be held)
 300–399    telemetry singleton-installer + collector locks (any
            layer above may emit telemetry)
 400–499    telemetry leaf structures (histogram)
-500–599    leaf utility state (log levels, perf counters)
+500–599    leaf utility state (config, log levels, perf counters)
 =========  ==========================================================
 
-The reference's locks the port has no counterpart of yet are left out:
-the tuning table's and the profiler's (item 6), the compile-cache,
-config and sanitizer-mode locks, and the jaxpr audit's counter, which
-has no torch analog.
+The reference's locks the port has no counterpart of are left out: the
+compile-cache memo (the port's kernel build cache needs no lock: the
+build's own table lock, ``ops._build._lock``, guards its libraries),
+the compile monitor's memo, the sanitizer-mode lock, and the jaxpr
+audit's counter, which has no torch analog.
 """
 
 from __future__ import annotations
@@ -87,6 +89,12 @@ LOCKS: Tuple[LockSpec, ...] = (
              "active host-fault-plan install/uninstall"),
     LockSpec("chaos.hosts.HostFaultPlan._lock", "chaos.hosts", 262,
              "lock", "host-fault schedule cursor + fired-fault log"),
+    LockSpec("tune.table._lock", "tune.table", 270, "lock",
+             "active best-config table install + generation counter"),
+    LockSpec("tune.table.BestConfigTable._lock", "tune.table", 280,
+             "lock", "per-table row map + stale-warning memo"),
+    LockSpec("tune.table._env_lock", "tune.table", 290, "lock",
+             "resolved-env memo for table key matching"),
 
     # -- 300s: telemetry collectors + singleton installers -------------
     LockSpec("telemetry.tracing._lock", "telemetry.tracing", 300,
@@ -103,6 +111,12 @@ LOCKS: Tuple[LockSpec, ...] = (
     LockSpec("telemetry.metrics.MetricsRegistry._lock",
              "telemetry.metrics", 350, "lock",
              "counter/gauge/event/histogram tables"),
+    LockSpec("telemetry.profiler._global_lock", "telemetry.profiler",
+             370, "lock", "process-global profiler install"),
+    LockSpec("telemetry.profiler.ProgramProfiler._lock",
+             "telemetry.profiler", 380, "lock",
+             "per-program cost/roofline record table + pending CUDA "
+             "event pairs"),
     LockSpec("telemetry.recorder._global_lock", "telemetry.recorder",
              390, "lock", "process-global flight-recorder install"),
     LockSpec("telemetry.recorder.FlightRecorder._lock",
@@ -115,6 +129,8 @@ LOCKS: Tuple[LockSpec, ...] = (
              "bucket counts + sum/max accumulators"),
 
     # -- 500s: leaf utility state (innermost) --------------------------
+    LockSpec("utils.config.Config._lock", "utils.config", 520, "lock",
+             "config value overlay"),
     LockSpec("utils.log._lock", "utils.log", 530, "lock",
              "per-subsystem log-level table"),
     LockSpec("utils.perf.PerfCounters._lock", "utils.perf", 550,

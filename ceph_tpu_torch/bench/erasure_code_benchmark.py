@@ -58,11 +58,19 @@ reclaims the in-flight work and re-promotes.  ``--device host`` runs
 both at width 1 (no plane: the host region ops, and a loss that demotes
 to the numpy twin).
 
-Not ported yet, each with the ROADMAP Queue A item that brings its
-module: profile and autotune, and --tune-table (item 6), cluster,
-scenario and tenant-week (item 7).
-They stay in the flag choices, so --help matches the reference, and
-exit with a CLI error.
+``profile`` (the program profiler, ``telemetry/profiler.py``) drives
+the engine's serve encode, serve decode and fused repair on the run's
+device and reports the profiler's attribution rows (analytic cost,
+CUDA-event times on the card); ``--device host`` runs the numpy batch
+surfaces with the analytic cost.  ``autotune`` (``tune/``) runs the
+timed sweep on the run's device, or the analytic sweep with ``--device
+host``.  ``--tune-table FILE`` installs a best-config table before the
+workload; every row reports ``config_source`` and ``tune_key_hash``.
+
+Not ported yet, with the ROADMAP Queue A item that brings their
+modules: cluster, scenario and tenant-week (item 7).  They stay in the
+flag choices, so --help matches the reference, and exit with a CLI
+error.
 """
 
 from __future__ import annotations
@@ -89,8 +97,6 @@ _CARD_PASSES = 4
 # workloads whose modules are not ported yet -> the ROADMAP Queue A item
 # that ports them
 UNPORTED_WORKLOADS = {
-    "profile": "item 6 (the program profiler)",
-    "autotune": "item 6 (tuning)",
     "cluster": "item 7 (cluster)",
     "scenario": "item 7 (scenario)",
     "tenant-week": "item 7 (scenario)",
@@ -277,9 +283,10 @@ class ErasureCodeBench:
                         help="scenario workload (not ported yet): "
                              "disable the QoS arbiter")
         ap.add_argument("--tune-table", default=None, metavar="FILE",
-                        help="install this best-config table before "
-                             "the workload (not ported yet: ROADMAP "
-                             "Queue A item 6)")
+                        help="install this best-config table "
+                             "(python -m ceph_tpu_torch.tools.autotune "
+                             "output) before the workload; rows report "
+                             "config_source=tuned")
         ap.add_argument("-E", "--erasures-generation", default="random",
                         choices=["random", "exhaustive"],
                         dest="erasures_generation")
@@ -344,9 +351,6 @@ class ErasureCodeBench:
         if item is not None:
             ap.error(f"--workload {self.args.workload} is not ported "
                      f"yet (ROADMAP Queue A {item})")
-        if self.args.tune_table:
-            ap.error("--tune-table is not ported yet (ROADMAP Queue A "
-                     "item 6 (tuning))")
         self.profile = _parse_parameters(self.args.parameter)
 
     # -- helpers ------------------------------------------------------------
@@ -386,34 +390,11 @@ class ErasureCodeBench:
 
     @staticmethod
     def _decode_matrix_static(ec, available, pat):
-        """The static composite/plan decode matrix the (available,
-        erased) pattern actually runs, across the plugin families:
-        clay/lrc probed composites, shec's minimum-read plan matrix,
-        the mixin decode matrix.  None when the plugin has no matrix
-        surface (bitmatrix techniques)."""
-        available, pat = tuple(available), tuple(pat)
-        comp = getattr(ec, "_decode_composite", None)
-        if comp is not None:
-            try:
-                return comp(available, pat)[1]
-            except Exception:  # noqa: BLE001 - advisory probe only
-                return None
-        tcache = getattr(ec, "tcache", None)
-        if tcache is not None and hasattr(ec, "_plan_static"):  # shec
-            try:
-                plan = tcache.get_plan(ec.matrix, ec.k, ec.w,
-                                       frozenset(available),
-                                       frozenset(pat))
-                return ec._plan_static(plan)[1]
-            except Exception:  # noqa: BLE001 - advisory probe only
-                return None
-        dm = getattr(ec, "_decode_matrix", None)
-        if dm is not None:
-            try:
-                return dm(available, pat)[1]
-            except Exception:  # noqa: BLE001 - advisory probe only
-                return None
-        return None
+        """The static decode matrix the (available, erased) pattern runs
+        (``codes.engine.decode_matrix_static``), None for bitmatrix
+        techniques."""
+        from ..codes.engine import decode_matrix_static
+        return decode_matrix_static(ec, available, pat)
 
     def _decode_row_meta(self, ec, available, pat, packed: bool) -> dict:
         """Decode-row provenance: which engine tier the decode matrix
@@ -738,6 +719,11 @@ class ErasureCodeBench:
     def _result(self, workload: str, elapsed: float, total_bytes: int,
                 lat: "_LatTimer | None" = None) -> dict:
         gbps = total_bytes / elapsed / 1e9 if elapsed > 0 else float("inf")
+        # every row says which config regime produced it (the tuned
+        # best-config table or the hand-picked defaults) and the table's
+        # content hash (tune/table.py)
+        from ..tune.table import active_source
+        config_source, tune_key_hash = active_source()
         res = {
             "workload": workload,
             "plugin": self.args.plugin,
@@ -752,10 +738,8 @@ class ErasureCodeBench:
             "chain": self.args.chain,
             "loop": self.args.loop,
             "gbps": gbps,
-            # the hand-picked defaults until the tuning table is ported
-            # (ROADMAP Queue A item 6)
-            "config_source": "default",
-            "tune_key_hash": None,
+            "config_source": config_source,
+            "tune_key_hash": tune_key_hash,
             **self._topology(),
         }
         if lat is not None and lat.hist.count:
@@ -768,6 +752,12 @@ class ErasureCodeBench:
 
     def run(self) -> dict:
         from ..utils.perf import global_perf, profile_trace
+        if self.args.tune_table:
+            # install the persisted best-config table BEFORE the
+            # workload builds anything (the consultation seams read it);
+            # it stays installed for the process
+            from ..tune.table import BestConfigTable, install_table
+            install_table(BestConfigTable.load(self.args.tune_table))
         with profile_trace(self.args.profile_dir):
             res = self._run_workload()
         if self.args.dump_perf:
@@ -1415,7 +1405,192 @@ class ErasureCodeBench:
         res["tail_attribution"] = tail
         return res
 
+    # -- profile (the program profiler: per-program cost/roofline
+    # attribution for the engine's cached callables) -------------------
+
+    def profile_workload(self) -> dict:
+        """Cost/roofline attribution workload: drives the engine's
+        cached callables — serve encode, serve decode and the fused
+        decode -> re-encode repair — for the configured plugin on the
+        run's device, and emits the global profiler's rows for them:
+        the analytic cost (bytes, ops), the measured p50/p99 (CUDA
+        events on the card), achieved GB/s, the model-bound GB/s at the
+        memory roofline, utilization %.  On the card each iteration's
+        three calls are queued behind a spin (``profiler.hold_stream``),
+        so each event pair reads the card's time for its call, not the
+        host's issue; a latency sample is one iteration, completion
+        included, and the row's GB/s counts the spins' time too.
+
+        ``--device host`` runs the numpy batch surfaces on a private
+        profiler with the analytic matrix model (the XOR schedule's op
+        count where the decode pattern runs one), timed on the host
+        clock."""
+        from ..telemetry import profiler as profmod
+        a = self.args
+        ec = self._instance()
+        n = ec.get_chunk_count()
+        m_ = ec.get_coding_chunk_count()
+        data = self._make_batch(ec)
+        chunk_size = data.shape[2]
+        pat = self._erasure_patterns(ec, n)[0]
+        available = tuple(i for i in range(n) if i not in pat)
+        parity = np.asarray(ec.encode_chunks_batch(data))
+        allchunks = self._place_chunks(ec, data, parity)
+        survivors = np.ascontiguousarray(
+            allchunks[:, np.array(available), :])
+        lat = _LatTimer()
+        plugin_cls = type(ec).__name__
+
+        if a.device != "host":
+            from ..codes.engine import (fused_repair_call,
+                                        serve_dispatch_call)
+            from ..telemetry import metrics as tel
+            if not tel.enabled():
+                raise ValueError("-w profile records through telemetry; "
+                                 "it is disabled (metrics.set_enabled)")
+            dev = self._device()
+            prof = profmod.global_profiler()
+            enc = serve_dispatch_call(ec, "encode")
+            dec = serve_dispatch_call(ec, "decode", available, pat)
+            rep = fused_repair_call(ec, available, pat)
+            denc = torch.from_numpy(data).to(dev)
+            dsurv = torch.from_numpy(survivors).to(dev)
+            calls = [lambda: enc(denc), lambda: dec(dsurv),
+                     lambda: rep(dsurv)]
+            for fn in calls:            # warm: kernel setup + capture
+                fn()
+            _sync(dev)
+
+            def one_round():
+                profmod.hold_stream(dev, len(calls))
+                for fn in calls:
+                    fn()
+                _sync(dev)
+            begin = time.perf_counter()
+            for _ in range(a.iterations):
+                lat.run(one_round)
+            elapsed = time.perf_counter() - begin
+            total_bytes = (data.nbytes + 2 * survivors.nbytes) \
+                * a.iterations
+            rows = [r for r in prof.attribution_rows()
+                    if r.get("plugin") == plugin_cls
+                    and r.get("platform") == dev.type]
+        else:
+            # host tier: numpy batch surfaces + the analytic cost model
+            prof = profmod.ProgramProfiler()
+            ops = [
+                ("encode", m_, ec.get_data_chunk_count(),
+                 lambda: ec.encode_chunks_batch(data)),
+                ("decode", len(pat), len(available),
+                 lambda: ec.decode_chunks_batch(survivors, available,
+                                                pat)),
+            ]
+            for opname, rows_, cols_, fn in ops:
+                key = ("bench.profile", plugin_cls, opname)
+                # the analytic model extended to XOR schedules: when the
+                # decode matrix the pattern runs is XOR-scheduled, the
+                # cost side carries the schedule's op count (and the
+                # row says engine="xor")
+                cost = profmod.analytic_matrix_cost(
+                    a.batch, rows_, cols_, chunk_size)
+                host_engine = "host"
+                ms = (self._decode_matrix_static(ec, available, pat)
+                      if opname == "decode"
+                      and getattr(ec, "w", 8) == 8 else None)
+                if ms is not None:
+                    from ..ops.xor_schedule import preferred_schedule
+                    mr, mc = len(ms), len(ms[0])
+                    unit = chunk_size // getattr(ec, "sub_chunk_no", 1)
+                    sched = preferred_schedule(ms, 8)
+                    if sched is not None:
+                        cost = profmod.analytic_xor_schedule_cost(
+                            a.batch, mr, mc, unit, sched.vpu_ops)
+                        host_engine = "xor"
+                    else:
+                        cost = profmod.analytic_matrix_cost(
+                            a.batch, mr, mc, unit)
+                prof.capture(
+                    key, name=f"host.{opname}", platform="cpu",
+                    cost=cost,
+                    arg_bytes=a.batch * cols_ * chunk_size,
+                    plugin=plugin_cls, kind=f"host-{opname}",
+                    pattern="e" + "_".join(map(str, pat)),
+                    engine=host_engine, devices=0, batch=a.batch)
+                fn()                    # warm caches
+            begin = time.perf_counter()
+            for _ in range(a.iterations):
+                for opname, _r, _c, fn in ops:
+                    key = ("bench.profile", plugin_cls, opname)
+                    t0 = time.perf_counter()
+                    fn()
+                    dt = time.perf_counter() - t0
+                    lat.record(dt)
+                    prof.observe(key, dt)
+            elapsed = time.perf_counter() - begin
+            total_bytes = (data.nbytes + survivors.nbytes) \
+                * a.iterations
+            rows = prof.attribution_rows()
+
+        res = self._result("profile", elapsed, total_bytes, lat)
+        res["erasures"] = len(pat)
+        res["programs"] = len(rows)
+        res["profile_rows"] = rows
+        return res
+
+    # -- autotune (the config search as a measured workload: tune/ and
+    # ceph_tpu_torch/tools/autotune.py) --------------------------------
+
+    def autotune_workload(self) -> dict:
+        """Profiler-driven config sweep as a bench row: the timed sweep
+        on the run's device (min-of-N device times of every tier it can
+        dispatch, byte identity asserted across every candidate), or
+        with ``--device host`` the host-only analytic roofline sweep.
+        The row carries the tuner's before/after rows, the tuned key
+        list, and ``utilization_pct`` (the best tuned program's
+        after-utilization)."""
+        from ..tune import sweep as tsweep
+        a = self.args
+        begin = time.perf_counter()
+        if a.device != "host":
+            rep = tsweep.timed_sweep(
+                plugin=a.plugin, profile=self.profile or None,
+                size=a.size, batch=a.batch,
+                repeats=max(2, a.iterations), seed=a.seed,
+                device=self._device())
+        else:
+            rep = tsweep.analytic_sweep(seed=a.seed)
+        elapsed = time.perf_counter() - begin
+        # bytes actually priced/measured by the sweep (the attribution
+        # rows record arg_bytes x observed calls per program)
+        total_bytes = sum(
+            int(r["arg_bytes"]) * int(r["calls"] or 1)
+            for r in rep.attribution if r.get("arg_bytes"))
+        res = self._result("autotune", elapsed, max(1, total_bytes))
+        res["mode"] = rep.mode
+        res["seed"] = rep.seed
+        res["tuned_keys"] = sorted(rep.table.entries)
+        res["n_tuned"] = len(rep.table)
+        res["rows"] = rep.rows
+        res["table"] = rep.table.to_dict()
+        utils = [r["after"].get("utilization_pct") for r in rep.rows
+                 if isinstance(r.get("after"), dict)
+                 and isinstance(r["after"].get("utilization_pct"),
+                                (int, float))]
+        res["utilization_pct"] = max(utils) if utils else None
+        head = rep.headline()
+        res["improvement_pct"] = (head or {}).get("improvement_pct")
+        res["improved_rows"] = len(rep.improved)
+        # the timed sweep asserts byte identity across every candidate
+        # tier (a mismatch raises and aborts the row); the analytic
+        # sweep dispatches nothing
+        res["verified"] = True
+        return res
+
     def _run_workload(self) -> dict:
+        if self.args.workload == "autotune":
+            return self.autotune_workload()
+        if self.args.workload == "profile":
+            return self.profile_workload()
         if self.args.workload == "encode":
             return self.encode()
         if self.args.workload == "degraded":

@@ -54,7 +54,16 @@ key in the same keyspace, and counted in ``engine_mesh_dispatches``.
 A plane reshrink (the supervisor's quarantine) clears the cache, and
 the rebuild lands on the narrowed plane.
 
-Not ported: the program profiler (ROADMAP Queue A item 6).
+Each callable is a program of the program profiler
+(telemetry/profiler.py) under the reference's names and labels
+(``engine.fused_repair``, ``engine.serve_dispatch``,
+``engine.serve_dispatch_ragged``; the labels carry the config regime,
+``active_source()``'s first half): at a batch rung's first call it is
+captured with its analytic cost — the matrix model of its decode and
+encode, summed for the fused repair; a capture computes a dict and
+uploads nothing — and every call is timed into its histogram (CUDA
+events on the card).  With telemetry disabled a call pays one
+module-global check and goes straight to the supervised dispatch.
 """
 
 from __future__ import annotations
@@ -70,6 +79,9 @@ from ..ops.torch_ops import mask_pages
 from ..parallel.plane import plane_for
 from ..telemetry import metrics as tel
 from ..telemetry import tracing as trc
+from ..telemetry.profiler import (analytic_fused_repair_cost,
+                                  analytic_matrix_cost, global_profiler)
+from ..tune.table import active_source
 from ..utils.log import dout
 from ..utils.locks import make_lock
 from ..utils.shard import shard_batch
@@ -239,14 +251,97 @@ def _repair_sources(ec, available: tuple, erased: tuple) -> list:
 
 
 def _labels(ec, kind: str, erased: tuple, plane=None) -> dict:
-    """The program series a dispatch rides (the causal-trace link)."""
+    """The program series a dispatch rides: the profiler's labels and
+    the causal-trace link.  ``config`` is the config regime the callable
+    was built under (installing a table clears the cache, so it never
+    goes stale)."""
     return dict(
         plugin=type(ec).__name__, kind=kind,
         profile=",".join(f"{pk}={pv}" for pk, pv in
                          sorted(ec.get_profile().items())),
         pattern="e" + "_".join(map(str, erased)),
         engine="mesh" if plane is not None else "device",
-        devices=plane.n_devices if plane is not None else 1)
+        devices=plane.n_devices if plane is not None else 1,
+        config=active_source()[0])
+
+
+def decode_matrix_static(ec, available, erased):
+    """The static composite/plan decode matrix an (available, erased)
+    pattern actually runs, across the plugin families: clay/lrc probed
+    composites, shec's minimum-read plan matrix, the mixin decode
+    matrix.  None when the plugin has no matrix surface (bitmatrix
+    techniques)."""
+    available, erased = tuple(available), tuple(erased)
+    comp = getattr(ec, "_decode_composite", None)
+    if comp is not None:
+        try:
+            return comp(available, erased)[1]
+        except Exception:  # noqa: BLE001 - advisory probe only
+            return None
+    tcache = getattr(ec, "tcache", None)
+    if tcache is not None and hasattr(ec, "_plan_static"):  # shec
+        try:
+            plan = tcache.get_plan(ec.matrix, ec.k, ec.w,
+                                   frozenset(available), frozenset(erased))
+            return ec._plan_static(plan)[1]
+        except Exception:  # noqa: BLE001 - advisory probe only
+            return None
+    dm = getattr(ec, "_decode_matrix", None)
+    if dm is not None:
+        try:
+            return dm(available, erased)[1]
+        except Exception:  # noqa: BLE001 - advisory probe only
+            return None
+    return None
+
+
+def _survivors_read(ec, available: tuple, erased: tuple) -> float:
+    """Survivor chunks a decode of the pattern reads: its decode
+    matrix's nonzero columns (sub-chunk columns for clay, so a repair's
+    partial reads count as the fraction they are), else the k survivors
+    a bitmatrix decode reads."""
+    ms = decode_matrix_static(ec, available, erased)
+    if ms is None:
+        return float(min(ec.get_data_chunk_count(), len(available)))
+    cols = int(np.count_nonzero(np.asarray(ms).any(axis=0)))
+    return cols / getattr(ec, "sub_chunk_no", 1)
+
+
+def _matrix_costs(ec, available: tuple, erased: tuple):
+    """(decode cost, encode cost) of one pattern as functions of (batch,
+    chunk bytes): the profiler's analytic matrix model over the
+    survivors the decode reads -> the erased chunks, and the k -> m
+    encode.  The decode's reads are worked out at its first call."""
+    k, m = ec.get_data_chunk_count(), ec.get_coding_chunk_count()
+    n_erased = len(erased)
+    reads = []
+
+    def dec(b, c):
+        if not reads:
+            reads.append(_survivors_read(ec, available, erased))
+        return analytic_matrix_cost(b, n_erased, reads[0], c)
+
+    def enc(b, c):
+        return analytic_matrix_cost(b, m, k, c)
+    return dec, enc
+
+
+def _profiled(name: str, key: tuple, labels: dict, cost, args: tuple,
+              run):
+    """``run()`` as one call of the profiler's program ``key`` + (batch
+    rung,): captured with ``cost(batch, chunk bytes)`` at the rung's
+    first call, timed into its histogram (CUDA events for a card
+    tensor)."""
+    x = args[0]
+    batch = int(x.shape[0])
+    prof = global_profiler()
+    pk = key + (batch,)
+    if not prof.has(pk):
+        prof.capture(pk, args, name=name, platform=x.device.type,
+                     cost=cost(batch, int(x.shape[-1])), batch=batch,
+                     **labels)
+    with prof.timed(pk, device=x.device):
+        return run()
 
 
 def _host_array(x: torch.Tensor) -> np.ndarray:
@@ -282,6 +377,11 @@ def fused_repair_call(ec, available: Tuple[int, ...],
     def build():
         src = _repair_sources(ec, available, erased)
         labels = _labels(ec, "fused-repair", erased, plane)
+        dec_cost, enc_cost = _matrix_costs(ec, available, erased)
+
+        def cost(b, c):
+            return analytic_fused_repair_cost(dec_cost(b, c),
+                                              enc_cost(b, c))
 
         def body(stack: torch.Tensor):
             rec = ec.decode_chunks_torch(stack, available, erased)
@@ -305,6 +405,11 @@ def fused_repair_call(ec, available: Tuple[int, ...],
         def rebuild():
             return fused_repair_call(ec, available, erased, mesh=mesh)._raw
 
+        def dispatch(stack: torch.Tensor):
+            return global_supervisor().dispatch(
+                "engine.fused_repair", raw, (stack,),
+                host_fn=host_twin, rebuild=rebuild)
+
         def call(stack: torch.Tensor):
             if plane is not None:
                 tel.counter("engine_mesh_dispatches", tier="fused-repair",
@@ -312,11 +417,13 @@ def fused_repair_call(ec, available: Tuple[int, ...],
             if trc.enabled():
                 trc.note_program("engine.fused_repair",
                                  dict(labels, batch=int(stack.shape[0])))
+            if not tel.enabled():
+                return dispatch(stack)
             with tel.record_dispatch("engine_fused_repair_dispatch",
                                      plugin=type(ec).__name__):
-                return global_supervisor().dispatch(
-                    "engine.fused_repair", raw, (stack,),
-                    host_fn=host_twin, rebuild=rebuild)
+                return _profiled("engine.fused_repair", ("prof",) + key,
+                                 labels, cost, (stack,),
+                                 lambda: dispatch(stack))
 
         call._raw = raw
         return call
@@ -353,6 +460,8 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
 
     def build():
         labels = _labels(ec, f"serve-{op}", erased, plane)
+        dec_cost, enc_cost = _matrix_costs(ec, available, erased)
+        cost = enc_cost if op == "encode" else dec_cost
 
         def body(stack: torch.Tensor):
             if op == "encode":
@@ -376,6 +485,11 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
             return serve_dispatch_call(ec, op, available, erased,
                                        mesh=mesh)._raw
 
+        def dispatch(stack: torch.Tensor):
+            return global_supervisor().dispatch(
+                f"engine.serve-{op}", raw, (stack,),
+                host_fn=host_twin, rebuild=rebuild)
+
         def call(stack: torch.Tensor):
             if plane is not None:
                 tel.counter("engine_mesh_dispatches", tier=f"serve-{op}",
@@ -383,11 +497,13 @@ def serve_dispatch_call(ec, op: str, available: Tuple[int, ...] = (),
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch",
                                  dict(labels, batch=int(stack.shape[0])))
+            if not tel.enabled():
+                return dispatch(stack)
             with tel.record_dispatch("serve_dispatch", op=op,
                                      plugin=type(ec).__name__):
-                return global_supervisor().dispatch(
-                    f"engine.serve-{op}", raw, (stack,),
-                    host_fn=host_twin, rebuild=rebuild)
+                return _profiled("engine.serve_dispatch", ("prof",) + key,
+                                 labels, cost, (stack,),
+                                 lambda: dispatch(stack))
 
         call._raw = raw
         return call
@@ -438,6 +554,13 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
         dec = _ragged_surface(ec, "decode")
         enc = _ragged_surface(ec, "encode")
         labels = _labels(ec, f"serve-{op}-ragged", erased, plane)
+        dec_cost, enc_cost = _matrix_costs(ec, available, erased)
+        if op == "repair":
+            def cost(b, c):
+                return analytic_fused_repair_cost(dec_cost(b, c),
+                                                  enc_cost(b, c))
+        else:
+            cost = enc_cost if op == "encode" else dec_cost
 
         def body(pool: torch.Tensor, mask: torch.Tensor):
             if op == "encode":
@@ -485,6 +608,11 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
                 ec, op, available, erased, pages=pages,
                 page_size=page_size, mesh=mesh)._raw
 
+        def dispatch(pool: torch.Tensor, mask: torch.Tensor):
+            return global_supervisor().dispatch(
+                f"engine.serve-{op}-ragged", raw, (pool, mask),
+                host_fn=host_twin, rebuild=rebuild)
+
         def call(pool: torch.Tensor, mask: torch.Tensor):
             if plane is not None:
                 tel.counter("engine_mesh_dispatches",
@@ -493,11 +621,15 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
             if trc.enabled():
                 trc.note_program("engine.serve_dispatch_ragged",
                                  dict(labels, batch=int(pool.shape[0])))
+            if not tel.enabled():
+                return dispatch(pool, mask)
+            # one program per pattern: the key carries the (static) pool
+            # page count, not a rung
             with tel.record_dispatch("serve_dispatch_ragged", op=op,
                                      plugin=type(ec).__name__):
-                return global_supervisor().dispatch(
-                    f"engine.serve-{op}-ragged", raw, (pool, mask),
-                    host_fn=host_twin, rebuild=rebuild)
+                return _profiled("engine.serve_dispatch_ragged",
+                                 ("prof",) + key, labels, cost,
+                                 (pool, mask), lambda: dispatch(pool, mask))
 
         call._raw = raw
         return call
@@ -505,6 +637,7 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
     return global_pattern_cache().get_or_build(key, build)
 
 
-__all__ = ["DEFAULT_MAX_PATTERNS", "PatternCache", "fused_repair_call",
-           "global_pattern_cache", "pattern_key", "serve_dispatch_call",
-           "serve_dispatch_ragged", "set_global_pattern_cache"]
+__all__ = ["DEFAULT_MAX_PATTERNS", "PatternCache", "decode_matrix_static",
+           "fused_repair_call", "global_pattern_cache", "pattern_key",
+           "serve_dispatch_call", "serve_dispatch_ragged",
+           "set_global_pattern_cache"]

@@ -71,12 +71,22 @@ def _shec_coding_matrix(k: int, m: int, c: int, w: int) -> np.ndarray:
     return mat
 
 
+@functools.lru_cache(maxsize=256)
+def _index_on(index: tuple, device: torch.device) -> torch.Tensor:
+    """A plan's chunk index as a tensor on ``device``, copied there once:
+    indexing with a list would copy it to the card on every call, and
+    the copy synchronizes with the host."""
+    return torch.tensor(index, dtype=torch.long, device=device)
+
+
 def _take(x: torch.Tensor, index: list) -> torch.Tensor:
-    """x[:, index]; uint32 tensors (the packed layout) through an int32
-    view, which torch can index on the card."""
+    """x[:, index] (``index_select`` over a cached index tensor); uint32
+    tensors (the packed layout) through an int32 view, which torch can
+    index on the card."""
+    idx = _index_on(tuple(index), x.device)
     if x.dtype == torch.uint32:
-        return x.view(torch.int32)[:, index].view(torch.uint32)
-    return x[:, index]
+        return x.view(torch.int32).index_select(1, idx).view(torch.uint32)
+    return x.index_select(1, idx)
 
 
 class ErasureCodeShecTableCache:

@@ -1314,6 +1314,19 @@ def _member_map(cm: "CompiledCrushMap", device: torch.device
     return copies[device]
 
 
+def first_rung_cost(cm: "CompiledCrushMap", ruleno: int, result_max: int,
+                    tries: int, lanes: int) -> Dict[str, float]:
+    """The analytic cost of ``lanes`` x through the first rung
+    (telemetry/profiler.py::analytic_crush_cost): ``tries`` x
+    ``result_max`` straw2 draws a lane over the take bucket level's
+    width."""
+    from ..telemetry.profiler import analytic_crush_cost
+    take = next(a1 for op, a1, _ in cm.cmap.rules[ruleno].steps
+                if op == CRUSH_RULE_TAKE)
+    width = cm.width_at(cm.level_of(cm.cmap.buckets[take].type))
+    return analytic_crush_cost(lanes, tries, result_max, width, result_max)
+
+
 def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                  weight: Optional[Sequence[int]] = None,
                  bulk_tries: Optional[int] = None,
@@ -1437,13 +1450,37 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                 torch.zeros(len(xs_h), dtype=torch.bool, device=dev))
 
     sup = global_supervisor()
+    # the program profiler (telemetry/profiler.py): the first rung's
+    # block is one program, keyed like the reference's plus the map
+    # size, captured at its first block with the straw2 draw model and
+    # every block timed into its histogram (CUDA events on the card)
+    from ..telemetry import metrics as tel
+    profiled = tel.enabled()
+    if profiled:
+        from ..telemetry.profiler import global_profiler
+        prof = global_profiler()
+        prof_key = ("crush.bulk_rule", ruleno, result_max, rungs[0],
+                    block, nd, len(w_np))
+        prof.capture(prof_key, name="crush.bulk_rule", platform=dev.type,
+                     cost=first_rung_cost(cm, ruleno, result_max,
+                                          rungs[0][0], block),
+                     arg_bytes=block * 8, plugin="crush",
+                     kind="bulk-rule", batch=block,
+                     pattern=f"rule{ruleno}x{result_max}",
+                     engine="mesh" if nd > 1 else "device", devices=nd)
     for s in range(0, n, block):
         e = min(s + block, n)
         # verifiable=False: the device block legitimately differs from
         # the host twin (need-host flags feed the residue ladder)
-        out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
-            "crush.bulk_rule", dev_block, (xs_d[s:e],),
-            host_fn=host_block, verifiable=False)
+        if not profiled:
+            out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
+                "crush.bulk_rule", dev_block, (xs_d[s:e],),
+                host_fn=host_block, verifiable=False)
+        else:
+            with prof.timed(prof_key, device=dev):
+                out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
+                    "crush.bulk_rule", dev_block, (xs_d[s:e],),
+                    host_fn=host_block, verifiable=False)
         perf.inc("crush_bulk_blocks")
     redo = flagged = _nonzero(need)
 

@@ -1,14 +1,18 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, ``build/lib<name>-<hash>.so``
-beside this file, and loaded with ``ctypes``.  No PyTorch header is
+shared library with a plain C interface, ``lib<name>-<hash>.so`` in
+the build directory, and loaded with ``ctypes``.  No PyTorch header is
 included, so a build takes seconds rather than minutes.  The build
 runs on first CUDA use (never at import), one ``nvcc`` per source, all
 started together; the hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags names the library, so an edited source
-or header is rebuilt and a built one is reused.
-The build directory is listed in ``.gitignore``.
+or header is rebuilt and a built one is reused.  The build directory is
+``build/`` beside this file (listed in ``.gitignore``), or the kernel
+build cache ``CEPH_TPU_COMPILE_CACHE`` names (utils/compile_cache.py):
+there a second process, or a second checkout of the same sources,
+loads the libraries and runs no ``nvcc``.  Each library looked for
+counts as a build-cache hit or miss.
 
 A failed build raises :class:`KernelBuildError`; nothing falls back to
 the torch tier.
@@ -26,6 +30,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from ..telemetry import metrics as tel
+from ..utils.compile_cache import compile_cache_dir, note_lookup
 from ..utils.errors import KernelBuildError
 from ..utils.locks import make_lock
 
@@ -55,13 +60,20 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME)")
 
 
+def build_dir() -> Path:
+    """Where libraries are built and looked for: the kernel build cache
+    when one is configured, else BUILD_DIR."""
+    d = compile_cache_dir()
+    return Path(d) if d else BUILD_DIR
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(src.parent.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
@@ -73,17 +85,19 @@ def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
         missing = set(names) - {s.stem for s in srcs}
         if missing:
             raise KernelBuildError(f"no kernel source for {sorted(missing)}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bdir = build_dir()
+    bdir.mkdir(parents=True, exist_ok=True)
     out: Dict[str, Path] = {}
     procs = []
     for src in srcs:
         target = _target(src)
         out[src.stem] = target
+        note_lookup(target.exists())
         if target.exists():
             continue
         # a temporary file of this call's own (two threads or processes
         # building one source never write into one file)
-        fd, name = tempfile.mkstemp(dir=BUILD_DIR, prefix=target.name + ".",
+        fd, name = tempfile.mkstemp(dir=bdir, prefix=target.name + ".",
                                     suffix=".tmp")
         os.close(fd)
         tmp = Path(name)

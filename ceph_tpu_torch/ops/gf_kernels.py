@@ -118,8 +118,10 @@ from .torch_ops import WORD_DTYPE, StaticMatrix, apply_bitmatrix_torch, \
     apply_matrix_ragged_torch, apply_matrix_torch, apply_matrix_walk_torch, \
     apply_matrix_xor_torch, column_walk_data, mask_pages
 from .xor_schedule import RowProgram, XorSchedule, host_matrix_apply, \
-    plain_row_program, preferred_schedule, row_program, word_program
+    plain_row_program, preferred_schedule, probe_schedule, row_program, \
+    word_program
 from ..telemetry import metrics as tel
+from ..tune import table as _tune
 from ..utils.errors import KernelLaunchError
 from ..utils.shard import shard_batch
 
@@ -1443,6 +1445,19 @@ def apply_matrix_numpy(chunks: torch.Tensor, matrix_t, w: int = 8
 MXU_MATRIX_MIN = 2048
 
 
+def mxu_matrix_min() -> int:
+    """The mxu row's nonzero cutover: the tuned value from the installed
+    best-config table (kind ``engine-select``), else MXU_MATRIX_MIN.
+    Every tier is byte-identical, so a tuned cutover moves only WHERE
+    the product runs."""
+    cfg = _tune.consult("engine-select")
+    if cfg:
+        v = cfg.get("mxu_matrix_min")
+        if isinstance(v, int) and not isinstance(v, bool) and v > 0:
+            return v
+    return MXU_MATRIX_MIN
+
+
 def _static(matrix_t) -> tuple:
     """A coefficient table as the hashable tuple of tuples the schedule
     and kernel-data caches key on: a StaticMatrix as it is (its hash is
@@ -1456,9 +1471,9 @@ def _static(matrix_t) -> tuple:
 
 def _xor_static(matrix_t):
     """The static tuple of the schedule the table routed ``matrix_t``
-    to (the probe is cached: a dict hit per call)."""
-    return preferred_schedule(_static(matrix_t), 8,
-                              mxu_min=MXU_MATRIX_MIN).static
+    to: the probe's, which the preference test and a tuned pin both
+    route on (the probe is cached: a dict hit per call)."""
+    return probe_schedule(_static(matrix_t), 8).static
 
 
 @functools.lru_cache(maxsize=256)
@@ -1466,6 +1481,41 @@ def _matrix_nnz(matrix_t) -> int:
     """Nonzero coefficients of a static table.  Cached: it runs in the
     per-call dispatch, and a clay composite has 45k coefficients."""
     return sum(1 for row in matrix_t for v in row if v)
+
+
+def _tuned_engine_pin(shape, static, packed: bool, eng: str) -> str | None:
+    """The autotuner's per-matrix tier pin: the measured winner for this
+    static w=8 matrix from the best-config table (kind
+    ``matrix-engine``, profile slot ``m:<digest>``), validated against
+    what this tensor can dispatch — an undispatchable pin falls back to
+    the heuristic rows byte-identically, it never errors.  ``torch``
+    runs only on CPU tensors, ``cuda`` and ``mxu`` only on the card,
+    ``xor`` where the xor row could run it."""
+    digest = "m:" + _tune.matrix_digest(static)
+    cfg = _tune.consult("matrix-engine", profile=digest,
+                        layout="packed" if packed else "bytes",
+                        device_count=1)
+    if cfg is None:
+        # most pins are written under the bytes layout; a packed
+        # dispatch of the same matrix runs the same tier
+        cfg = _tune.consult("matrix-engine", profile=digest,
+                            layout="bytes", device_count=1)
+    if not cfg:
+        return None
+    pin = cfg.get("engine")
+    if pin == "torch":
+        return "torch" if eng == "torch" else None
+    if pin == "xor":
+        sched = probe_schedule(static, 8)
+        ok = ((packed or (shape is not None and len(shape) >= 2
+                          and shape[-1] % 4 == 0))
+              and sched is not None and xor_program_fits(sched.static))
+        return "xor" if ok else None
+    if eng != "cuda":
+        return None          # mxu/cuda pins need the card
+    if pin in ("mxu", "cuda"):
+        return pin
+    return None
 
 
 def select_matrix_engine(w: int = 8, device=None,
@@ -1509,13 +1559,18 @@ def select_matrix_engine(w: int = 8, device=None,
                applies to CPU tensors only).
 
     The order is the reference's (``ceph_tpu/ops/pallas_gf.py``): the
-    numpy tier first, then the mesh row, the xor row, then the mxu row
-    and the device tier, which only a device tensor reaches (the
-    reference's "xla" is the port's "torch").  ``engine`` forces a tier
-    for this call in place of the process policy; like the policy's, a
-    forced torch or numpy tier raises for a CUDA ``device``, so a card
-    tensor never leaves the kernels.  Not ported: the tuned pins and
-    cutover (they come with the tuning table, ROADMAP Queue A item 6).
+    numpy tier first, then the mesh row, the tuned pin, the xor row,
+    then the mxu row and the device tier, which only a device tensor
+    reaches (the reference's "xla" is the port's "torch", its "pallas"
+    the port's "cuda").  The installed best-config table (tune/table.py)
+    can pin a w=8 matrix to a tier (``_tuned_engine_pin``, consulted
+    after the numpy and mesh rows: a pin chooses a kernel, it never
+    unshards a plane) and tune the mxu and XOR cutovers
+    (``mxu_matrix_min``, ``xor_schedule.tuned_xor_cutover``); without a
+    table every row is the reference's default.  ``engine`` forces a
+    tier for this call in place of the process policy; like the
+    policy's, a forced torch or numpy tier raises for a CUDA
+    ``device``, so a card tensor never leaves the kernels.
     """
     if w < 1:
         raise ValueError(f"w={w} must be positive")
@@ -1531,14 +1586,19 @@ def select_matrix_engine(w: int = 8, device=None,
             and _planes.plane_for(mesh, device) is not None):
         return "mesh"
     static = _static(matrix_t) if matrix_t else None
+    # no table installed: one module-global read, no digest
+    if w == 8 and static and _tune.active_table() is not None:
+        pin = _tuned_engine_pin(shape, static, packed, eng)
+        if pin is not None:
+            return pin
     if (w == 8 and static
             and (packed or (shape is not None and len(shape) >= 2
                             and shape[-1] % 4 == 0))):
-        sched = preferred_schedule(static, 8, mxu_min=MXU_MATRIX_MIN)
+        sched = preferred_schedule(static, 8, mxu_min=mxu_matrix_min())
         if sched is not None and xor_program_fits(sched.static):
             return "xor"
     if eng == "cuda" and w == 8 and static \
-            and _matrix_nnz(static) >= MXU_MATRIX_MIN:
+            and _matrix_nnz(static) >= mxu_matrix_min():
         return "mxu"
     return eng
 
@@ -1701,10 +1761,15 @@ RAGGED_MIN_PAGES = 2
 
 
 def tuned_ragged_cutover() -> int:
-    """The least pool page count for the page-skipping kernel: the
-    reference's ``tuned_ragged_cutover`` seam, here always
-    RAGGED_MIN_PAGES (the port has no tune table).  Below it the mask
-    tier runs, byte-identically."""
+    """The least pool page count for the page-skipping kernel: the tuned
+    value from the installed best-config table (kind
+    ``ragged-cutover``), else RAGGED_MIN_PAGES.  Below it the mask tier
+    runs, byte-identically."""
+    cfg = _tune.consult("ragged-cutover")
+    if cfg:
+        v = cfg.get("min_pages")
+        if isinstance(v, int) and not isinstance(v, bool) and v >= 1:
+            return v
     return RAGGED_MIN_PAGES
 
 
@@ -1873,7 +1938,7 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
 
 __all__ = [
     "BY_VALUE_MAX_PROG", "DENSE_ROWS_MAX", "DENSE_TILE_COLS", "DENSE_UNITS",
-    "MAX_TABLE_COEF", "MXU_MATRIX_MIN",
+    "MAX_TABLE_COEF", "MXU_MATRIX_MIN", "mxu_matrix_min",
     "RAGGED_MIN_PAGES", "WALK_SMEM_BUDGET", "WALK_WARPS", "WALK_WORDS",
     "WRAPPERS", "XOR_SMEM_BUDGET",
     "apply_bitmatrix_best", "apply_bitmatrix_cuda", "apply_bitmatrix_numpy",

@@ -12,9 +12,10 @@ A copy of ``ceph_tpu/ops/xor_schedule.py``, kept so that
   monomial matrices, the polynomial-ring transform with lazy reduction
   (arxiv 1701.07731); :func:`probe_schedule` caches it per matrix and
   :func:`preferred_schedule` is the XOR-density probe the engine table
-  consults.  The port has no tuned-config table (ROADMAP Queue A item
-  6), so the reference's ``tuned_cse_topk`` and ``tuned_xor_cutover``
-  are their defaults here, :data:`CSE_TOPK` and :data:`XOR_DENSE_CUTOVER`;
+  consults.  The CSE horizon and the XOR/dense cutover are seams of the
+  best-config table (tune/table.py): :func:`tuned_cse_topk` and
+  :func:`tuned_xor_cutover`, :data:`CSE_TOPK` and
+  :data:`XOR_DENSE_CUTOVER` without one;
 - the evaluators :func:`eval_schedule` (uint32 SWAR words),
   :func:`apply_schedule_numpy` and :func:`host_matrix_apply` (the host
   tier: the identical schedule when one is preferred, the regionops
@@ -49,6 +50,7 @@ import numpy as np
 
 from ..gf.bitmatrix import bitmatrix_n_ones
 from ..gf.gf8 import GF8_POLY
+from ..tune.table import consult
 
 W = 8
 FEEDBACK = GF8_POLY & 0xFF                       # 0x1d
@@ -446,32 +448,74 @@ def build_schedule(matrix_t, w: int = 8,
 
 # -- the probe (what select_matrix_engine consults) ---------------------------
 
+def tuned_cse_topk() -> int:
+    """The greedy-CSE candidate horizon: the tuned value from the
+    installed best-config table (kind ``xor-schedule``), else CSE_TOPK
+    byte-identically — the schedule changes op COUNT only, never
+    output bytes."""
+    cfg = consult("xor-schedule")
+    if cfg:
+        v = cfg.get("cse_topk")
+        if isinstance(v, int) and not isinstance(v, bool) and v > 0:
+            return v
+    return CSE_TOPK
+
+
+def tuned_xor_cutover() -> Tuple[int, int]:
+    """The XOR/dense cutover ratio (num, den): tuned from the table
+    (kind ``engine-select``), else XOR_DENSE_CUTOVER.  Still an integer
+    ratio."""
+    cfg = consult("engine-select")
+    if cfg:
+        v = cfg.get("xor_cutover")
+        try:
+            num, den = int(v[0]), int(v[1])
+        except (TypeError, ValueError, IndexError):
+            return XOR_DENSE_CUTOVER
+        if num > 0 and den > 0:
+            return num, den
+    return XOR_DENSE_CUTOVER
+
+
 @functools.lru_cache(maxsize=256)
-def probe_schedule(matrix_t, w: int = 8) -> Optional[XorSchedule]:
-    """Build-and-cache the schedule of a static matrix (a tuple of
-    tuples), or None when the matrix is out of scope: w != 8, or its
-    bit-matrix expansion exceeds the scheduling budget (DEFAULT_MAX_ONES
-    ones)."""
+def _probe_schedule_cached(matrix_t, w: int,
+                           topk: int) -> Optional[XorSchedule]:
     if w != W or not matrix_t or not matrix_t[0]:
         return None
     ones = sum(bitmatrix_n_ones(int(e))
                for row in matrix_t for e in row if e)
     if ones == 0 or ones > _max_ones():
         return None
-    return build_schedule(matrix_t, w)
+    return build_schedule(matrix_t, w, topk=topk)
+
+
+def probe_schedule(matrix_t, w: int = 8) -> Optional[XorSchedule]:
+    """Build-and-cache the schedule of a static matrix (a tuple of
+    tuples), or None when the matrix is out of scope: w != 8, or its
+    bit-matrix expansion exceeds the scheduling budget (DEFAULT_MAX_ONES
+    ones).  Cached on (matrix, CSE horizon), so a tuned-table install
+    (which may change the horizon) never serves a schedule built under
+    the old config."""
+    return _probe_schedule_cached(matrix_t, w, tuned_cse_topk())
+
+
+# tests and tune.table.install_table clear the probe through the
+# public name
+probe_schedule.cache_clear = _probe_schedule_cached.cache_clear
+probe_schedule.cache_info = _probe_schedule_cached.cache_info
 
 
 def preferred_schedule(matrix_t, w: int = 8,
                        mxu_min: Optional[int] = None,
                        ) -> Optional[XorSchedule]:
     """The XOR-density decision: the schedule, iff the cost model says it
-    beats the dense unrolled kernel by XOR_DENSE_CUTOVER — and, at or
-    above ``mxu_min`` nonzeros, only when the schedule also undercuts
-    one op per nonzero."""
+    beats the dense unrolled kernel by the cutover (tuned_xor_cutover) —
+    and, at or above ``mxu_min`` nonzeros, only when the schedule also
+    undercuts one op per nonzero."""
     sched = probe_schedule(matrix_t, w)
     if sched is None:
         return None
-    num, den = XOR_DENSE_CUTOVER
+    num, den = tuned_xor_cutover()
     if sched.vpu_ops * den > num * sched.dense_vpu_ops:
         return None
     if mxu_min is not None:
@@ -874,5 +918,6 @@ __all__ = [
     "naive_bitmatrix_xors", "preferred_schedule",
     "RowProgram", "lower_rows", "plain_row_program",
     "probe_bitmatrix_schedule", "probe_schedule", "row_program",
-    "word_program", "xtime_words_xor",
+    "tuned_cse_topk", "tuned_xor_cutover", "word_program",
+    "xtime_words_xor",
 ]

@@ -135,10 +135,16 @@ def single_device():
 
 def tuned_fanout() -> Optional[int]:
     """The autotuner's shard fan-out seam: the tuned width of an
-    AUTO-activated plane from the installed best-config table, or None
-    (every visible member).  Always None until the tuning table is
-    ported (ROADMAP Queue A item 6); an explicit ``activate(N)`` /
-    ``CEPH_TPU_MESH=N`` always wins."""
+    AUTO-activated plane from the installed best-config table (kind
+    ``mesh-fanout``), or None (every visible member).  An explicit
+    ``activate(N)`` / ``CEPH_TPU_MESH=N`` always wins — tuning narrows
+    the default, it never overrides an operator."""
+    from ..tune.table import consult
+    cfg = consult("mesh-fanout", engine="mesh")
+    if cfg:
+        v = cfg.get("n_devices")
+        if isinstance(v, int) and not isinstance(v, bool) and v >= 1:
+            return v
     return None
 
 

@@ -37,9 +37,9 @@ Every dispatch is demuxed back to per-request
 dropped on the host side, so batched results are byte-identical to
 per-request execution by construction.  With a FakeClock and a
 service model, the dispatch log and the SLO report equal the
-reference's letter for letter.  Not ported: the reference's tuned
-ladder (the port has no tune table) and its service-jitter bisect
-seam.
+reference's letter for letter.  The rung ladder is the best-config
+table's when one is installed (:func:`tuned_ladder`).  Not ported: the
+reference's service-jitter bisect seam.
 """
 
 from __future__ import annotations
@@ -62,6 +62,25 @@ from .queue import AdmissionQueue, EcRequest, EcResult
 # padded stripe-batch sizes: every dispatch shape's batch dim is one
 # of these, so steady-state traffic holds |ladder| programs per bucket
 LADDER = (1, 4, 16, 64)
+
+
+def tuned_ladder(default: Tuple[int, ...] = LADDER) -> Tuple[int, ...]:
+    """The autotuner's rung-ladder consultation seam: the tuned ladder
+    from the installed best-config table (kind ``serve-ladder``),
+    validated strictly-increasing positive ints, else ``default``
+    byte-identically.  Consulted at batcher construction only — a
+    running batcher's ladder never changes underneath it."""
+    from ..tune.table import consult
+    cfg = consult("serve-ladder")
+    if cfg:
+        lad = cfg.get("ladder")
+        try:
+            t = tuple(int(x) for x in lad)
+        except (TypeError, ValueError):
+            return tuple(default)
+        if t and all(x > 0 for x in t) and t == tuple(sorted(set(t))):
+            return t
+    return tuple(default)
 
 
 # EWMA smoothing for the per-bucket service-time estimate
@@ -177,9 +196,7 @@ class ContinuousBatcher:
         from ..utils.retry import SystemClock
 
         if ladder is None:
-            # the reference consults its tuned ladder here; the port has
-            # no tune table yet
-            ladder = LADDER
+            ladder = tuned_ladder()
         if executor not in ("device", "host"):
             raise ValueError(f"executor {executor!r} must be "
                              f"device|host")

@@ -54,10 +54,21 @@ DEFAULT_POOL_PAGES = 64
 
 
 def tuned_pool_config() -> Tuple[int, int]:
-    """(page_size, pool_pages): the reference's seam to its best-config
-    table (kind ``stripe-pool``).  The port has no tune table yet, so
-    these are the defaults."""
-    return DEFAULT_PAGE_SIZE, DEFAULT_POOL_PAGES
+    """(page_size, pool_pages) from the installed best-config table
+    (kind ``stripe-pool``), else the defaults.  Consulted once per
+    batcher at construction — a tuned value changes pool geometry,
+    never bytes."""
+    from ..tune.table import consult
+    page_size, pool_pages = DEFAULT_PAGE_SIZE, DEFAULT_POOL_PAGES
+    cfg = consult("stripe-pool")
+    if cfg:
+        v = cfg.get("page_size")
+        if isinstance(v, int) and not isinstance(v, bool) and v > 0:
+            page_size = v
+        v = cfg.get("pool_pages")
+        if isinstance(v, int) and not isinstance(v, bool) and v > 0:
+            pool_pages = v
+    return page_size, pool_pages
 
 
 def effective_page_size(requested: int, unit: int) -> int:

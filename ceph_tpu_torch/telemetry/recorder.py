@@ -286,16 +286,46 @@ def record_unrecoverable(exc) -> Optional[dict]:
 # the host-tier audit workload
 
 def flight_recorder_selftest() -> dict:
-    """The reference's ``telemetry.flight_recorder`` audit entry: ring
+    """The ``telemetry.flight_recorder`` host-tier audit entry: ring
     bounding, span wiring, trigger dump and schema validation on
-    isolated instances with the program profiler's tick clock.  The
-    profiler and the entry-point registry that runs this come with
-    ROADMAP Queue A item 6; until then it raises."""
-    raise NotImplementedError(
-        "flight_recorder_selftest needs the program profiler's tick "
-        "clock and the entry-point registry (telemetry/profiler.py, "
-        "analysis/entrypoints.py), not ported yet: ROADMAP Queue A "
-        "item 6")
+    isolated instances with the program profiler's tick clock — no
+    device touched."""
+    from .metrics import MetricsRegistry
+    from .profiler import _Tick
+    from .schema import validate_flight_dump
+    from .spans import SpanTracer
+
+    clock = _Tick()
+    rec = FlightRecorder(clock=clock, max_entries=8, max_dumps=2)
+    reg = MetricsRegistry(clock=clock)
+    tracer = SpanTracer(clock=clock)
+    install_flight_recorder(rec, tracer)
+    with tracer.span("repair", objects=1):
+        reg.counter("selftest_ops", 3)
+    if not [e for e in rec.to_dict()["entries"]
+            if e["kind"] == "span" and e["name"] == "repair"]:
+        raise AssertionError("span root never reached the ring")
+    for i in range(12):
+        rec.note("tick", i=i)
+    if len(rec.to_dict()["entries"]) != 8 or rec.dropped != 5:
+        raise AssertionError(
+            f"ring bound broken: {len(rec.to_dict()['entries'])} "
+            f"entries, {rec.dropped} dropped")
+    blob = rec.dump("manual", "selftest", registry=reg, tracer=tracer,
+                    site="selftest")
+    errors = validate_flight_dump(blob)
+    if errors:
+        raise AssertionError(f"flight dump invalid: {errors}")
+    if blob["metrics_delta"].get(f"{reg.name}.selftest_ops") != 3:
+        raise AssertionError("metrics_delta lost the counter delta")
+    reg.counter("selftest_ops", 2)
+    blob2 = rec.dump("manual", "again", registry=reg, tracer=tracer)
+    if blob2["metrics_delta"].get(f"{reg.name}.selftest_ops") != 2:
+        raise AssertionError("second dump delta must be incremental")
+    if json.dumps(blob, sort_keys=True) != json.dumps(
+            rec.to_dict()["dumps"][0], sort_keys=True):
+        raise AssertionError("stored dump diverged from returned blob")
+    return blob2
 
 
 __all__ = ["FLIGHT_SCHEMA_VERSION", "FlightRecorder", "MAX_DUMPS",

@@ -1,8 +1,8 @@
 """Causal tracing plane — per-request trace propagation across the
 serving seams.
 
-A copy of ``ceph_tpu/telemetry/tracing.py`` without its selftest;
-``telemetry/analyzer.py`` reads the dumps:
+A copy of ``ceph_tpu/telemetry/tracing.py``; ``telemetry/analyzer.py``
+reads the dumps:
 
 - A :class:`TraceContext` is minted at serve admission
   (serve/queue.py::AdmissionQueue.submit) and rides the request through
@@ -372,8 +372,67 @@ def annotate(kind: str, t: float, **attrs) -> None:
         c.annotate(kind, t, **attrs)
 
 
+# ----------------------------------------------------------------------
+# the host-tier audit workload
+
+def tracing_selftest() -> dict:
+    """The ``telemetry.tracing`` host-tier audit entry: a seeded
+    FakeClock mini-scenario through the real serving seams (queue →
+    batcher → SLO) with a collector installed, decomposed by the
+    analyzer, both exports rendered and schema-validated — no device
+    touched.  A tracing plane that pulled work onto the device would
+    distort exactly the tails it attributes."""
+    from . import analyzer
+    from .schema import validate_trace_dump
+    from ..serve.loadgen import (CodecSpec, TrafficSpec,
+                                 run_serving_scenario,
+                                 throughput_service_model)
+    from ..utils.retry import FakeClock
+
+    clock = FakeClock()
+    coll = TraceCollector(clock=clock, seed=13)
+    prev = install(coll)
+    try:
+        spec = TrafficSpec(
+            seed=13, n_requests=10,
+            codecs=[CodecSpec("rs_k2_m1", "jerasure",
+                              {"technique": "reed_sol_van",
+                               "k": "2", "m": "1"}, 512)],
+            ladder=(1, 2, 4), concurrency=5,
+            op_mix={"encode": 0.6, "decode": 0.25, "repair": 0.15})
+        run = run_serving_scenario(
+            spec, clock=clock, executor="host",
+            service_model=throughput_service_model())
+    finally:
+        install(prev)
+    dump = coll.to_dict()
+    errors = validate_trace_dump(dump)
+    if errors:
+        raise AssertionError(f"trace dump invalid: {errors}")
+    rows = analyzer.decompose_all(dump)
+    if len(rows) != len(run.results):
+        raise AssertionError(
+            f"{len(rows)} decomposed != {len(run.results)} served")
+    by_id = {r["trace_id"]: r for r in rows}
+    for res in run.results:
+        row = by_id[res.request.trace.trace_id]
+        if sum(row["segments"].values()) != row["end_to_end_ns"]:
+            raise AssertionError(f"segments do not sum: {row}")
+        if abs(row["end_to_end_ns"] / 1e9 - res.latency) > 1e-9:
+            raise AssertionError(
+                f"trace e2e diverged from the SLO ledger: {row}")
+    report = analyzer.analyze(dump)
+    if coll.to_json() != coll.to_json():
+        raise AssertionError("trace export is not deterministic")
+    chrome = analyzer.chrome_trace(dump)
+    if not chrome["traceEvents"]:
+        raise AssertionError("chrome export is empty")
+    return report
+
+
 __all__ = ["EXEMPLAR_CAPACITY", "SEGMENTS", "TRACE_SCHEMA_VERSION",
            "TraceCollector", "TraceContext", "active", "annotate",
            "clear_program", "enabled", "install",
            "maybe_install_from_env", "mint", "note_program",
-           "note_retry", "take_program", "trace_id_for"]
+           "note_retry", "take_program", "trace_id_for",
+           "tracing_selftest"]

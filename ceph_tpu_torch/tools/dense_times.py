@@ -20,10 +20,12 @@ checkout and this one on the same card, in turns.  The shapes:
 
 Each line of output is one JSON object: the shape, the wrapper, the
 kernel's own device time per call from a ``torch.profiler`` trace
-(``kernel_ms``), the bytes the call must move and, where this checkout
-has ``sm90_op_floor``, the bound (the larger of the bytes at 3.35 TB/s
-and the floor's integer instructions at 16.7 Tops/s).  No card: the run
-fails.
+(``kernel_ms``) and, where the checkout has ``sm90_op_floor`` and the
+program profiler's models, the bound: the profiler's analytic kernel
+cost (each input read once, each output written once, the floor's
+INT32 instructions a word position) at the card's roofline (3.35 TB/s,
+16.7 Tops/s), the same work its attribution rows count.  No card: the
+run fails.
 """
 
 from __future__ import annotations
@@ -33,10 +35,6 @@ import json
 import subprocess
 import sys
 from pathlib import Path
-
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-
 
 def kernel_ms(fn, kernel, iters: int = 20, tries: int = 3):
     """Device time per call of the CUDA kernels that ``fn`` launches,
@@ -67,16 +65,19 @@ def kernel_ms(fn, kernel, iters: int = 20, tries: int = 3):
     return None
 
 
-def bound_ms(moved: int, ops: int) -> tuple[float, str]:
-    t_mem = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return max(t_mem, t_ops), ("operations" if t_ops >= t_mem else "bytes")
+def bound_ms(cost: dict) -> tuple[float, str]:
+    """The least time the card could take for an analytic cost of the
+    program profiler (``telemetry/profiler.py``: bytes accessed, INT32
+    instructions): its roofline at 3.35 TB/s and 16.7 Tops/s."""
+    from ceph_tpu_torch.telemetry.profiler import roofline_ms
+    return roofline_ms(cost)
 
 
 def shapes(seed: int):
-    """(name, wrapper name, call, moved bytes, matrix, w, word positions,
-    (stripes, chunk bytes) of the dense shapes) of every measured
-    shape, on the card."""
+    """(name, wrapper name, call, cost dims (stripes, output rows, input
+    chunks, chunk bytes, live stripes or None), matrix, w, (stripes,
+    chunk bytes) of the dense plan) of every measured shape, on the
+    card."""
     import numpy as np
     import torch
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
@@ -95,16 +96,15 @@ def shapes(seed: int):
     out = []
 
     def both(name, x, mat, r):
-        moved = x.numel() * (len(mat[0]) + r) // len(mat[0])
-        pos = x.numel() // len(mat[0]) // 4
+        cost = (x.shape[0], r, len(mat[0]), x.shape[-1], None)
         words = gk.pack_chunks(x)
         dims = (x.shape[0], x.shape[-1])
         out.append((name, "apply_matrix_cuda",
-                    lambda: gk.apply_matrix_cuda(x, mat), moved, mat, 8, pos,
+                    lambda: gk.apply_matrix_cuda(x, mat), cost, mat, 8,
                     dims))
         out.append((name, "apply_matrix_cuda_packed",
-                    lambda: gk.apply_matrix_cuda_packed(words, mat), moved,
-                    mat, 8, pos, dims))
+                    lambda: gk.apply_matrix_cuda_packed(words, mat), cost,
+                    mat, 8, dims))
 
     both("rs encode (64, 8, 131072)", data, enc, m)
     for erased, batch in (((3, 9), 4), ((3, 9), 64), ((3,), 4)):
@@ -118,8 +118,8 @@ def shapes(seed: int):
         else:
             out.append((name, "apply_matrix_cuda",
                         lambda x=x, dm=dm: gk.apply_matrix_cuda(x, dm),
-                        x.numel() * (k + len(erased)) // k, dm, 8,
-                        x.numel() // k // 4, (batch, chunk)))
+                        (batch, len(erased), k, chunk, None), dm, 8,
+                        (batch, chunk)))
     clay = reg.factory("clay", {"k": "8", "m": "4", "d": "11"})
     sub = clay.get_sub_chunk_count()
     sc = clay.get_chunk_size(1 << 20) // sub
@@ -128,8 +128,8 @@ def shapes(seed: int):
     cx = torch.from_numpy(rng.integers(0, 256, (4, 704, sc),
                                        dtype=np.uint8)).to(dev)
     out.append((f"clay repair (8,) (4, 704, {sc})", "apply_matrix_cuda",
-                lambda: gk.apply_matrix_cuda(cx, rep), cx.numel() * 705 // 704,
-                rep, 8, cx.numel() // 704 // 4, (4, sc)))
+                lambda: gk.apply_matrix_cuda(cx, rep), (4, 1, 704, sc, None),
+                rep, 8, (4, sc)))
     for w in (16, 32):
         wc = reg.factory("jerasure", {"technique": "reed_sol_van", "k": "8",
                                       "m": "3", "w": str(w)})
@@ -137,11 +137,10 @@ def shapes(seed: int):
         xw = torch.from_numpy(rng.integers(0, 256, (64, k, 65536 * w // 8),
                                            dtype=np.uint8)).to(dev).view(
                                                WORD_DTYPE[w])
-        nb = xw.numel() * w // 8
         out.append((f"w={w} encode (64, 8, 65536)", "apply_matrix_cuda_words",
                     lambda xw=xw, wm=wm, w=w: gk.apply_matrix_cuda_words(
-                        xw, wm, w), nb * (k + m) // k, wm, w, nb // k // 4,
-                    (64, 65536 * w // 8)))
+                        xw, wm, w), (64, m, k, 65536 * w // 8, None), wm,
+                    w, (64, 65536 * w // 8)))
     pool = torch.from_numpy(rng.integers(0, 256, (512, k, 4096),
                                          dtype=np.uint8)).to(dev)
     pool_words = gk.pack_chunks(pool)
@@ -149,16 +148,14 @@ def shapes(seed: int):
         live = np.zeros(512, np.uint8)
         live[rng.permutation(512)[:int(512 * share)]] = 1
         mk = torch.from_numpy(live).to(dev)
-        n_live = int(live.sum())
-        moved = n_live * k * 4096 + 512 * m * 4096 + 512
+        cost = (512, m, k, 4096, int(live.sum()))
         name = f"ragged {share:.0%} live (512, 8, 4096)"
         out.append((name, "apply_matrix_cuda_ragged",
                     lambda mk=mk: gk.apply_matrix_cuda_ragged(pool, enc, mk),
-                    moved, enc, 8, n_live * 1024, (512, 4096)))
+                    cost, enc, 8, (512, 4096)))
         out.append((name, "apply_matrix_cuda_packed_ragged",
                     lambda mk=mk: gk.apply_matrix_cuda_packed_ragged(
-                        pool_words, enc, mk), moved, enc, 8, n_live * 1024,
-                    (512, 4096)))
+                        pool_words, enc, mk), cost, enc, 8, (512, 4096)))
     return out
 
 
@@ -180,15 +177,21 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     floor = getattr(gk, "sm90_op_floor", None)
+    try:
+        from ceph_tpu_torch.telemetry import profiler
+        if not hasattr(profiler, "analytic_kernel_cost"):
+            floor = None
+    except ImportError:         # a checkout without the profiler
+        floor = None
     plan = getattr(gk, "dense_plan", None)
-    for name, wrapper, fn, moved, mat, w, pos, dims in shapes(args.seed):
+    for name, wrapper, fn, cost, mat, w, dims in shapes(args.seed):
         row = {"root": args.root, "card": smi, "shape": name,
                "wrapper": wrapper, "ms": kernel_ms(fn, "gf_matrix",
-                                                   iters=50),
-               "moved_bytes": moved}
+                                                   iters=50)}
         if floor is not None:
             row["bound_ms"], row["bound_by"] = bound_ms(
-                moved, floor(mat, w) * pos)
+                profiler.analytic_kernel_cost(*cost[:4], floor(mat, w),
+                                              live=cost[4]))
         if plan is not None and w == 8:
             row["grid"] = plan(*dims, mat, torch.device("cuda", 0))
         print(json.dumps(row), flush=True)

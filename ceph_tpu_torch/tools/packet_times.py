@@ -22,10 +22,11 @@ jerasure cauchy_good k=8 m=3 at packetsize 2048 unless named otherwise:
 
 Each line of output is one JSON object: the shape, the wrapper, the
 kernel's own device time per call from a ``torch.profiler`` trace
-(``dense_times.kernel_ms``), the bytes the call must move (each input
-packet a row reads once, each output once), the bound (the larger of
-those bytes at 3.35 TB/s and the least XOR instructions,
-``bitmatrix_op_count`` / ``schedule_op_count``, at the INT32 peak) and,
+(``dense_times.kernel_ms``), the bytes the call must move and its bound
+(:func:`work`: the program profiler's ``analytic_bitmatrix_cost``, each
+input packet a row reads once and each output once, and the least XOR
+instructions, ``bitmatrix_op_count`` / ``schedule_op_count``, at the
+card's roofline; where the checkout has the profiler) and,
 where the checkout has ``packet_plan``, the launch: the grid (blocks, row
 groups), the unit in bytes and the threads of a block.
 
@@ -127,12 +128,13 @@ def shapes(seed: int):
     return out
 
 
-def work(gk, kind, key, n_in, w, ps, x, r) -> tuple[int, int]:
-    """(bytes, INT32 instructions) the product at one shape needs at
-    least: each input packet a row reads and each output packet once, and
-    the least XORs (``bitmatrix_op_count`` / ``schedule_op_count`` per
-    32-bit word position)."""
-    packets = x.shape[0] * x.shape[-1] // (w * ps)
+def work(gk, kind, key, n_in, w, ps, x, r) -> dict:
+    """The analytic cost (telemetry/profiler.py::analytic_bitmatrix_cost)
+    of the product at one shape: each input packet row a row reads and
+    each output packet row once, and the least XORs
+    (``bitmatrix_op_count`` / ``schedule_op_count`` per 32-bit word
+    position)."""
+    from ceph_tpu_torch.telemetry.profiler import analytic_bitmatrix_cost
     if kind == "plain":
         union = 0
         for mask in key:
@@ -140,7 +142,8 @@ def work(gk, kind, key, n_in, w, ps, x, r) -> tuple[int, int]:
         reads, ops = bin(union).count("1"), gk.bitmatrix_op_count(key)
     else:
         reads, ops = n_in, gk.schedule_op_count(key)
-    return packets * ps * (reads + r * w), ops * packets * ps // 4
+    return analytic_bitmatrix_cost(x.shape[0], r, n_in // w, x.shape[-1],
+                                   ops, w, reads=reads)
 
 
 def main(argv=None) -> int:
@@ -172,12 +175,16 @@ def main(argv=None) -> int:
             wrapper = "apply_bitmatrix_xor_cuda"
             fn = (lambda x=x, key=key, w=w, ps=ps:
                   gk.apply_bitmatrix_xor_cuda(x, key, w, ps))
-        moved, ops = work(gk, kind, key, n_in, w, ps, x, r)
-        bound, by = bound_ms(moved, ops)
+        try:
+            cost = work(gk, kind, key, n_in, w, ps, x, r)
+        except ImportError:     # a checkout without the profiler
+            cost = None
+        bound, by = bound_ms(cost) if cost is not None else (None, None)
         row = {"root": args.root, "card": smi, "shape": name,
                "wrapper": wrapper,
                "ms": kernel_ms(fn, "gf2_packet_kernel", iters=50),
-               "moved_bytes": moved, "bound_ms": bound, "bound_by": by}
+               "moved_bytes": cost and cost["bytes accessed"],
+               "bound_ms": bound, "bound_by": by}
         plan_fn = getattr(gk, "packet_plan", None)
         if plan_fn is not None:
             plan = gk.packet_launch_plan(x, r, w, ps, kind, key, n_in)

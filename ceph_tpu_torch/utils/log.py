@@ -1,7 +1,5 @@
 """dout-style leveled debug logging — src/common/dout.h +
-src/common/subsys.h role.  A copy of ``ceph_tpu/utils/log.py``; the
-port has no ``utils/config.py`` yet, so the default level is the
-reference's ``log_level`` option default, 1.
+src/common/subsys.h role.  A copy of ``ceph_tpu/utils/log.py``.
 
 Per-subsystem gather levels: a message at level L prints when L <= the
 subsystem's configured level.  Configure via
@@ -31,12 +29,12 @@ _lock = make_lock("utils.log._lock")
 _stream: TextIO = sys.stderr
 
 
-# the reference's global ``log_level`` option default
-DEFAULT_LEVEL = 1
-
-
 def _default_level() -> int:
-    return DEFAULT_LEVEL
+    try:
+        from .config import global_config
+        return int(global_config().get("log_level"))
+    except Exception:  # pragma: no cover - config never raises today
+        return 1
 
 
 def _parse_env() -> Dict[str, int]:

@@ -113,8 +113,10 @@ source, all started together) and then, in order:
 4. times each kernel, its plain version and a copy of the same bytes
    with CUDA events at its main shape, with the host's issue time beside
    it, and each kernel's own device time per launch from a profiler
-   trace, against the bound (the larger of the bytes over HBM bandwidth
-   and the integer ops over the INT32 peak, the GF(2^w) matrices' ops
+   trace, against the bound (the program profiler's analytic cost,
+   ``telemetry/profiler.py``, at the card's roofline: the larger of the
+   bytes over HBM bandwidth and the integer ops over the INT32 peak,
+   the GF(2^w) matrices' ops
    the floor of the chain per column and per row,
    ``gf_kernels.sm90_op_floor``; for the "mxu" row the dense GEMM at the
    int8 peak, the reference's MXU form, printed beside it as the GEMM
@@ -314,6 +316,43 @@ source, all started together) and then, in order:
      at the phase's start): a clean report that holds the plane's lock.
 
    The phase prints one ``{"data_plane": {...}}`` line.
+10. the program profiler, the tuning table and the entry-point registry
+   (``telemetry/profiler.py``, ``tune/``, ``analysis/``), with the
+   launch counters at 0 just before and read after 10c (the dense,
+   ragged, XOR-schedule, packet and column-walk kernels must launch):
+
+   - 10a the CLI's ``-w profile`` at the north-star argv (RS k=8 m=3,
+     1 MiB, batch 64, 20 rounds): one row per program (serve encode,
+     serve decode, fused repair), each ``source`` "analytic" with a p50
+     from CUDA events and a utilization in (0, 100]; the serve-encode
+     row's p50 within 10 % of the ``torch.profiler`` kernel time of the
+     same call, and, where it runs the dense kernel, its utilization
+     within 7 % of the kernel table's 100 x 0.027545 / 0.041319; then
+     ``-w profile`` for jerasure cauchy_good k=8 m=3 (the packet kernel)
+     and shec k=6 m=3 c=2 (the XOR-schedule kernel on its decodes), 1
+     MiB, batch 64, 5 rounds: three rows each, utilization in (0, 100];
+   - 10b the registry audit of every entry (``analysis/audit.py``) on
+     the card, the sharded ones over 4 virtual members: kernel setups
+     cold within budget and none warm, no host sync on a warm repeat
+     under ``torch.cuda.set_sync_debug_mode("error")`` but CRUSH's
+     declared one, every tier's bytes equal; one line per entry;
+   - 10c ``tune.sweep.timed_sweep`` of reed_sol_van k=8 m=3 and
+     reed_sol_r6_op k=8 (1 MiB, batch 64): each candidate's min device
+     ms, the default and the winner, byte identity asserted in the
+     sweep; whether the dense kernel beats the XOR schedule on the r6
+     encode (a measurement, not a check);
+   - 10d in a child (``--child tune-table``) the CLI's r6 encode row
+     under ``--tune-table`` with 10c's table: ``config_source`` tuned,
+     its launches, the routed kernel and its device ms a call, the
+     bytes equal the default regime's; the same table with another
+     card's name: ignored (``tune_config_stale``), the default route,
+     the same bytes;
+   - 10e ``CEPH_TPU_COMPILE_CACHE`` at an empty directory in two
+     children (``--child build-cache``): the first builds (misses, nvcc
+     runs), the second loads every library with no nvcc run and no
+     miss.
+
+   The phase prints one ``{"profiler": {...}}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
@@ -363,14 +402,6 @@ EC_PG_NUM, EC_PG_SAMPLE = 16384, 500
 EC_PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3",
               "crush-failure-domain": "host", "crush-root": "root"}
 CRUSH_WORK = "chip_smoke_work"
-# INT32 instructions per straw2 draw on sm_90: hash32_3 is 5 mixes of 9
-# steps, each an IADD3 (a - b - c), a SHF and a LOP3 (the xor), plus two
-# LOP3 for seed ^ a ^ b ^ c; the 16-bit mask; the 64-bit divide of a
-# numerator below 2^49 by a 32-bit weight (no integer divider: a
-# reciprocal estimate and two 64-bit multiply-subtract corrections,
-# about 24 instructions, an estimate, not read from SASS); the argmin's
-# 64-bit compare and select (4)
-STRAW2_DRAW_OPS = 5 * 9 * 3 + 2 + 1 + 24 + 4
 # phase 7: scrub -> repair -> recover at Ceph's defaults: 4 MiB objects
 # (RADOS's default object size, rbd's default order 22) of the north
 # star's code, jerasure reed_sol_van k=8 m=3
@@ -516,14 +547,17 @@ def walk_kernels(splits: int) -> tuple[str, ...]:
         ("gf8_column_walk_zero",) if splits > 1 else ())
 
 
-def bound_ms(moved_bytes: int, ops: int, peak: float = INT32_OPS_PER_S
+def bound_ms(cost: dict, peak: float = INT32_OPS_PER_S
              ) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes over
-    HBM bandwidth and the ops over their type's peak (INT32 unless
-    ``peak`` says otherwise)."""
-    t_mem = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return max(t_mem, t_ops), ("operations" if t_ops >= t_mem else "bytes")
+    """The least time the card could take for an analytic cost of the
+    program profiler (``ceph_tpu_torch/telemetry/profiler.py``: the
+    bytes the function moves, each input read once and each output
+    written once, and its operations): the larger of the bytes over HBM
+    bandwidth and the ops over their type's peak (INT32 unless ``peak``
+    says otherwise), by ``roofline_ms``, so the kernels line and the
+    profiler's attribution rows count the same work."""
+    from ceph_tpu_torch.telemetry.profiler import roofline_ms
+    return roofline_ms(cost, HBM_BYTES_PER_S / 1e9, peak)
 
 
 def max_abs_err(a, b) -> int:
@@ -796,6 +830,7 @@ def crush_phase(seed: int, err: "Errors") -> dict:
     from ceph_tpu_torch.crush.osdmap import OSDMap
     from ceph_tpu_torch.crush.text_compiler import decompile_text
     from ceph_tpu_torch.crush.types import step_chooseleaf_indep
+    from ceph_tpu_torch.telemetry.profiler import STRAW2_DRAW_OPS
     from ceph_tpu_torch.utils.perf import global_perf
 
     perf = global_perf()
@@ -910,15 +945,13 @@ def crush_phase(seed: int, err: "Errors") -> dict:
                      torch.from_numpy(cpu_out), f"row {name} vs the CPU")
             check(np.array_equal(cnt[lanes], cpu_cnt), f"row {name} counts")
             # the bound of the first rung's straw2 draws at the domain
-            # level: lanes x tries x replicas x the take bucket level's
-            # width
+            # level (the profiler's model, bulk.first_rung_cost): lanes x
+            # tries x replicas x the take bucket level's width
             t1 = bulk.auto_ladder(cmap, rule, nrep,
                                   bulk.auto_tries(cmap, rule, nrep))[0][0]
-            take = next(a1 for op, a1, _ in cmap.rules[rule].steps
-                        if op == 1)
-            draws = CRUSH_X * t1 * nrep * cm.width_at(
-                cm.level_of(cmap.buckets[take].type))
-            bound = draws * STRAW2_DRAW_OPS / INT32_OPS_PER_S * 1e3
+            rung_cost = bulk.first_rung_cost(cm, rule, nrep, t1, CRUSH_X)
+            draws = rung_cost["flops"] / STRAW2_DRAW_OPS
+            bound = bound_ms(rung_cost)[0]
             row = {"mappings_per_s": rate, "crushtool_s": tool_s,
                    "straw2_draws": draws, "straw2_bound_ms": bound,
                    "residue_lanes_per_sweep": residue / 2,
@@ -1431,7 +1464,7 @@ def _child_result(proc, what: str, timeout: float = 600) -> dict:
         proc.communicate()
         raise RuntimeError(f"check failed: {what}: child timed out")
     for line in errs.splitlines()[-5:]:
-        print(f"phase 8: {what} (stderr): {line}")
+        print(f"{what} (stderr): {line}")
     check(proc.returncode == 0, f"{what}: child exit {proc.returncode}")
     return json.loads(out.strip().splitlines()[-1])
 
@@ -1724,7 +1757,7 @@ def supervisor_phase(seed: int) -> dict:
               f"p99 {sres['lat_p99_ms']:.3f} ms; supervisor {d}")
 
         # -- 8f: lockcheck (child) -------------------------------------------
-        lk = _child_result(child_lock, "8f")
+        lk = _child_result(child_lock, "phase 8: 8f")
         from ceph_tpu_torch.utils.locks import validate_lockcheck_report
         rep = lk["lockcheck"]
         validate_lockcheck_report(rep)
@@ -1743,7 +1776,7 @@ def supervisor_phase(seed: int) -> dict:
               f"blocking events; the longest hold "
               f"{out['lockcheck']['held_max_s'] * 1e3:.3f} ms")
         # -- 8c: a real out-of-memory error (child) --------------------------
-        oom = _child_result(child_oom, "8c")
+        oom = _child_result(child_oom, "phase 8: 8c")
         check(oom["oom_raised"] and oom["rung_downshifts"] >= 1
               and oom["demotions"] == oom["card_failures"] == 0
               and oom["equal"],
@@ -2211,7 +2244,7 @@ def data_plane_phase(seed: int) -> dict:
         check(st9["multi_host"] and st9["host_quarantines"] >= 1
               and st9["host_repromotions"] >= 1 and not st9["demoted"],
               f"9g: host_chaos_selftest {st9}")
-        lk = _child_result(child, "9g lockcheck")
+        lk = _child_result(child, "phase 9: 9g lockcheck")
         rep = lk["lockcheck"]
         from ceph_tpu_torch.utils.locks import validate_lockcheck_report
         validate_lockcheck_report(rep)
@@ -2244,11 +2277,327 @@ def data_plane_phase(seed: int) -> dict:
     return out
 
 
+# -- phase 10: the program profiler, the tuning table and the registry ------
+
+# 10a: the CLI's -w profile at the north-star argv (20 rounds of the three
+# calls); the §6 table's dense encode: its bound over its profiler time
+PROFILE_ARGV = RS_ARGV + ["--workload", "profile", "--size", str(1 << 20),
+                          "--batch", "64", "--iterations", "20",
+                          "--device", "cuda"]
+DENSE_SHARE = 0.027545 / 0.041319
+# 10a also profiles a bitmatrix code and shec (5 rounds each): the
+# packet kernel's and the XOR-schedule kernel's programs
+PROFILE_MORE = (
+    ("cauchy_good k=8 m=3", ["--plugin", "jerasure", "-P",
+                             "technique=cauchy_good", "-P", "k=8", "-P",
+                             "m=3"]),
+    ("shec k=6 m=3 c=2", ["--plugin", "shec", "-P", "k=6", "-P", "m=3",
+                          "-P", "c=2"]))
+# 10c: the timed sweeps (size 1 MiB, batch 64, min of 5 device times);
+# 10d: the r6 encode row of the CLI under the swept table
+SWEEPS = (("reed_sol_van k=8 m=3",
+           {"technique": "reed_sol_van", "k": "8", "m": "3"}),
+          ("reed_sol_r6_op k=8", {"technique": "reed_sol_r6_op", "k": "8",
+                                  "m": "2"}))
+R6_ARGV = ["--plugin", "jerasure", "-P", "technique=reed_sol_r6_op",
+           "-P", "k=8", "-P", "m=2", "--workload", "encode", "--size",
+           str(1 << 20), "--batch", "64", "--iterations", "20",
+           "--resident", "--device", "cuda"]
+# the kernels phase 10's paths must launch (counts at 0 just before)
+PHASE10_KERNELS = ("apply_matrix_cuda", "apply_matrix_cuda_packed",
+                   "apply_matrix_cuda_ragged", "apply_matrix_xor_cuda",
+                   "apply_matrix_xor_cuda_packed", "apply_bitmatrix_cuda",
+                   "apply_bitmatrix_xor_cuda", "apply_matrix_mxu_cuda")
+
+
+def profiler_phase(seed: int) -> dict:
+    """Phase 10 (the module docstring): the program profiler, the
+    registry audit, the timed sweep, a tuned table in a child, and the
+    kernel build cache across two children."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.analysis.audit import audit_registry
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.codes.engine import serve_dispatch_call
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops.gf_kernels import select_matrix_engine
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.ops.torch_ops import matrix_to_static
+    from ceph_tpu_torch.telemetry.profiler import global_profiler
+    from ceph_tpu_torch.tools.dense_times import kernel_ms
+    from ceph_tpu_torch.tune.sweep import timed_sweep
+    from ceph_tpu_torch.tune.table import BestConfigTable
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase10_")
+    cache_dir = os.path.join(work, "build_cache")
+    # 10e's first child builds every source into an empty cache while
+    # the phase runs
+    cache_env = {"CEPH_TPU_COMPILE_CACHE": cache_dir}
+    cold = _child("build-cache", cache_env)
+
+    reset_launch_counts()
+    # -- 10a: -w profile at the north-star argv --------------------------
+    global_profiler().reset()
+    bench = ErasureCodeBench()
+    bench.setup(PROFILE_ARGV + ["--seed", str(seed)])
+    res = bench.run()
+    rows = {r["kind"]: r for r in res["profile_rows"]}
+    check(sorted(rows) == ["fused-repair", "serve-decode", "serve-encode"],
+          f"10a rows {sorted(rows)}")
+    for kind, r in sorted(rows.items()):
+        check(r["source"] == "analytic", f"10a {kind} source {r['source']}")
+        check(r["p50_ms"] is not None and r["calls"] >= 20,
+              f"10a {kind} p50 {r['p50_ms']}, {r['calls']} calls")
+        check(r["utilization_pct"] is not None
+              and 0 < r["utilization_pct"] <= 100,
+              f"10a {kind} utilization {r['utilization_pct']}")
+        print(f"phase 10: 10a {kind}: p50 {r['p50_ms']:.6f} ms, p99 "
+              f"{r['p99_ms']:.6f} ms over {r['calls']} calls, "
+              f"{r['bytes_accessed']:.0f} bytes accessed, "
+              f"{r['hbm_gbps']:.3f} GB/s, utilization "
+              f"{r['utilization_pct']:.4f} % (source {r['source']}, "
+              f"batch {r['batch']}, pattern {r['pattern']})")
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device=dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 256, (BATCH, K, CHUNK),
+                                      dtype=np.uint8)).to(dev)
+    enc = serve_dispatch_call(ec, "encode")
+    k_enc = kernel_ms(lambda: enc(x), "", iters=20)
+    check(k_enc is not None, "10a: the profiler traced the encode")
+    enc_row = rows["serve-encode"]
+    rel = enc_row["p50_ms"] / k_enc - 1
+    eng = select_matrix_engine(8, dev, shape=tuple(x.shape),
+                               matrix_t=matrix_to_static(ec.matrix))
+    print(f"phase 10: 10a serve-encode p50 {enc_row['p50_ms']:.6f} ms "
+          f"against the profiler's kernel time {k_enc:.6f} ms for the "
+          f"same call ({rel:+.2%}); its engine {eng}")
+    check(abs(rel) <= 0.10, f"10a: encode p50 {rel:+.2%} of the kernel time")
+    want = 100 * DENSE_SHARE
+    if eng == "cuda":
+        check(abs(enc_row["utilization_pct"] / want - 1) <= 0.07,
+              f"10a: dense encode utilization {enc_row['utilization_pct']} "
+              f"against {want:.2f}")
+    more = {}
+    for label, argv in PROFILE_MORE:
+        global_profiler().reset()
+        bench = ErasureCodeBench()
+        bench.setup(argv + ["--workload", "profile", "--size", str(1 << 20),
+                            "--batch", str(BATCH), "--iterations", "5",
+                            "--device", "cuda", "--seed", str(seed)])
+        rows_m = bench.run()["profile_rows"]
+        check(len(rows_m) == 3, f"10a {label}: {len(rows_m)} rows")
+        for r in rows_m:
+            check(r["source"] == "analytic" and r["p50_ms"] is not None
+                  and 0 < r["utilization_pct"] <= 100,
+                  f"10a {label} {r['kind']}: {r['p50_ms']} ms, "
+                  f"{r['utilization_pct']} %")
+            print(f"phase 10: 10a {label} {r['kind']}: p50 "
+                  f"{r['p50_ms']:.6f} ms over {r['calls']} calls, "
+                  f"{r['bytes_accessed']:.0f} bytes accessed, utilization "
+                  f"{r['utilization_pct']:.4f} % (pattern {r['pattern']})")
+        more[label] = rows_m
+    out["10a"] = {"rows": res["profile_rows"], "encode_kernel_ms": k_enc,
+                  "encode_p50_vs_kernel": rel, "encode_engine": eng,
+                  "gbps": res["gbps"], "more": more}
+
+    # -- 10b: the registry audit on the card (sharded entries over the
+    # plane's virtual members) ------------------------------------------
+    prev = os.environ.get(PLANE_ENV)
+    os.environ[PLANE_ENV] = str(PLANE_MEMBERS)
+    try:
+        t0 = time.perf_counter()
+        audits = audit_registry(device=dev)
+        audit_s = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop(PLANE_ENV, None)
+        else:
+            os.environ[PLANE_ENV] = prev
+    for a in audits:
+        print(f"phase 10: 10b {a.name} ({a.kind}): setups {a.cold_setups} "
+              f"cold / {a.warm_setups} warm (budget {a.setup_budget}), "
+              f"sync {a.sync}, tiers {'/'.join(a.tiers) or '-'}: "
+              + ("ok" if a.ok else "; ".join(a.findings)))
+    bad = [a.name for a in audits if not a.ok]
+    check(not bad, f"10b: entries not clean: {bad}")
+    out["10b"] = {"entries": len(audits), "seconds": audit_s,
+                  "device": sum(a.kind == "device" for a in audits),
+                  "declared_syncs": [a.name for a in audits
+                                     if a.sync == "declared"]}
+
+    # -- 10c: the timed sweep -------------------------------------------
+    entries = {}
+    sweeps = {}
+    for label, profile in SWEEPS:
+        t0 = time.perf_counter()
+        rep = timed_sweep("jerasure", profile, size=1 << 20, batch=BATCH,
+                          repeats=5, seed=seed, device=dev)
+        for row in rep.rows:
+            print(f"phase 10: 10c {label} {row['name']}: "
+                  + ", ".join(f"{t} {v:.6f} ms" for t, v in
+                              row["candidates_ms"].items())
+                  + f"; default {row['before']['engine']}, winner "
+                  f"{row['after']['engine']} "
+                  f"({row['improvement_pct']:+.2f} %); bytes identical "
+                  f"across {len(row['candidates_ms'])} tiers")
+        entries.update(rep.table.entries)
+        sweeps[label] = {"rows": rep.rows, "tuned": sorted(rep.table.entries),
+                         "seconds": time.perf_counter() - t0}
+    r6_row = sweeps["reed_sol_r6_op k=8"]["rows"][0]
+    dense_wins = (r6_row["candidates_ms"].get("cuda", float("inf"))
+                  < r6_row["candidates_ms"].get("xor", float("inf")))
+    print(f"phase 10: 10c the r6 encode: dense "
+          f"{r6_row['candidates_ms'].get('cuda')} ms, XOR schedule "
+          f"{r6_row['candidates_ms'].get('xor')} ms: the dense kernel "
+          + ("wins, as PERF.md §7 records" if dense_wins
+             else "does not win here"))
+    out["10c"] = {"sweeps": sweeps, "r6_dense_beats_xor": dense_wins}
+    launches = launch_counts()
+    for kernel in PHASE10_KERNELS:
+        check(launches[kernel] >= 1, f"{kernel} launched in phase 10")
+    print(f"phase 10: launches {launches}")
+    out["launches"] = launches
+
+    # -- 10d: the swept table in a child, and a stale copy ----------------
+    table = BestConfigTable.from_dict({"table_schema_version": 1,
+                                       "entries": entries})
+    path, stale = os.path.join(work, "tuned.json"), \
+        os.path.join(work, "stale.json")
+    table.save(path)
+    blob = table.to_dict()
+    for e in blob["entries"].values():
+        e["env"]["device_name"] = "another card"
+    BestConfigTable.from_dict(blob).save(stale)
+    tuned = _child("tune-table", {"CEPH_TPU_SMOKE_TABLE": path,
+                                  "CEPH_TPU_SMOKE_STALE": stale})
+
+    # -- 10e: the build cache: the first child built, the second loads --
+    first = _child_result(cold, "phase 10: 10e first build-cache child")
+    warm = _child("build-cache", cache_env)
+    second = _child_result(warm, "phase 10: 10e second build-cache child")
+    print(f"phase 10: 10e CEPH_TPU_COMPILE_CACHE: first process "
+          f"{first['misses']} misses, {first['hits']} hits, "
+          f"{first['nvcc_runs']} nvcc runs in {first['seconds']:.1f} s; "
+          f"second {second['misses']} misses, {second['hits']} hits, "
+          f"{second['nvcc_runs']} nvcc runs in {second['seconds']:.2f} s; "
+          f"{second['entries']} libraries in the cache")
+    check(first["misses"] > 0 and first["nvcc_runs"] > 0,
+          "10e: the first process built")
+    check(second["misses"] == 0 and second["hits"] > 0
+          and second["nvcc_runs"] == 0, "10e: the second ran no nvcc")
+    out["10e"] = {"first": first, "second": second}
+
+    got = _child_result(tuned, "phase 10: 10d tune-table child")
+    print(f"phase 10: 10d r6 encode row under --tune-table: config_source "
+          f"{got['config_source']} ({got['tune_key_hash']}), "
+          f"{got['gbps']:.3f} GB/s, launches {got['launches']}; routed to "
+          f"{got['engine']} ({got['kernel_ms']} ms device per call) "
+          f"against the default {got['default_engine']}; bytes identical; "
+          f"stale table: {got['stale']} stale lookups, routed to "
+          f"{got['stale_engine']}, bytes identical")
+    check(got["config_source"] == ("tuned" if entries else "default"),
+          f"10d config_source {got['config_source']}")
+    if got["pinned"]:
+        check(got["stale"] > 0, "10d: the stale table was ignored")
+    out["10d"] = got
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {out['seconds']:.1f} s")
+    return out
+
+
+def tune_table_child() -> dict:
+    """10d's child: the CLI's r6 encode row under ``--tune-table``, the
+    routed kernel and its device time, the bytes against the default
+    regime, then the same table with another card's name."""
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops.gf_kernels import select_matrix_engine
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.ops.torch_ops import matrix_to_static
+    from ceph_tpu_torch.telemetry import metrics as tel
+    from ceph_tpu_torch.tools.dense_times import kernel_ms
+    from ceph_tpu_torch.tune.table import (BestConfigTable, consult,
+                                           install_table, matrix_digest,
+                                           scoped_table)
+    path = os.environ["CEPH_TPU_SMOKE_TABLE"]
+    reset_launch_counts()
+    bench = ErasureCodeBench()
+    bench.setup(R6_ARGV + ["--tune-table", path])
+    res = bench.run()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    dev = torch.device("cuda", 0)
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_r6_op", "k": "8", "m": "2"},
+        device=dev)
+    ms = matrix_to_static(ec.matrix)
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (BATCH, 8, CHUNK), dtype=np.uint8)).to(dev)
+
+    def engine():
+        return select_matrix_engine(8, dev, shape=tuple(x.shape),
+                                    matrix_t=ms)
+    pinned = consult("matrix-engine", profile="m:" + matrix_digest(ms),
+                     layout="bytes", device_count=1) is not None
+    eng, tuned_out = engine(), ec.encode_chunks_torch(x)
+    k = kernel_ms(lambda: ec.encode_chunks_torch(x), "", iters=20)
+    with scoped_table(None):
+        default_engine, default_out = engine(), ec.encode_chunks_torch(x)
+    check(torch.equal(tuned_out, default_out), "10d: tuned bytes")
+    install_table(BestConfigTable.load(os.environ["CEPH_TPU_SMOKE_STALE"]))
+    before = tel.global_metrics().counter_value("tune_config_stale")
+    stale_engine, stale_out = engine(), ec.encode_chunks_torch(x)
+    stale = tel.global_metrics().counter_value("tune_config_stale") - before
+    check(torch.equal(stale_out, default_out), "10d: stale-table bytes")
+    check(stale_engine == default_engine, "10d: a stale pin routes nothing")
+    return {"config_source": res["config_source"],
+            "tune_key_hash": res["tune_key_hash"], "gbps": res["gbps"],
+            "launches": launches, "pinned": pinned, "engine": eng,
+            "kernel_ms": k, "default_engine": default_engine,
+            "stale": stale, "stale_engine": stale_engine}
+
+
+def build_cache_child() -> dict:
+    """10e's child: build and load every kernel library under
+    ``CEPH_TPU_COMPILE_CACHE``; the cache's hits and misses and the nvcc
+    runs it took."""
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.telemetry import metrics as tel
+    from ceph_tpu_torch.utils.compile_cache import (HITS, MISSES,
+                                                    cache_entries)
+    t0 = time.perf_counter()
+    built = _build.build()
+    for name in built:
+        _build.load(name)
+    reg = tel.global_metrics()
+    return {"hits": reg.counter_value(HITS),
+            "misses": reg.counter_value(MISSES),
+            "nvcc_runs": len(_build.build_log),
+            "libraries": len(built), "entries": cache_entries(),
+            "seconds": time.perf_counter() - t0}
+
+
 def child_main(kind: str) -> int:
-    """The child processes of phases 8 and 9: ``oom`` (8c), ``lockcheck``
-    (8f) and ``plane-lockcheck`` (9g); each prints one JSON line."""
+    """The child processes of phases 8, 9 and 10: ``oom`` (8c),
+    ``lockcheck`` (8f), ``plane-lockcheck`` (9g), ``tune-table`` (10d)
+    and ``build-cache`` (10e); each prints one JSON line."""
     import gc
     import torch
+    if kind == "build-cache":
+        print(json.dumps(build_cache_child()))
+        return 0
+    if kind == "tune-table":
+        print(json.dumps(tune_table_child()))
+        return 0
     from ceph_tpu_torch.codes.engine import fused_repair_call
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.ops import supervisor
@@ -2355,7 +2704,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random data (default 0)")
     ap.add_argument("--child", choices=("oom", "lockcheck",
-                                        "plane-lockcheck"),
+                                        "plane-lockcheck", "tune-table",
+                                        "build-cache"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     seed = args.seed
@@ -2394,6 +2744,8 @@ def main(argv=None) -> int:
         apply_matrix_walk_torch, apply_matrix_xor_torch,
         bitmatrix_to_static, mask_pages, matrix_to_static, mxu_bitmatrix)
     from ceph_tpu_torch.telemetry import metrics as tel
+    from ceph_tpu_torch.telemetry.profiler import (
+        analytic_bitmatrix_cost, analytic_kernel_cost, analytic_walk_cost)
     from ceph_tpu_torch.tools import dense_times, packet_times, roofline
     from ceph_tpu_torch.tools.dense_times import kernel_ms
     from ceph_tpu_torch.codes.engine import (serve_dispatch_call,
@@ -3448,7 +3800,8 @@ def main(argv=None) -> int:
     in_bytes = data.numel()
     words_per_chunk = in_bytes // K // 4
     moved = in_bytes * (K + M) // K
-    bound, bound_by = bound_ms(moved, sm90_op_floor(ms) * words_per_chunk)
+    bound, bound_by = bound_ms(analytic_kernel_cost(BATCH, M, K, CHUNK,
+                                                    sm90_op_floor(ms)))
     print(f"bound of the encode: {moved} bytes moved, "
           f"{sm90_op_floor(ms)} int32 ops per word position (the floor: "
           f"chain per column {sm90_op_count(ms)}, per row "
@@ -3467,8 +3820,8 @@ def main(argv=None) -> int:
         mat, K, list(avail[:K]), list(erased)))
     t_dec, h_dec = time_ms(
         lambda: ec.decode_chunks_torch(surv, avail, erased), 50)
-    dbound, dbound_by = bound_ms(in_bytes * (K + len(erased)) // K,
-                                 sm90_op_floor(dm) * words_per_chunk)
+    dbound, dbound_by = bound_ms(analytic_kernel_cost(
+        BATCH, len(erased), K, CHUNK, sm90_op_floor(dm)))
     print(f"bound of decode e=2 {erased}: {sm90_op_floor(dm)} int32 ops "
           f"per word position (chain per column {sm90_op_count(dm)}, per "
           f"row {sm90_row_op_count(dm)}; the dense kernel's program "
@@ -3508,16 +3861,14 @@ def main(argv=None) -> int:
     check(e1_sched is None, "cauchy_good decode e=1 (3,) is plain")
     t_cg_dec1, h_cg_dec1 = time_ms(
         lambda: cg.decode_chunks_torch(e1_surv, e1_avail, e1), 50)
-    bm_ops = bitmatrix_op_count(rows) * words_per_chunk // 8
-    bm_bound, bm_by = bound_ms(moved, bm_ops)
-    xs_ops = schedule_op_count(enc_sched.static) * words_per_chunk // 8
-    xs_bound, xs_by = bound_ms(moved, xs_ops)
-    dec2_bound, dec2_by = bound_ms(
-        in_bytes * (K + 2) // K,
-        schedule_op_count(e2_sched.static) * words_per_chunk // 8)
-    dec1_bound, dec1_by = bound_ms(
-        in_bytes * (K + 1) // K,
-        bitmatrix_op_count(e1_rows) * words_per_chunk // 8)
+    bm_bound, bm_by = bound_ms(analytic_bitmatrix_cost(
+        BATCH, M, K, CHUNK, bitmatrix_op_count(rows), 8))
+    xs_bound, xs_by = bound_ms(analytic_bitmatrix_cost(
+        BATCH, M, K, CHUNK, schedule_op_count(enc_sched.static), 8))
+    dec2_bound, dec2_by = bound_ms(analytic_bitmatrix_cost(
+        BATCH, 2, K, CHUNK, schedule_op_count(e2_sched.static), 8))
+    dec1_bound, dec1_by = bound_ms(analytic_bitmatrix_cost(
+        BATCH, 1, K, CHUNK, bitmatrix_op_count(e1_rows), 8))
     print(f"bound of the cauchy_good encode: {moved} bytes moved; plain "
           f"{bitmatrix_op_count(rows)} int32 ops per word position, "
           f"scheduled {schedule_op_count(enc_sched.static)} ({enc_sched.xor_ops}"
@@ -3538,8 +3889,8 @@ def main(argv=None) -> int:
                              warmup=1)
         w_bytes = x.numel() * (w // 8)
         w_pos = w_bytes // K // 4
-        wb, wb_by = bound_ms(w_bytes * (K + M) // K,
-                             sm90_op_floor(wms, w) * w_pos)
+        wb, wb_by = bound_ms(analytic_kernel_cost(
+            x.shape[0], M, K, x.shape[-1] * (w // 8), sm90_op_floor(wms, w)))
         word_times[w] = (t_w, h_w, t_wp, h_wp, wb, wb_by)
         print(f"bound of reed_sol_van w={w} encode at (64, 8, {WORDS}) "
               f"words: {w_bytes * (K + M) // K} bytes moved, "
@@ -3600,10 +3951,11 @@ def main(argv=None) -> int:
     # device program, w=16/32, the ragged pool at 25/50/100 % live): its
     # profiler time per call beside the bound, the instructions per word
     # position its row program spends against the floor, and its plan
-    for name, wrapper, fn, moved, mat_s, w, pos, dims in dense_times.shapes(
+    for name, wrapper, fn, cost, mat_s, w, dims in dense_times.shapes(
             args.seed):
         k_t = kernel_ms(fn, "gf_matrix", iters=50)
-        b, b_by = bound_ms(moved, sm90_op_floor(mat_s, w) * pos)
+        b, b_by = bound_ms(analytic_kernel_cost(
+            *cost[:4], sm90_op_floor(mat_s, w), live=cost[4]))
         plan = dense_plan(*dims, mat_s, dev) if w == 8 else None
         print(f"time dense kernel, {name} via {wrapper}: profiler "
               + ("not measured" if k_t is None else f"{k_t:.6f} ms, "
@@ -3623,8 +3975,8 @@ def main(argv=None) -> int:
                apply_bitmatrix_cuda(x, key, w, ps)) if kind == "plain" else
               (lambda x=x, key=key, w=w, ps=ps:
                apply_bitmatrix_xor_cuda(x, key, w, ps)))
-        b, b_by = bound_ms(*packet_times.work(gf_kernels, kind, key, n_in,
-                                              w, ps, x, r))
+        b, b_by = bound_ms(packet_times.work(gf_kernels, kind, key, n_in,
+                                             w, ps, x, r))
         k_t = kernel_ms(fn, "gf2_packet_kernel", iters=50)
         plan = gf_kernels.packet_launch_plan(x, r, w, ps, kind, key, n_in)
         print(f"time packet kernel, {name}, {kind}: profiler "
@@ -3673,10 +4025,9 @@ def main(argv=None) -> int:
                 for mem, idx, _, _ in leaves if mem}
 
     def xor_bound(st, x, r):
-        c = x.shape[-1]
-        moved = x.shape[0] * (len(read_chunks(st)) + r) * c
-        return bound_ms(moved, xor_schedule_op_count(st) * x.shape[0]
-                        * c // 4) + (moved,)
+        cost = analytic_kernel_cost(x.shape[0], r, len(read_chunks(st)),
+                                    x.shape[-1], xor_schedule_op_count(st))
+        return bound_ms(cost) + (int(cost["bytes accessed"]),)
 
     xor_times = {}
     for label, x, st, mat_s in (
@@ -3743,16 +4094,14 @@ def main(argv=None) -> int:
                         else f"{k_dense_main:.6f} ms")
           + f", beside {EARLIER_DENSE_MS} ms for the chain per column "
           f"it replaced ({EARLIER_CARD})")
-    words_per_page = PAGE // 4
     rag_times = {}
     for share in (0.25, 0.5, 1.0):
         live = np.zeros(RAG_PAGES, np.uint8)
         live[rng.permutation(RAG_PAGES)[:int(RAG_PAGES * share)]] = 1
         mk = torch.from_numpy(live).to(dev)
         n_live = int(live.sum())
-        b, b_by = bound_ms(n_live * K * PAGE + RAG_PAGES * M * PAGE
-                           + RAG_PAGES,
-                           sm90_op_floor(ms) * n_live * words_per_page)
+        b, b_by = bound_ms(analytic_kernel_cost(
+            RAG_PAGES, M, K, PAGE, sm90_op_floor(ms), live=n_live))
         k_r = kernel_ms(lambda: apply_matrix_cuda_ragged(rag_pool, ms, mk),
                         "gf_matrix_kernel")
         k_rp = kernel_ms(lambda: apply_matrix_cuda_packed_ragged(
@@ -3776,9 +4125,8 @@ def main(argv=None) -> int:
               f"ms; bound {b:.6f} ms by {b_by}")
     k_pool_dense = kernel_ms(lambda: apply_matrix_cuda(rag_pool, ms),
                              "gf_matrix_kernel")
-    pd_bound, pd_by = bound_ms(RAG_PAGES * (K + M) * PAGE,
-                               sm90_op_floor(ms) * RAG_PAGES
-                               * words_per_page)
+    pd_bound, pd_by = bound_ms(analytic_kernel_cost(
+        RAG_PAGES, M, K, PAGE, sm90_op_floor(ms)))
     print(f"time dense kernel on the same ({RAG_PAGES}, {K}, {PAGE}) "
           f"bytes: profiler "
           + ("not measured" if k_pool_dense is None
@@ -3938,9 +4286,13 @@ def main(argv=None) -> int:
         k_lib = kernel_ms(lib_fn, "", iters=5)
         fn_ops = sm90_op_floor(mat_s)
         moved_x = b_ * (s_ + r_) * c_
-        b, b_by = bound_ms(moved_x, fn_ops * (b_ * c_ // 4))
+        b, b_by = bound_ms(analytic_walk_cost(b_, r_, s_, c_, fn_ops))
         gemm_ops = 2 * (8 * r_) * (8 * s_) * b_ * c_
-        gemm_b, _ = bound_ms(moved_x, gemm_ops, INT8_OPS_PER_S)
+        # the dense GEMM: 2 x (8r) x (8s) int8 operations a byte column,
+        # 512 r s a 32-bit word position
+        gemm_b, _ = bound_ms(analytic_kernel_cost(b_, r_, s_, c_,
+                                                  512 * r_ * s_),
+                             INT8_OPS_PER_S)
         mxu_times[label] = (k_m or t_m, k_mp or t_m, t_pl, b, b_by, k_lib,
                             k_d, gemm_b)
         wd = walk_data(mat_s)
@@ -4015,9 +4367,12 @@ def main(argv=None) -> int:
     t_fold, _ = time_ms(lambda: fold_slab_cuda(slab), 10)
     t_copy_pl, _ = time_ms(lambda: copy_slab_torch(slab), 10)
     t_fold_pl, _ = time_ms(lambda: fold_slab_torch(slab), 10)
-    copy_b, copy_by = bound_ms(2 * slab.numel() * 4, 0)
-    fold_b, fold_by = bound_ms(slab.numel() * 4 * (K + 1) // K,
-                               slab.numel() * (K - 1) // K)
+    # the copy: one slab in, one out; the fold: K slices in, one out,
+    # K - 1 XORs a word position
+    copy_b, copy_by = bound_ms(analytic_kernel_cost(1, 1, 1,
+                                                    slab.numel() * 4, 0))
+    fold_b, fold_by = bound_ms(analytic_kernel_cost(
+        1, 1, K, slab.numel() * 4 // K, K - 1))
     for name, k_t, b in (("copy kernel", k_copy, copy_b),
                          ("fold kernel", k_fold, fold_b),
                          ("copy_ (the library copy)", k_copy_lib, copy_b),
@@ -4114,6 +4469,8 @@ def main(argv=None) -> int:
     print(json.dumps({"supervisor": supervisor_phase(seed)}))
     # -- phase 9: the data plane on the card ---------------------------------
     print(json.dumps({"data_plane": data_plane_phase(seed)}))
+    # -- phase 10: the profiler, the tuning table, the registry audit -----
+    print(json.dumps({"profiler": profiler_phase(seed)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,7 +160,10 @@ def test_workload_choices_match_the_reference():
         set(ref_choices["workload"]) - {"encode", "decode", "serving",
                                         "degraded", "repair-batched",
                                         "recovery-churn", "device-chaos",
-                                        "multichip", "host-chaos"})
+                                        "multichip", "host-chaos",
+                                        "profile", "autotune"})
+    assert set(port_bench.UNPORTED_WORKLOADS) == {"cluster", "scenario",
+                                                  "tenant-week"}
 
 
 def test_device_chaos_names_the_supervisor(capsys):
@@ -241,11 +244,27 @@ def test_recovery_workloads_need_faults_they_can_heal():
 
 
 def test_tune_table_exits_with_its_item(capsys, tmp_path):
-    with pytest.raises(SystemExit):
+    """--tune-table: a table that is not there fails the run before any
+    workload; a valid one is installed
+    and every row names it (config_source, tune_key_hash), as the
+    reference's rows do."""
+    from ceph_tpu_torch.tune import table as port_table
+    from ceph_tpu_torch.tune.sweep import analytic_sweep
+    with pytest.raises(FileNotFoundError):
         port_bench.main(RS + ["--tune-table", str(tmp_path / "t.json"),
                               "--device", "host"])
-    assert "--tune-table is not ported yet (ROADMAP Queue A item 6" \
-        in capsys.readouterr().err
+    path = tmp_path / "tuned.json"
+    analytic_sweep(seed=0, platform="cpu").table.save(str(path))
+    try:
+        assert port_bench.main(RS + ["--tune-table", str(path), "--size",
+                                     "4096", "--device", "host",
+                                     "--json"]) == 0
+        row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert row["config_source"] == "tuned"
+        assert row["tune_key_hash"] == \
+            port_table.BestConfigTable.load(str(path)).content_hash()
+    finally:
+        port_table.install_table(None)
 
 
 def test_packed_layout_needs_a_device_loop_and_a_w8_matrix_code():
@@ -753,3 +772,100 @@ def test_line_turns_summarises_each_run():
                                    "demoted_at_end": False}
     assert got["card"] == {"name": "card", "power_limit": "700.00 W"}
     assert got["partial_error"] is None
+
+
+# -- profile and autotune (the program profiler and the tuner) ----------------
+
+LABELS = ("name", "plugin", "kind", "pattern", "profile", "devices",
+          "batch", "config")
+
+
+def test_profile_host_rows_equal_the_reference(capsys):
+    """-w profile --device host: the numpy batch surfaces under the
+    analytic cost model, on both packages the same rows (names, labels,
+    cost, arguments), one sample a call."""
+    argv = RS + ["--workload", "profile", "--size", "65536", "--batch",
+                 "4", "--iterations", "3", "--device", "host", "--json"]
+    assert port_bench.main(argv) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ref_bench.main(argv) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(port) == set(ref)
+    assert port["programs"] == ref["programs"] == 2
+    keep = LABELS + ("engine", "source", "flops", "bytes_accessed",
+                     "arg_bytes", "calls", "platform")
+    assert [{k: r.get(k) for k in keep} for r in port["profile_rows"]] == \
+        [{k: r.get(k) for k in keep} for r in ref["profile_rows"]]
+    for r in port["profile_rows"]:
+        assert r["p50_ms"] > 0 and r["utilization_pct"] > 0
+
+
+def test_profile_cpu_rows_are_the_engine_programs(capsys):
+    """-w profile --device cpu: the serve encode, serve decode and fused
+    repair callables, each a profiler program with the reference's
+    labels (its rows on the CPU backend); the port's cost side is the
+    analytic model over what each reads (the decode: the k survivors its
+    matrix reads), the fused repair the sum of its decode and
+    re-encode."""
+    from ceph_tpu.telemetry import profiler as ref_prof
+    from ceph_tpu_torch.telemetry import profiler as prof
+    prof.global_profiler().reset()
+    ref_prof.global_profiler().reset()
+    argv = RS + ["--workload", "profile", "--size", "65536", "--batch",
+                 "4", "--iterations", "2", "--json"]
+    assert port_bench.main(argv + ["--device", "cpu"]) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ref_bench.main(argv + ["--device", "jax"]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert port["programs"] == ref["programs"] == 3
+    rows = {r["kind"]: r for r in port["profile_rows"]}
+    assert [{k: r.get(k) for k in LABELS} for r in port["profile_rows"]] \
+        == [{k: r.get(k) for k in LABELS} for r in ref["profile_rows"]]
+    assert {r["source"] for r in port["profile_rows"]} == {"analytic"}
+    assert {r["calls"] for r in port["profile_rows"]} == {3}
+    k, m, c = 4, 2, 65536 // 4
+    enc = prof.analytic_matrix_cost(4, m, k, c)
+    dec = prof.analytic_matrix_cost(4, 1, k, c)
+    assert rows["serve-decode"]["bytes_accessed"] == dec["bytes accessed"]
+    assert rows["serve-encode"]["bytes_accessed"] == enc["bytes accessed"]
+    assert rows["fused-repair"]["bytes_accessed"] == \
+        enc["bytes accessed"] + dec["bytes accessed"]
+
+
+def test_autotune_host_is_the_analytic_sweep(capsys):
+    """-w autotune --device host: the reference's analytic sweep, the
+    same tuned keys and rows apart from its row-tile step (and, where
+    the reference's process sees more devices than the port's one CPU,
+    the device-count slot and the mesh fan-out row)."""
+    argv = ["--workload", "autotune", "--device", "host", "--json",
+            "--seed", "17"]
+    assert port_bench.main(argv) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ref_bench.main(argv) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert port["mode"] == ref["mode"] == "analytic"
+
+    def slots(keys):
+        return [k.split("|")[:4] for k in keys
+                if "|row-tile|" not in k and "|mesh-fanout|" not in k]
+    assert slots(port["tuned_keys"]) == slots(ref["tuned_keys"])
+    assert [r["name"] for r in port["rows"]] == [
+        r["name"] for r in ref["rows"]
+        if r["kind"] not in ("row-tile", "mesh-fanout")]
+    assert port["verified"] is True and port["config_source"] == "default"
+
+
+def test_autotune_cpu_times_the_torch_tier(capsys):
+    """-w autotune --device cpu: the timed sweep over the CPU's one
+    tier (the torch tier), the encode and one decode unit, nothing
+    pinned, every candidate's time in its row."""
+    assert port_bench.main(RS + ["--workload", "autotune", "--device",
+                                 "cpu", "--size", "16384", "--batch", "2",
+                                 "--json"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["mode"] == "timed" and row["n_tuned"] == 0
+    assert [r["name"] for r in row["rows"]] == [
+        "jerasure.encode_chunks_jax", "jerasure.decode_chunks_jax"]
+    for r in row["rows"]:
+        assert list(r["candidates_ms"]) == ["torch"]
+        assert r["before"]["engine"] == r["after"]["engine"] == "torch"

@@ -1352,3 +1352,76 @@ def test_width1_loss_on_the_card_raises(card_plane):
         assert st["demotions"] == 0
     finally:
         restore()
+
+
+# -- the program profiler, the tuning table and the registry audit ----------
+
+def test_profiler_times_a_seam_with_cuda_events(cuda_device):
+    """The serve-encode seam on the card: one analytic program, its
+    calls timed with CUDA event pairs (each less the pair's own cost)
+    read lazily, close to the kernel's own time when the stream is
+    held, its utilization resolved by the card's name."""
+    from ceph_tpu_torch.codes.engine import serve_dispatch_call
+    from ceph_tpu_torch.telemetry import profiler
+    prev = profiler.set_global_profiler(profiler.ProgramProfiler())
+    try:
+        ec = ErasureCodePluginRegistry.instance().factory(
+            "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+            device=cuda_device)
+        x = torch.randint(0, 256, (64, 8, 131072), dtype=torch.uint8,
+                          device=cuda_device)
+        call = serve_dispatch_call(ec, "encode")
+        call(x)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            profiler.hold_stream(cuda_device, 1)
+            call(x)
+        prof = profiler.global_profiler()
+        assert len(prof._pending) >= 10          # read later, not per call
+        rows = prof.attribution_rows()
+        assert prof._pending == []
+        (row,) = rows
+        assert row["platform"] == "cuda" and row["source"] == "analytic"
+        assert row["calls"] == 11 and 0.02 < row["p50_ms"] < 0.2
+        assert 0 < profiler.event_pair_overhead(cuda_device) < 2e-5
+        if torch.cuda.get_device_name() in profiler.CARD_PEAK_GBPS:
+            assert 0 < row["utilization_pct"] <= 100
+    finally:
+        profiler.set_global_profiler(prev)
+
+
+def test_registry_audit_on_the_card(cuda_device, monkeypatch):
+    """Every entry of the registry audits clean on the card: setups cold
+    within budget and none warm, no host sync on a warm repeat except
+    CRUSH's declared one, every tier's bytes equal."""
+    from ceph_tpu_torch.analysis.audit import audit_registry
+    monkeypatch.setenv("CEPH_TPU_TORCH_VIRTUAL_DEVICES", "4")
+    got = audit_registry(device=cuda_device)
+    assert [a.name for a in got if not a.ok] == []
+    assert {a.name for a in got if a.sync == "declared"} == {
+        "crush.bulk_rule", "crush.bulk_rule_sharded"}
+
+
+def test_timed_sweep_on_the_card_pins_the_r6_encode(cuda_device):
+    """The r6 encode's candidates on the card (dense, XOR schedule,
+    column walk) give identical bytes; a pin, when one wins, routes the
+    encode there with the default's bytes."""
+    from ceph_tpu_torch.tune import sweep, table
+    profile = {"technique": "reed_sol_r6_op", "k": "8", "m": "2"}
+    rep = sweep.timed_sweep("jerasure", profile, size=1 << 20, batch=64,
+                            repeats=5, device=cuda_device)
+    row = rep.rows[0]
+    assert set(row["candidates_ms"]) == {"cuda", "xor", "mxu"}
+    assert row["before"]["engine"] == "xor"
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", profile, device=cuda_device)
+    x = torch.randint(0, 256, (64, 8, 131072), dtype=torch.uint8,
+                      device=cuda_device)
+    want = ec.encode_chunks_torch(x)
+    with table.scoped_table(rep.table):
+        got = ec.encode_chunks_torch(x)
+        eng = select_matrix_engine(8, cuda_device, shape=tuple(x.shape),
+                                   matrix_t=matrix_to_static(ec.matrix))
+    assert torch.equal(got, want)
+    pinned = row["key"] in rep.table.entries
+    assert eng == row["after" if pinned else "before"]["engine"]

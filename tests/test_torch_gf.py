@@ -170,39 +170,30 @@ def test_port_sources_import_neither_jax_nor_ceph_tpu():
 
 
 def test_importing_port_loads_no_jax_or_ceph_tpu_module():
+    """Every module of the package (``pkgutil.walk_packages``: new ones
+    are guarded without a list to keep), and ``chip_smoke.py`` (whose
+    imports are card-free at module level), imports neither jax nor the
+    JAX package, directly or through another module."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
         "import ceph_tpu_torch\n"
-        "import ceph_tpu_torch.codes.plugins.jerasure\n"
-        "import ceph_tpu_torch.codes.plugins.isa\n"
-        "import ceph_tpu_torch.codes.plugins.example\n"
-        "import ceph_tpu_torch.codes.plugins.shec\n"
-        "import ceph_tpu_torch.codes.plugins.lrc\n"
-        "import ceph_tpu_torch.ops.gf_kernels\n"
-        "import ceph_tpu_torch.ops._build\n"
-        "import ceph_tpu_torch.codes.engine\n"
-        "import ceph_tpu_torch.codes.stripe\n"
-        "import ceph_tpu_torch.bench.erasure_code_benchmark\n"
-        "import ceph_tpu_torch.bench.bench_line\n"
-        "import ceph_tpu_torch.bench.non_regression\n"
-        "import ceph_tpu_torch.bench.erasure_code_tool\n"
-        "import ceph_tpu_torch.crush\n"
-        "import ceph_tpu_torch.crush.bulk\n"
-        "import ceph_tpu_torch.crush.osdmap\n"
-        "import ceph_tpu_torch.crush.balancer\n"
-        "import ceph_tpu_torch.crush.poolops\n"
-        "import ceph_tpu_torch.crush.tester\n"
-        "import ceph_tpu_torch.bench.crushtool\n"
-        "import ceph_tpu_torch.bench.osdmaptool\n"
-        "import ceph_tpu_torch.utils.config\n"
-        "import ceph_tpu_torch.telemetry.analyzer\n"
-        "import ceph_tpu_torch.serve\n"
-        "import ceph_tpu_torch.scenario.runner\n"
-        "import ceph_tpu_torch.telemetry\n"
-        "import ceph_tpu_torch.utils.detcheck\n"
-        "import ceph_tpu_torch.utils.log\n"
-        "import ceph_tpu_torch.utils.retry\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    ceph_tpu_torch.__path__, 'ceph_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "assert len(names) > 100, names\n"
+        "for must in ('ceph_tpu_torch.parallel.plane', "
+        "'ceph_tpu_torch.scrub.deep_scrub', "
+        "'ceph_tpu_torch.recovery.orchestrator', "
+        "'ceph_tpu_torch.chaos.hosts', 'ceph_tpu_torch.ops.supervisor', "
+        "'ceph_tpu_torch.ops.fallback', 'ceph_tpu_torch.utils.locks', "
+        "'ceph_tpu_torch.utils.shard', 'ceph_tpu_torch.analysis.audit', "
+        "'ceph_tpu_torch.tools.autotune', 'ceph_tpu_torch.tune.sweep', "
+        "'ceph_tpu_torch.telemetry.profiler', "
+        "'ceph_tpu_torch.utils.compile_cache'):\n"
+        "    assert must in names, must\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ceph_tpu'))\n"

@@ -12,8 +12,9 @@ plane's topology must be equal.  The reference's "xla" tier is the
 port's "torch".
 
 Left out: the scenario runner's host-loss section and the bench_diff
-category (ROADMAP Queue A items 7 and 8) and the audit-registry entries
-(item 6).  The port's own: the member and host quarantine on the card
+category (ROADMAP Queue A items 7 and 8).  The audit-registry entries
+(``engine.fused_repair_host_sharded``, ``chaos.host_plane``) are held
+in tests/test_torch_entrypoints.py.  The port's own: the member and host quarantine on the card
 (CPU tensors marked as the card's), where a reshrink keeps the work on
 the plane and a width-1 loss raises DeviceDispatchError.
 """

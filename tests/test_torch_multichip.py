@@ -12,8 +12,8 @@ which its own tests hold equal to its mesh tier); non-dividing batches
 pad and drop; CRUSH sharded over the x axis equals the scalar mapper;
 one supervised dispatch per pattern batch.  Outputs are gathered on the
 caller's device, so the reference's "output stays sharded" case is
-replaced by the member partition.  Left out: the sharded audit entries
-(ROADMAP Queue A item 6).
+replaced by the member partition.  The sharded audit entries are held
+in tests/test_torch_entrypoints.py.
 """
 
 from __future__ import annotations

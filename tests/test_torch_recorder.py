@@ -306,8 +306,11 @@ def test_flight_dir_writes_each_blob(tmp_path, monkeypatch):
 
 
 def test_flight_recorder_selftest_names_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PORT.recorder.flight_recorder_selftest()
+    """The selftest, on the program profiler's tick clock: its blob
+    equals the reference's letter for letter."""
+    got = PORT.recorder.flight_recorder_selftest()
+    assert canon(got) == canon(REF.recorder.flight_recorder_selftest())
+    assert PORT.schema.validate_flight_dump(got) == []
 
 
 # -- the schema ----------------------------------------------------------------
