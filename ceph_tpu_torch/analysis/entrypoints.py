@@ -6,10 +6,12 @@ with a representative workload: the plugin families' encode/decode
 (byte and packed layouts), the engine dispatchers, the hand-written
 kernels' wrappers, the fused decode -> re-encode repair, the serving
 seams, CRUSH's bulk evaluator, their sharded variants over the data
-plane's members, and the host-tier entries (scrub's batched CRC, the
-telemetry selftests, the serving pool and batcher, the supervisor, the
-host fault-domain arc, the analytic sweep), whose contract is that they
-touch no device.  Names, families and representative profiles are the
+plane's members, the cluster plane's rules over a production-shape map
+and its rateless dispatch, and the host-tier entries (scrub's batched
+CRC, the telemetry selftests, the serving pool and batcher, the
+scenario runner, the QoS arbiter and the tenant week, the supervisor,
+the host fault-domain arc, the analytic sweep), whose contract is that
+they touch no device.  Names, families and representative profiles are the
 reference's; an entry of a kernel keeps the reference's name
 (``ops.apply_matrix_pallas`` ...) and anchors on the port's wrapper.
 
@@ -32,9 +34,8 @@ Each :class:`EntryPoint` declares:
   sync that no longer happens is drift, and fails too).
 
 analysis/audit.py runs the checks.  Importing this module imports no
-plugin: the build functions do, lazily.  The reference's ``cluster.*`` and
-``scenario.*`` entries wait for the cluster and scenario modules
-(ROADMAP Queue A item 7): :data:`PENDING` names them.
+plugin: the build functions do, lazily.  :func:`registry_names` equals
+the reference's, in its order.
 
 ``registry_gaps()`` is the completeness gate: every public
 ``*_chunks*_torch`` surface of each family's representative instance
@@ -46,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
-# the reference's families (cluster and scenario entries are PENDING)
+# the reference's families
 FAMILIES = ("jerasure", "isa", "shec", "lrc", "clay",
             "engine", "ops", "crush", "scrub", "telemetry", "serve",
             "cluster", "scenario", "tune", "chaos")
@@ -61,11 +62,6 @@ PLUGIN_SURFACES = ("encode_chunks_torch", "decode_chunks_torch",
 SURFACE_NAMES = dict(zip(PLUGIN_SURFACES, (
     "encode_chunks_jax", "decode_chunks_jax", "encode_chunks_packed_jax",
     "decode_chunks_packed_jax")))
-
-# the reference's entries whose modules come with ROADMAP Queue A item 7
-PENDING = ("cluster.balancer_round", "cluster.storm_reeval",
-           "cluster.rateless_dispatch", "scenario.runner",
-           "scenario.qos", "scenario.week")
 
 B = 2          # representative batch
 C = 4096       # representative chunk bytes (packed R = C/512 = 8 rows)
@@ -462,6 +458,83 @@ def _crush_builder(sharded: bool):
     return build
 
 
+# cluster plane: the balancer round and the storm re-eval are both the
+# bulk evaluator's rule program, over a topology-generated
+# production-shape map (root -> rack -> host -> osd): the replicated
+# chooseleaf-firstn rule is the balancer loop's per-round evaluation,
+# the canonical EC chooseleaf-indep rule (SET steps) is what every storm
+# epoch re-evaluates.  A small spec: the audit is about the program, not
+# throughput.
+
+_CLUSTER_CACHE: Dict[str, object] = {}
+
+
+def _cluster_map(device="cpu"):
+    """The reference's audit cluster, built on ``device`` (cached)."""
+    dev = _device(device)
+    hit = _CLUSTER_CACHE.get(str(dev))
+    if hit is None:
+        from ..cluster.topology import ClusterSpec, build_cluster
+        spec = ClusterSpec(seed=5, racks=3, hosts_per_rack=2,
+                           osds_per_host=2, replicated_pg_num=16,
+                           ec_pg_num=8, ec_k=2, ec_m=1)
+        hit = build_cluster(spec, device=dev)
+        _CLUSTER_CACHE[str(dev)] = hit
+    return hit
+
+
+def _cluster_rule_builder(pool_name: str):
+    """The bulk rule of the audit cluster's pool ``pool_name``
+    (``cluster.topology``'s ``REPLICATED_POOL`` or ``EC_POOL``)."""
+    def build(device=None) -> Built:
+        import numpy as np
+
+        from ..cluster import topology
+        from ..crush.bulk import bulk_do_rule
+        from ..crush.mapper import crush_do_rule
+        from ..crush.types import CRUSH_ITEM_NONE
+
+        m = _cluster_map(device)
+        pool = m.pools[getattr(topology, pool_name)]
+        cm = m._compiled_map()
+        weight = list(m.osd_weight)
+        xs = np.asarray(pool.pps_all()[:8], dtype=np.int64)
+
+        def twin(v):
+            out = np.full((len(v), pool.size), CRUSH_ITEM_NONE, np.int32)
+            cnt = np.zeros(len(v), np.int32)
+            for j, x in enumerate(v):
+                r = crush_do_rule(m.crush, pool.crush_rule, int(x),
+                                  pool.size, weight=weight)
+                out[j, :len(r)] = r
+                cnt[j] = len(r)
+            return out, cnt
+        return Built(lambda v: bulk_do_rule(cm, pool.crush_rule, v,
+                                            pool.size, weight=weight,
+                                            mesh=0),
+                     (xs,), bulk_do_rule, twin=twin)
+    return build
+
+
+def _build_cluster_rateless_dispatch(device=None) -> Built:
+    """The program one over-planned rateless copy dispatches
+    (cluster/rateless.py::rateless_dispatch_call = the engine's fused
+    decode -> re-encode repair).  Its own erasure pattern, so this
+    audits its own cached callable."""
+    import numpy as np
+
+    from ..cluster.rateless import rateless_dispatch_call
+
+    dev = _device(device)
+    ec = representative_instance("jerasure", dev)
+    n = ec.get_chunk_count()
+    erased = (2,)
+    available = tuple(i for i in range(n) if i != 2)
+    fn = rateless_dispatch_call(ec, available, erased)
+    return Built(fn, (_tensor(seeded((B, len(available), C), np.uint8),
+                              dev),), rateless_dispatch_call)
+
+
 def _build_crc_batch(device=None) -> Built:
     import numpy as np
 
@@ -598,7 +671,7 @@ def _plugin_entries() -> List[EntryPoint]:
 
 def registry() -> Tuple[EntryPoint, ...]:
     """Every audited entry point, in deterministic audit order (the
-    reference's, without the PENDING entries)."""
+    reference's)."""
     dev = "device"
     entries = _plugin_entries()
     entries += [
@@ -679,6 +752,23 @@ def registry() -> Tuple[EntryPoint, ...]:
                    setup_budget=0),
         EntryPoint("serve.batcher", "serve", "host",
                    _build_serve_batcher, setup_budget=0),
+        EntryPoint("cluster.balancer_round", "cluster", dev,
+                   _cluster_rule_builder("REPLICATED_POOL"),
+                   setup_budget=0, sync_ok=_CRUSH_SYNC),
+        EntryPoint("cluster.storm_reeval", "cluster", dev,
+                   _cluster_rule_builder("EC_POOL"), setup_budget=0,
+                   sync_ok=_CRUSH_SYNC),
+        EntryPoint("cluster.rateless_dispatch", "cluster", dev,
+                   _build_cluster_rateless_dispatch),
+        EntryPoint("scenario.runner", "scenario", "host",
+                   _host_builder("..scenario.runner",
+                                 "scenario_selftest"), setup_budget=0),
+        EntryPoint("scenario.qos", "scenario", "host",
+                   _host_builder("..scenario.qos", "qos_selftest"),
+                   setup_budget=0),
+        EntryPoint("scenario.week", "scenario", "host",
+                   _host_builder("..scenario.week", "week_selftest"),
+                   setup_budget=0),
         EntryPoint("ops.supervisor", "ops", "host",
                    _host_builder("..ops.supervisor",
                                  "supervisor_selftest"), setup_budget=0),
@@ -714,7 +804,7 @@ def registry_gaps() -> List[str]:
     return gaps
 
 
-__all__ = ["B", "Built", "C", "EntryPoint", "FAMILIES", "PENDING",
+__all__ = ["B", "Built", "C", "EntryPoint", "FAMILIES",
            "PLUGIN_SURFACES", "R", "REPRESENTATIVE_PROFILES",
            "SURFACE_NAMES", "registry", "registry_gaps",
            "registry_names", "representative_instance", "seeded"]

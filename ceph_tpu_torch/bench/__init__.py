@@ -2,7 +2,8 @@
 ``ceph_tpu/bench``.
 
 - ``erasure_code_benchmark`` — the ``ceph_erasure_code_benchmark`` CLI
-  (``ErasureCodeBench``: the encode, decode and serving workloads) and
+  (``ErasureCodeBench``: the encode, decode, recovery, serving,
+  cluster, scenario and tenant-week workloads) and
   ``build_chain``, the chained harness its ``--loop`` mode and the
   roofline tool share.
 - ``bench_line`` — the port's bench line: one JSON line of the card's
@@ -13,6 +14,7 @@
   evaluator, ``--device cuda|cpu``).
 - ``osdmaptool`` — the ``osdmaptool`` CLI (``--test-map-pgs``,
   ``--upmap``, ``--createsimple``, ``--print``, ``--create-ec-pool``).
-
-Not ported yet: ``sweep`` (ROADMAP Queue A item 7).
+- ``sweep`` — the bench.sh grid: one JSON line per (plugin, technique,
+  k, m, workload) cell; profile rejections soft-fail a cell, device
+  failures propagate.
 """

@@ -67,10 +67,15 @@ timed sweep on the run's device, or the analytic sweep with ``--device
 host``.  ``--tune-table FILE`` installs a best-config table before the
 workload; every row reports ``config_source`` and ``tune_key_hash``.
 
-Not ported yet, with the ROADMAP Queue A item that brings their
-modules: cluster, scenario and tenant-week (item 7).  They stay in the
-flag choices, so --help matches the reference, and exit with a CLI
-error.
+``cluster`` (``cluster/``) builds a seeded synthetic cluster whose
+bulk CRUSH evaluation runs on the run's device, fires a churn storm
+through the incremental path, balances it and heals damaged objects
+by rateless first-k recovery under a straggler; ``--device host`` runs
+the host mapper at a downscaled size.  ``scenario`` (``scenario/``)
+serves the canonical client stream on the real clock while churn,
+recovery and scrub interleave under the mClock arbiter; ``tenant-week``
+runs the simulated multi-tenant week and its isolation gate.  Both run
+on the run's device (``--device host``: the host executor).
 """
 
 from __future__ import annotations
@@ -93,15 +98,6 @@ from ..telemetry import LatencyHistogram
 # after a failure the supervisor raises (the scripts' losses fire on two
 # calls)
 _CARD_PASSES = 4
-
-# workloads whose modules are not ported yet -> the ROADMAP Queue A item
-# that ports them
-UNPORTED_WORKLOADS = {
-    "cluster": "item 7 (cluster)",
-    "scenario": "item 7 (scenario)",
-    "tenant-week": "item 7 (scenario)",
-}
-
 
 def _xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a ^ b on tensors of one integer dtype; uint32 through an int32
@@ -265,23 +261,29 @@ class ErasureCodeBench:
                         help="serving workload (--paged): pages per "
                              "queue pool (default 64)")
         ap.add_argument("--osds", type=int, default=1000,
-                        help="cluster workload (not ported yet): "
-                             "synthetic cluster device count")
+                        help="cluster workload: synthetic cluster "
+                             "device count (ClusterSpec.sized; "
+                             "--device host downscales to keep the "
+                             "host mapper's run in seconds)")
         ap.add_argument("--cluster-pgs", type=int, default=1024,
-                        help="cluster workload (not ported yet): "
-                             "replicated pool pg_num")
+                        help="cluster workload: replicated pool "
+                             "pg_num (the EC pool rides at 1/8)")
         ap.add_argument("--storm-events", type=int, default=40,
-                        help="cluster workload (not ported yet): storm "
-                             "epoch budget")
+                        help="cluster workload: MapChurn storm epoch "
+                             "budget")
         ap.add_argument("--redundancy", type=int, default=2,
-                        help="cluster workload (not ported yet): "
-                             "rateless over-planning factor r")
+                        help="cluster workload: rateless over-"
+                             "planning factor r (1 = no over-"
+                             "planning, the straggler-exposed "
+                             "control)")
         ap.add_argument("--slow-factor", type=float, default=10.0,
-                        help="cluster/scenario workloads (not ported "
-                             "yet): the injected straggler's slowdown")
+                        help="cluster/scenario workloads: the "
+                             "injected straggler's slowdown on "
+                             "shard 0")
         ap.add_argument("--no-arbiter", action="store_true",
-                        help="scenario workload (not ported yet): "
-                             "disable the QoS arbiter")
+                        help="scenario workload: disable the mClock "
+                             "QoS arbiter (the contention control "
+                             "run)")
         ap.add_argument("--tune-table", default=None, metavar="FILE",
                         help="install this best-config table "
                              "(python -m ceph_tpu_torch.tools.autotune "
@@ -347,10 +349,6 @@ class ErasureCodeBench:
                 self.args.loop and self.args.device != "host"):
             ap.error("--layout packed applies to the --loop "
                      "--device cuda|cpu paths only")
-        item = UNPORTED_WORKLOADS.get(self.args.workload)
-        if item is not None:
-            ap.error(f"--workload {self.args.workload} is not ported "
-                     f"yet (ROADMAP Queue A {item})")
         self.profile = _parse_parameters(self.args.parameter)
 
     # -- helpers ------------------------------------------------------------
@@ -1586,6 +1584,259 @@ class ErasureCodeBench:
         res["verified"] = True
         return res
 
+    # -- cluster (the 10k-OSD cluster plane: storm → balance → rateless
+    # recover from one seed — cluster/) ---------------------------------
+
+    def cluster(self) -> dict:
+        """Cluster-plane numbers: a seeded synthetic cluster (--osds
+        devices, ClusterSpec.sized) whose bulk CRUSH evaluation runs on
+        the run's device takes a --storm-events MapChurn storm through
+        the incremental path (full-cluster remap convergence measured
+        per epoch on the bulk evaluator, pinned equivalent to a rebuilt
+        map and a catch_up replay), the balancer loop closes to max
+        deviation <= 1, and a rateless first-k recovery (--redundancy
+        copies across the shards) heals --batch damaged objects with
+        the fused repair on the run's device under an injected
+        straggler (shard 0 at --slow-factor), byte-verified and
+        compared against the same schedule with no straggler — the p99
+        ratio IS the straggler-tolerance claim.  --device host runs the
+        identical loop over the host mapper at a downscaled size."""
+        from ..chaos import MapChurn, ShardErasure, Straggler
+        from ..cluster import (ClusterSpec, balance_cluster,
+                               build_cluster, rateless_recover,
+                               run_churn_storm,
+                               verify_storm_equivalence)
+        from ..cluster.rateless import plan_assignments, \
+            simulate_first_k
+        from ..cluster.topology import EC_POOL
+        from ..codes.stripe import StripeInfo
+        from ..recovery import healed
+        from ..scenario.runner import stage_damaged_objects
+        a = self.args
+        host = a.device == "host"
+        # the host engine walks the python mapper per pg per epoch —
+        # the downscale keeps the host row in seconds while running
+        # the identical loop
+        n_osds = min(a.osds, 120) if host else a.osds
+        pgs = min(a.cluster_pgs, 128) if host else a.cluster_pgs
+        events = min(a.storm_events, 6) if host else a.storm_events
+        engine = "host" if host else "bulk"
+        measure_every = 2 if host else 1
+        spec = ClusterSpec.sized(
+            n_osds, seed=a.seed, replicated_pg_num=pgs,
+            ec_pg_num=max(32, pgs // 8))
+        device = self._device()
+        m = build_cluster(spec, device=device)
+
+        ec = self._instance()
+        k = ec.get_data_chunk_count()
+        chunk_size = ec.get_chunk_size(a.size)
+        width = k * chunk_size
+        sinfo = StripeInfo(k, width)
+        n_objects = max(4, a.batch)
+        # one shared erasure pattern (shard 1): one pattern batch, one
+        # fused dispatch — and the control sim below can reconstruct
+        # the unit work exactly
+        objects, stores, hinfos, _ = stage_damaged_objects(
+            sinfo, ec, n_objects, seed=a.seed,
+            injectors_for=lambda i: [ShardErasure(shards=[1])])
+
+        churn = MapChurn(seed=a.seed + 1, max_down=8, fire_every=1,
+                         max_events=events)
+        lat = _LatTimer()
+        begin = time.perf_counter()
+        storm = lat.run(lambda: run_churn_storm(
+            m, churn=churn, events=events, engine=engine,
+            measure_every=measure_every))
+        verify_storm_equivalence(
+            m, churn, lambda: build_cluster(spec, device=device),
+            engine=engine, scalar_samples=4)
+        bal = lat.run(lambda: balance_cluster(
+            m, max_deviation=1.0, engine=engine))
+        straggler = Straggler(seed=a.seed + 2,
+                              slow={0: a.slow_factor})
+        rec, rr = lat.run(lambda: rateless_recover(
+            sinfo, ec, m, EC_POOL, 5, stores, hinfos,
+            redundancy=a.redundancy, straggler=straggler,
+            seed=a.seed + 3, device=not host))
+        elapsed = time.perf_counter() - begin
+        if not rec.converged or rec.unrecoverable:
+            raise RuntimeError(
+                f"cluster: recovery failed: {rec.to_dict()}")
+        if not healed(stores, objects):
+            raise RuntimeError("cluster: data loss after rateless "
+                               "recovery")
+        # no-straggler control: the SAME plan/work simulated on a
+        # clean service model — the denominator of the p99 claim;
+        # every object lost exactly shard 1 of chunk_size bytes, so
+        # each unit's work matches rateless_recover's classification
+        work = [chunk_size / float(1 << 16)] * rr.n_units
+        plan = plan_assignments(rr.n_units, rr.n_shards,
+                                rr.redundancy, seed=a.seed + 3)
+        baseline = simulate_first_k(
+            plan, Straggler(seed=a.seed + 2), work)
+        base_p99 = float(np.percentile(
+            np.asarray(baseline.completion_s), 99)) \
+            if baseline.completion_s else 0.0
+
+        res = self._result("cluster", elapsed,
+                           width * n_objects, lat)
+        res["osds"] = spec.n_osds
+        res["total_pgs"] = sum(p.pg_num for p in m.pools.values())
+        res["engine"] = engine
+        res["storm_events"] = storm.events + storm.drain_events
+        res["remap_convergence_epochs"] = storm.epochs_to_quiescence
+        res["remapped_total"] = storm.total_remapped
+        res["mean_remap_fraction"] = round(
+            storm.mean_remap_fraction, 6)
+        res["balancer_iterations"] = bal.iterations
+        res["balancer_moves"] = bal.moves
+        res["balancer_converged"] = bal.converged
+        res["balancer_max_dev_final"] = round(bal.max_dev_final, 4)
+        res["balancer_remap_fraction"] = round(bal.remap_fraction, 6)
+        res["redundancy"] = rr.redundancy
+        res["n_shards"] = rr.n_shards
+        res["p99_recovery_ms"] = round(rr.p99_s * 1e3, 4)
+        res["p99_baseline_ms"] = round(base_p99 * 1e3, 4)
+        res["p99_ratio"] = (round(rr.p99_s / base_p99, 4)
+                            if base_p99 > 0 else None)
+        res["straggler_reassignments"] = \
+            rr.schedule.straggler_reassignments if rr.schedule else 0
+        res["verified"] = True
+        return res
+
+    # -- scenario (the composed production day: client traffic at SLO
+    # + churn storm + straggler recovery under mClock QoS arbitration
+    # — scenario/) -------------------------------------------------------
+
+    def scenario_workload(self) -> dict:
+        """Production-day contention numbers: the canonical mixed
+        rs/shec/clay client stream serves at SLO while a churn storm
+        remaps the cluster, recovery rounds heal straggler-skewed
+        damage and scrub verifies — all on ONE real clock,
+        admission-gated by the mClock arbiter (scenario/qos.py;
+        --no-arbiter is the unthrottled control), on the run's device
+        (--device host: the host executor).  The row reports
+        GB/s-under-SLO, p99 and the deadline-miss rate, and
+        ``tail_attribution`` (per-segment share of p99 time from the
+        causal tracing plane, telemetry/analyzer.py).  Correctness
+        gates run in-workload: client stream byte-verified against
+        ground truth, recovery converged with byte-identical heal, zero
+        data loss."""
+        from ..scenario import default_scenario, run_scenario
+        a = self.args
+        executor = "host" if a.device == "host" else "device"
+        device = self._device()
+        spec = default_scenario(
+            seed=a.seed, n_requests=a.requests, stripe_size=a.size,
+            damaged_objects=max(2, a.batch), erasures=a.erasures,
+            storm_events=min(a.storm_events, 12),
+            straggler_factor=a.slow_factor)
+        run, tail = self._run_traced(
+            lambda: run_scenario(spec, executor=executor, device=device,
+                                 enable_arbiter=not a.no_arbiter))
+        rep = run.report
+        if not rep.ok():
+            raise RuntimeError(f"scenario gates failed: {rep.gates}")
+        res = self._result("scenario", rep.slo["elapsed_s"],
+                           rep.slo["bytes"])
+        res["lat_p50_ms"] = rep.slo["p50_ms"]
+        res["lat_p99_ms"] = rep.slo["p99_ms"]
+        res["lat_p999_ms"] = rep.slo["p999_ms"]
+        res["lat_samples"] = rep.slo["requests"]
+        res["gbps_under_slo"] = rep.gbps_under_slo
+        res["deadline_miss_rate"] = rep.deadline_miss_rate
+        res["arbiter_enabled"] = rep.arbiter_enabled
+        res["qos_scale_min"] = rep.qos["scale_min"]
+        res["qos_burn_trips"] = rep.qos["burn_trips"]
+        res["slo_burn_trips"] = rep.slo_burn_trips
+        res["recovery_rounds"] = rep.recovery_rounds
+        res["recovery_ops_completed"] = \
+            rep.recovery["ops_completed"]
+        res["churn_events"] = rep.churn["events"]
+        res["straggler_reassignments"] = \
+            rep.rateless["straggler_reassignments"]
+        res["rateless_p99_ratio"] = rep.rateless["p99_ratio"]
+        res["stream_compiles"] = rep.slo.get("stream_compiles")
+        res["tail_attribution"] = tail
+        res["verified"] = True
+        return res
+
+    # -- tenant-week (the multi-tenant compressed week: per-tenant
+    # diurnal streams under the per-tenant mClock door, discrete-event
+    # fast-forward, staged correlated disasters — scenario/week.py) -----
+
+    def tenant_week_workload(self) -> dict:
+        """Multi-tenant isolation numbers: the 3-tenant compressed week
+        — diurnal streams merged on one arrival timeline, the noisy
+        tenant's burst storm clamped at the door by its mClock limit
+        tag, all four staged disasters healing byte-identically — runs
+        as a discrete-event simulation on an EventClock (the service
+        model charges modeled time, so every number is deterministic
+        from the seed), its dispatches on the run's device (--device
+        host: the host executor).  The row carries per-tenant
+        scorecards plus the isolation-gate verdict against per-tenant
+        isolated baselines; ``--no-arbiter`` is the control arm that
+        must FAIL that gate.  Correctness gates in-workload: recovery
+        converged, heal byte-identical, every served request
+        byte-verified."""
+        from ..scenario import (isolated_baseline, isolation_gate,
+                                run_tenant_week, tenant_week_scenario)
+        a = self.args
+        executor = "host" if a.device == "host" else "device"
+        device = self._device()
+        # the bench row runs the tiny-scale week; scale rides
+        # --iterations as days
+        spec = tenant_week_scenario(
+            seed=a.seed, days=max(2, a.iterations), day_s=6.0,
+            peak_rates=(40.0, 30.0, 20.0), burst_factor=80.0)
+        run = run_tenant_week(spec, executor=executor, device=device,
+                              enable_arbiter=not a.no_arbiter)
+        rep = run.report
+        g = rep.gates
+        if not (g["converged"] and g["healed"]
+                and g["verified_requests"]):
+            raise RuntimeError(f"tenant-week gates failed: {g}")
+        victims = tuple(t.name for t in spec.tenants
+                        if t.limit == 0.0)
+        base = {n: isolated_baseline(spec, n, executor=executor,
+                                     device=device)
+                for n in victims}
+        gate = isolation_gate(rep, base, victims=victims)
+        if not a.no_arbiter and not gate["ok"]:
+            raise RuntimeError(
+                f"tenant-week isolation gate failed: {gate}")
+        res = self._result("tenant-week", rep.slo["elapsed_s"],
+                           rep.slo["bytes"])
+        res["lat_p50_ms"] = rep.slo["p50_ms"]
+        res["lat_p99_ms"] = rep.slo["p99_ms"]
+        res["lat_p999_ms"] = rep.slo["p999_ms"]
+        res["lat_samples"] = rep.slo["requests"]
+        res["gbps_under_slo"] = rep.gbps_under_slo
+        res["deadline_miss_rate"] = rep.deadline_miss_rate
+        res["arbiter_enabled"] = rep.arbiter_enabled
+        res["requests_offered"] = g["requests_offered"]
+        res["dispatched"] = g["dispatched"]
+        res["dispatch_crc"] = g["dispatch_crc"]
+        res["tenants"] = rep.tenants
+        # victims' GB/s-under-SLO with the burst storm raging is THE
+        # isolation number
+        res["victim_gbps_under_slo"] = sum(
+            (rep.tenants.get(n, {}).get("gbps_under_slo") or 0.0)
+            for n in victims)
+        res["isolation_ok"] = gate["ok"]
+        res["isolation_victims"] = gate["victims"]
+        res["disasters"] = rep.disasters
+        res["disasters_healed"] = all(
+            d["healed"] for d in rep.disasters)
+        res["fence_deferrals"] = sum(
+            d["fence_deferrals"] for d in rep.disasters)
+        res["recovery_rounds"] = rep.recovery_rounds
+        res["scrub_ticks"] = rep.scrub_ticks
+        res["churn_events"] = rep.churn["events"]
+        res["verified"] = True
+        return res
+
     def _run_workload(self) -> dict:
         if self.args.workload == "autotune":
             return self.autotune_workload()
@@ -1607,6 +1858,12 @@ class ErasureCodeBench:
             return self.multichip()
         if self.args.workload == "host-chaos":
             return self.host_chaos()
+        if self.args.workload == "cluster":
+            return self.cluster()
+        if self.args.workload == "scenario":
+            return self.scenario_workload()
+        if self.args.workload == "tenant-week":
+            return self.tenant_week_workload()
         return self.decode()
 
 
@@ -1640,8 +1897,7 @@ def main(argv: List[str] | None = None) -> int:
     return 0
 
 
-__all__ = ["ErasureCodeBench", "RecoveryRun", "UNPORTED_WORKLOADS",
-           "build_chain", "main"]
+__all__ = ["ErasureCodeBench", "RecoveryRun", "build_chain", "main"]
 
 
 if __name__ == "__main__":

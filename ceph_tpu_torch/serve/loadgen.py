@@ -221,36 +221,53 @@ class _CodecState:
         return pats
 
 
-def diurnal_rate(spec: TrafficSpec, t: float) -> float:
+def diurnal_rate(spec: TrafficSpec, t: float,
+                 boost=None) -> float:
     """Instantaneous open-loop arrival rate at stream offset ``t``: the
     base rate shaped by the spec's diurnal half-cosine (trough at t=0,
-    peak at half period)."""
+    peak at half period) and an optional ``boost(t)`` multiplier
+    (scenario/week.py's tenant-burst disaster stage)."""
     lam = spec.rate
     if spec.diurnal_period_s and spec.diurnal_min_frac < 1.0:
         frac = 0.5 * (1.0 - np.cos(
             2.0 * np.pi * t / spec.diurnal_period_s))
         lam *= (spec.diurnal_min_frac
                 + (1.0 - spec.diurnal_min_frac) * frac)
+    if boost is not None:
+        lam *= boost(t)
     return float(lam)
 
 
 class LoadGenerator:
-    """Deterministic request-stream factory for a TrafficSpec.  (The
-    reference's week-scale options — shared payloads, a burst-boost
-    rate multiplier — come with its scenario/week.py.)"""
+    """Deterministic request-stream factory for a TrafficSpec.
 
-    def __init__(self, spec: TrafficSpec) -> None:
+    ``share_payloads`` (week-scale streams, scenario/week.py):
+    requests reference the generator's pooled arrays instead of
+    copying them — every consumer (the batcher stacks payloads into a
+    fresh dispatch buffer; the pool pages copy on write) treats
+    payloads as read-only, so sharing is safe and turns a million-
+    request stream from gigabytes into the pool's footprint."""
+
+    def __init__(self, spec: TrafficSpec,
+                 share_payloads: bool = False) -> None:
         self.spec = spec
+        self.share_payloads = bool(share_payloads)
+        self._shared: Dict[tuple, tuple] = {}
         self.states = [
             _CodecState(c, seed=spec.seed + 7919 * i,
                         erasures=spec.erasures, pool=spec.pool)
             for i, c in enumerate(spec.codecs)]
 
-    def generate(self) -> Tuple[List[EcRequest], Optional[List[float]]]:
+    def generate(self, boost=None
+                 ) -> Tuple[List[EcRequest], Optional[List[float]]]:
         """(requests, arrival offsets).  Offsets are cumulative
         seconds from stream start for open-loop arrival, None for
         closed loop.  Request ids are 0..n-1 (stream order) so two
-        runs of one seed log identical batch compositions."""
+        runs of one seed log identical batch compositions.
+
+        ``boost``: optional ``t -> multiplier`` on the open-loop rate
+        (the tenant-burst stage).  With no boost and no diurnal shape
+        the offsets are the flat-Poisson draw."""
         spec = self.spec
         rng = np.random.default_rng(spec.seed)
         ops = sorted(spec.op_mix)
@@ -268,7 +285,10 @@ class LoadGenerator:
                                    req_id=i))
         offsets = None
         if spec.arrival == "open":
-            if spec.diurnal_period_s and spec.diurnal_min_frac < 1.0:
+            shaped = (boost is not None
+                      or (spec.diurnal_period_s
+                          and spec.diurnal_min_frac < 1.0))
+            if shaped:
                 # inhomogeneous Poisson via sequential gap scaling:
                 # gap_i = Exp(1) / rate(t_i) — deterministic from the
                 # same rng stream
@@ -276,7 +296,7 @@ class LoadGenerator:
                 offsets = []
                 t = 0.0
                 for g in unit:
-                    lam = max(diurnal_rate(spec, t), 1e-9)
+                    lam = max(diurnal_rate(spec, t, boost), 1e-9)
                     t += float(g) / lam
                     offsets.append(t)
             else:
@@ -290,17 +310,26 @@ class LoadGenerator:
         codec = st.codec
         work = st.k * st.chunk
         if op == "encode":
+            payload = (st.data[j] if self.share_payloads
+                       else st.data[j].copy())
             return EcRequest(
                 op=op, plugin=codec.plugin, profile=codec.profile,
                 stripe_size=codec.stripe_size,
-                payload=st.data[j].copy(), req_id=req_id,
+                payload=payload, req_id=req_id,
                 work_bytes=work, expect=st.parity[j],
                 tenant=self.spec.tenant)
         erased = st.patterns[pat_idx]
         available = tuple(x for x in range(st.n) if x not in erased)
-        survivors = np.ascontiguousarray(
-            st.allchunks[j, list(available), :])
-        rec_expect = st.allchunks[j, list(erased), :]
+        key = (id(st), j, erased)
+        shared = self._shared.get(key) if self.share_payloads else None
+        if shared is None:
+            survivors = np.ascontiguousarray(
+                st.allchunks[j, list(available), :])
+            rec_expect = st.allchunks[j, list(erased), :]
+            if self.share_payloads:
+                self._shared[key] = (survivors, rec_expect)
+        else:
+            survivors, rec_expect = shared
         expect = (rec_expect if op == "decode"
                   else (rec_expect, st.parity[j]))
         return EcRequest(

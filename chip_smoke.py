@@ -353,6 +353,51 @@ source, all started together) and then, in order:
      miss.
 
    The phase prints one ``{"profiler": {...}}`` line.
+11. the cluster plane and the scenarios (``cluster/``, ``scenario/``,
+   ``bench/sweep.py``), with no data plane active (checked at the start
+   and the end: a plane would change every rateless plan), the launch
+   counters read around each run:
+
+   - 11a the CLI's ``-w cluster`` at the north star's code (jerasure
+     reed_sol_van k=8 m=3, 1 MiB, batch 16) and the reference's 10k-OSD
+     acceptance shape: ``--osds 10000 --cluster-pgs 1024
+     --storm-events 12`` (``ClusterSpec.sized(10000)``: 20 racks x 25
+     hosts x 20 OSDs, 1024 replicated PGs and 128 EC PGs on the card's
+     bulk evaluator, a 12-event storm with ``max_down=8``, the storm
+     equivalence gate, the balancer to deviation 1, a rateless recovery
+     of 16 objects under a 10x straggler on shard 0): verified, the
+     balancer converged at max deviation <= 1, p99 ratio <= 2, a
+     straggler reassignment, the dense kernel launched; prints the
+     build, storm, balance and recovery seconds, the bulk evaluator's
+     blocks and their device ms (the profiler's ``crush.bulk_rule``
+     rows) and the recovery's spans (scrub, decode, verify, writeback);
+   - 11b ``ClusterSpec.sized(120, seed=7, replicated_pg_num=128,
+     ec_pg_num=32)``: a 6-event storm and the balancer on the card's
+     bulk evaluator give the host mapper's ``StormReport``,
+     ``BalanceReport`` and upmap items (the host side runs in a child,
+     ``--child cluster-host``, beside 11a);
+   - 11c ``default_scenario(seed=42, n_requests=64, damaged_objects=3,
+     storm_events=4)`` on a FakeClock with ``throughput_service_model()``
+     on the card and on the CPU, arbiter on and off: each report's JSON
+     and dispatch log equal across the two, and the arbiter's client
+     p99 and miss rate strictly better; then the CLI's ``-w scenario``
+     on the real clock (256 requests of 1 MiB, batch 8, 12 storm
+     events) and its ``--no-arbiter`` control, after the recovery code's
+     single-erasure repairs are set up once: verified,
+     ``stream_compiles`` 0; GB/s under SLO, p50, p99, the miss rate and
+     ``tail_attribution`` printed;
+   - 11d the CLI's ``-w tenant-week --iterations 2``: the gates and the
+     isolation gate hold; with ``--no-arbiter`` the row reports the gate
+     failing; ``run_tenant_week`` on the card and on the CPU give equal
+     ``dispatch_crc`` and report JSON;
+   - 11e the registry's six cluster and scenario entries audited on the
+     card: clean, the two cluster rules' declared syncs only; 59 names;
+   - 11f ``bench.sweep.main`` over jerasure k=8 m=3 at 1 MiB, batch 8,
+     on the card: every cell the profile accepts carries ``gbps``; the
+     only errors are liberation's two cells (k=8 > w=7), with the
+     reference's text.
+
+   The phase prints one ``{"cluster_scenario": {...}}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``,
 after the ``{"kernels": [...]}`` line.
@@ -2513,6 +2558,342 @@ def profiler_phase(seed: int) -> dict:
     return out
 
 
+# phase 11: the cluster plane and the scenarios.  11a is the CLI's
+# cluster row at the north star's code and the reference's 10k-OSD
+# acceptance shape (ClusterSpec.sized(10000): 1024 replicated PGs, the
+# EC pool at 1/8, a 12-event storm, the balancer to deviation 1, a
+# rateless recovery of 16 objects of 1 MiB under a 10x straggler on
+# shard 0); 11b a 120-OSD cluster on the card against the host mapper
+# (run in a child beside 11a); 11c the production day simulated (seed
+# 42, 64 requests, 3 damaged objects, a 4-event storm) and on the real
+# clock (the CLI's scenario row: 256 requests of 1 MiB); 11d the CLI's
+# tenant-week row; 11e the registry's cluster and scenario entries; 11f
+# the sweep of jerasure k=8 m=3 at 1 MiB
+CLUSTER_ARGV = RS_ARGV + ["--workload", "cluster", "--size", str(1 << 20),
+                          "--batch", "16", "--osds", "10000",
+                          "--cluster-pgs", "1024", "--storm-events", "12",
+                          "--device", "cuda", "--json"]
+CLUSTER_HOST_SPEC = dict(seed=7, replicated_pg_num=128, ec_pg_num=32)
+CLUSTER_HOST_EVENTS = 6
+SCENARIO_ARGV = RS_ARGV + ["--workload", "scenario", "--size", str(1 << 20),
+                           "--requests", "256", "--batch", "8",
+                           "--storm-events", "12", "--device", "cuda",
+                           "--json"]
+WEEK_ARGV = RS_ARGV + ["--workload", "tenant-week", "--iterations", "2",
+                       "--device", "cuda", "--json"]
+WEEK_SPEC = dict(seed=17, days=2, day_s=6.0, peak_rates=(40.0, 30.0, 20.0),
+                 burst_factor=80.0)
+SWEEP_ARGV = ["--plugin", "jerasure", "--km", "8,3", "--size",
+              str(1 << 20), "--batch", "8", "--device", "cuda"]
+# the sweep's only soft failures: the reference's text on its CPU run
+SWEEP_ERRORS = {"liberation": "ValueError: liberation: k=8 must be <= w=7"}
+PHASE11_ENTRIES = ("cluster.balancer_round", "cluster.storm_reeval",
+                   "cluster.rateless_dispatch", "scenario.runner",
+                   "scenario.qos", "scenario.week")
+
+
+def cluster_host_child() -> dict:
+    """11b's host side: the 120-OSD storm and balance on the host
+    mapper (a CPU map), as plain dicts."""
+    from ceph_tpu_torch.cluster import (ClusterSpec, balance_cluster,
+                                        build_cluster, run_churn_storm)
+    spec = ClusterSpec.sized(120, **CLUSTER_HOST_SPEC)
+    t0 = time.perf_counter()
+    m = build_cluster(spec, device="cpu")
+    storm = run_churn_storm(m, seed=3, events=CLUSTER_HOST_EVENTS,
+                            max_down=4, engine="host")
+    bal = balance_cluster(m, engine="host")
+    return {"storm": storm.to_dict(), "balance": bal.to_dict(),
+            "upmap_items": sorted([list(k), [list(p) for p in v]]
+                                  for k, v in m.pg_upmap_items.items()),
+            "seconds": time.perf_counter() - t0}
+
+
+def _launched(before: dict) -> dict:
+    from ceph_tpu_torch.ops.launches import launch_counts
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
+            if v - before.get(k, 0)}
+
+
+def cluster_scenario_phase(seed: int) -> dict:
+    """Phase 11 (the module docstring): the cluster plane and the
+    production day, the tenant week, the registry's new entries and the
+    sweep, on the card."""
+    import contextlib
+    import io
+    import torch
+    from ceph_tpu_torch import cluster as clustermod
+    from ceph_tpu_torch.analysis import audit, entrypoints
+    from ceph_tpu_torch.bench import sweep
+    from ceph_tpu_torch.bench.erasure_code_benchmark import ErasureCodeBench
+    from ceph_tpu_torch.codes.engine import fused_repair_call
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from ceph_tpu_torch.parallel.plane import data_plane
+    from ceph_tpu_torch.scenario import (default_scenario, run_scenario,
+                                         run_tenant_week,
+                                         tenant_week_scenario)
+    from ceph_tpu_torch.serve.loadgen import throughput_service_model
+    from ceph_tpu_torch.telemetry import global_tracer
+    from ceph_tpu_torch.telemetry.profiler import global_profiler
+    from ceph_tpu_torch.utils.retry import FakeClock
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out: dict = {}
+    # a plane left active by an earlier phase would change every rateless
+    # plan (shard_count) and shard the CRUSH sweeps
+    check(data_plane() is None, "phase 11 starts with no plane active")
+    host_side = _child("cluster-host")
+
+    # -- 11a: the cluster row at 10k OSDs ---------------------------------
+    builds: list = []
+    real_build = clustermod.build_cluster
+
+    def timed_build(spec, device=None):
+        t0 = time.perf_counter()
+        m = real_build(spec, device=device)
+        builds.append(time.perf_counter() - t0)
+        return m
+    global_tracer().reset()
+    global_profiler().reset()
+    bench = ErasureCodeBench()
+    bench.setup(CLUSTER_ARGV + ["--seed", str(seed)])
+    reset_launch_counts()
+    clustermod.build_cluster = timed_build
+    t0 = time.perf_counter()
+    try:
+        res = bench.run()
+    finally:
+        clustermod.build_cluster = real_build
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launched({})
+    spans = span_seconds(global_tracer().to_dict()["spans"])
+    bulk = [r for r in global_profiler().attribution_rows()
+            if r["name"] == "crush.bulk_rule"]
+    bulk_s = sum(p["total_s"] for p in global_profiler().top_programs(64)
+                 if "crush.bulk_rule" in p["series"])
+    check(res["platform"] == "gpu" and res["engine"] == "bulk",
+          "11a ran the bulk evaluator on the card")
+    check(res["osds"] >= 10000 and res["total_pgs"] == 1024 + 128,
+          f"11a shape {res['osds']} OSDs, {res['total_pgs']} PGs")
+    check(res["verified"] is True, "11a verified")
+    check(res["balancer_converged"] and res["balancer_max_dev_final"] <= 1,
+          f"11a balancer {res['balancer_converged']} "
+          f"{res['balancer_max_dev_final']}")
+    check(res["p99_ratio"] is not None and res["p99_ratio"] <= 2,
+          f"11a p99 ratio {res['p99_ratio']}")
+    check(res["straggler_reassignments"] > 0,
+          f"11a reassignments {res['straggler_reassignments']}")
+    check(launched.get("apply_matrix_cuda", 0) >= 1,
+          f"11a: the dense kernel launched ({launched})")
+    check(bulk and sum(r["calls"] for r in bulk) > 0,
+          "11a: the bulk evaluator's blocks were timed")
+    top = {k: v for k, v in spans.items()
+           if k.startswith("cluster.") and (
+               k.count("/") <= 1
+               or k.endswith(("/scrub", "/verify", "/decode",
+                              "/writeback")))}
+    print(f"phase 11: 11a -w cluster: {res['osds']} OSDs, "
+          f"{res['total_pgs']} PGs; build {builds[0]:.3f} s (the "
+          f"equivalence gate's two rebuilds {sum(builds[1:]):.3f} s); "
+          f"storm {spans.get('cluster.storm', 0):.3f} s "
+          f"({res['storm_events']} epochs, {res['remapped_total']} PGs "
+          f"remapped, quiescent after {res['remap_convergence_epochs']}), "
+          f"balance {spans.get('cluster.balance', 0):.3f} s "
+          f"({res['balancer_iterations']} rounds, {res['balancer_moves']} "
+          f"moves, max deviation {res['balancer_max_dev_final']}), "
+          f"recovery {spans.get('cluster.rateless', 0):.3f} s (p99 ratio "
+          f"{res['p99_ratio']}, {res['straggler_reassignments']} "
+          f"reassignments); the row {res['seconds']:.3f} s, {wall:.1f} s "
+          f"with the build")
+    print(f"phase 11: 11a bulk evaluations: "
+          + "; ".join(f"{r['pattern']} ({r['batch']} lanes a block): "
+                      f"{r['calls']} blocks, p50 {r['p50_ms']} ms, p99 "
+                      f"{r['p99_ms']} ms" for r in bulk)
+          + f"; {bulk_s * 1e3:.3f} ms of blocks in all (CUDA events)")
+    print("phase 11: 11a spans s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(top.items())))
+    print(f"phase 11: 11a launches {launched}")
+    out["11a"] = {"row": res, "build_s": builds, "spans": top,
+                  "bulk_rows": bulk, "bulk_ms": bulk_s * 1e3,
+                  "launches": launched, "wall_s": wall}
+
+    # -- 11b: a 120-OSD cluster, the card against the host mapper --------
+    reset_launch_counts()
+    spec = clustermod.ClusterSpec.sized(120, **CLUSTER_HOST_SPEC)
+    m = real_build(spec, device="cuda")
+    storm = clustermod.run_churn_storm(m, seed=3, events=CLUSTER_HOST_EVENTS,
+                                       max_down=4, engine="bulk")
+    bal = clustermod.balance_cluster(m, engine="bulk")
+    host = _child_result(host_side, "phase 11: 11b host-mapper child")
+    for name, card_d, host_d in (("storm", storm.to_dict(), host["storm"]),
+                                 ("balance", bal.to_dict(),
+                                  host["balance"])):
+        card_d = dict(card_d, engine="host")
+        check(card_d == host_d, f"11b {name}: the card's report equals "
+              f"the host mapper's")
+    items = sorted([list(k), [list(p) for p in v]]
+                   for k, v in m.pg_upmap_items.items())
+    check(items == host["upmap_items"], "11b: the same upmap items")
+    print(f"phase 11: 11b 120 OSDs: storm {storm.events}+"
+          f"{storm.drain_events} epochs, {storm.total_remapped} PGs "
+          f"remapped; balance {bal.iterations} rounds, {bal.moves} moves; "
+          f"the card's reports and {len(items)} upmap items equal the host "
+          f"mapper's ({host['seconds']:.1f} s in the child)")
+    out["11b"] = {"storm": storm.to_dict(), "balance": bal.to_dict(),
+                  "host_s": host["seconds"]}
+
+    # -- 11c: the production day, simulated and on the real clock --------
+    sim = {}
+    reset_launch_counts()
+    for arb in (None, False):
+        for where in ("cuda", "cpu"):
+            spec = default_scenario(seed=42, n_requests=64,
+                                    damaged_objects=3, storm_events=4)
+            run = run_scenario(spec, clock=FakeClock(), device=where,
+                               service_model=throughput_service_model(),
+                               enable_arbiter=arb)
+            sim[(arb, where)] = run
+    sim_launches = _launched({})
+    for arb in (None, False):
+        card, cpu = sim[(arb, "cuda")], sim[(arb, "cpu")]
+        check(card.report.to_json() == cpu.report.to_json(),
+              f"11c simulated (arbiter {arb}): the card's report equals "
+              f"the CPU's")
+        check(card.serving.batcher.dispatch_log
+              == cpu.serving.batcher.dispatch_log,
+              f"11c simulated (arbiter {arb}): the same dispatch log")
+        check(card.report.ok(), f"11c simulated gates {card.report.gates}")
+    on, off = sim[(None, "cuda")].report, sim[(False, "cuda")].report
+    check(on.p99_ms < off.p99_ms
+          and on.deadline_miss_rate < off.deadline_miss_rate,
+          f"11c simulated: arbiter on p99 {on.p99_ms} / miss "
+          f"{on.deadline_miss_rate} against off {off.p99_ms} / "
+          f"{off.deadline_miss_rate}")
+    print(f"phase 11: 11c simulated day on the card = on the CPU: "
+          f"arbiter on p99 {on.p99_ms} ms, miss {on.deadline_miss_rate}; "
+          f"off p99 {off.p99_ms} ms, miss {off.deadline_miss_rate}; "
+          f"launches {sim_launches}")
+    # the recovery's fused repairs: every single-erasure program of the
+    # recovery code set up before the real-clock rows (the serving
+    # warmup covers the client stream only), so stream_compiles reads
+    # the stream's own setups
+    rec_ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"},
+        device=dev)
+    n = rec_ec.get_chunk_count()
+    for lost in range(n):
+        avail = tuple(s for s in range(n) if s != lost)
+        fused_repair_call(rec_ec, avail, (lost,))(torch.zeros(
+            (1, len(avail), 4096), dtype=torch.uint8, device=dev))
+    rows = {}
+    for label, extra in (("arbiter", []), ("no-arbiter", ["--no-arbiter"])):
+        bench = ErasureCodeBench()
+        bench.setup(SCENARIO_ARGV + extra + ["--seed", str(seed)])
+        before = launch_counts()
+        t0 = time.perf_counter()
+        r = bench.run()
+        torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["launches"] = _launched(before)
+        check(r["verified"] is True and r["platform"] == "gpu",
+              f"11c {label}: verified on the card")
+        check(r["stream_compiles"] == 0,
+              f"11c {label}: stream_compiles {r['stream_compiles']}")
+        check(r["launches"], f"11c {label}: kernels launched")
+        print(f"phase 11: 11c -w scenario ({label}): "
+              f"{r['gbps_under_slo']} GB/s under SLO, p50 "
+              f"{r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms, miss rate "
+              f"{r['deadline_miss_rate']}, {r['recovery_rounds']} recovery "
+              f"rounds, {r['churn_events']} churn events, stream_compiles "
+              f"{r['stream_compiles']}, {r['seconds']:.3f} s of stream "
+              f"({r['wall_s']:.1f} s with set-up); tail_attribution "
+              f"{json.dumps(r['tail_attribution'], sort_keys=True)}; "
+              f"launches {r['launches']}")
+        rows[label] = r
+    out["11c"] = {"sim_on": on.to_dict(), "sim_off": off.to_dict(),
+                  "sim_launches": sim_launches, "rows": rows}
+
+    # -- 11d: the tenant week ---------------------------------------------
+    weeks = {}
+    for label, extra in (("arbiter", []), ("no-arbiter", ["--no-arbiter"])):
+        bench = ErasureCodeBench()
+        bench.setup(WEEK_ARGV + extra + ["--seed", str(seed)])
+        before = launch_counts()
+        t0 = time.perf_counter()
+        r = bench.run()
+        r["wall_s"] = time.perf_counter() - t0
+        r["launches"] = _launched(before)
+        check(r["verified"] is True and r["disasters_healed"],
+              f"11d {label}: gates")
+        weeks[label] = r
+        print(f"phase 11: 11d -w tenant-week ({label}): isolation_ok "
+              f"{r['isolation_ok']}, victims' GB/s under SLO "
+              f"{r['victim_gbps_under_slo']}, p99 {r['lat_p99_ms']} ms, "
+              f"dispatch_crc {r['dispatch_crc']}, {r['dispatched']} "
+              f"dispatches of {r['requests_offered']} requests, "
+              f"{r['wall_s']:.1f} s; launches {r['launches']}")
+    check(weeks["arbiter"]["isolation_ok"], "11d: the isolation gate holds")
+    check(not weeks["no-arbiter"]["isolation_ok"],
+          "11d: the control arm fails the isolation gate")
+    wk = {}
+    for where in ("cuda", "cpu"):
+        wk[where] = run_tenant_week(tenant_week_scenario(**WEEK_SPEC),
+                                    device=where).report
+    check(wk["cuda"].gates["dispatch_crc"] == wk["cpu"].gates["dispatch_crc"]
+          and wk["cuda"].to_json() == wk["cpu"].to_json(),
+          "11d: the week on the card equals the week on the CPU")
+    out["11d"] = {"rows": weeks,
+                  "dispatch_crc": wk["cuda"].gates["dispatch_crc"]}
+
+    # -- 11e: the registry's cluster and scenario entries ----------------
+    names = entrypoints.registry_names()
+    check(len(names) == 59, f"11e: {len(names)} registry entries")
+    byname = {e.name: e for e in entrypoints.registry()}
+    audits = [audit.audit_entry(byname[n], device=dev)
+              for n in PHASE11_ENTRIES]
+    for a in audits:
+        print(f"phase 11: 11e {a.name} ({a.kind}): setups {a.cold_setups} "
+              f"cold / {a.warm_setups} warm, sync {a.sync}, tiers "
+              f"{'/'.join(a.tiers) or '-'}: "
+              + ("ok" if a.ok else "; ".join(a.findings)))
+    check(all(a.ok for a in audits), "11e: the new entries are clean")
+    declared = sorted(a.name for a in audits if a.sync == "declared")
+    check(declared == ["cluster.balancer_round", "cluster.storm_reeval"],
+          f"11e declared syncs {declared}")
+    out["11e"] = {"entries": len(names), "declared": declared}
+
+    # -- 11f: the sweep ---------------------------------------------------
+    buf = io.StringIO()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = sweep.main(SWEEP_ARGV)
+    sweep_s = time.perf_counter() - t0
+    cells = [json.loads(line) for line in buf.getvalue().splitlines()]
+    check(rc == 0 and len(cells) == 8, f"11f: {len(cells)} cells")
+    for c in cells:
+        tech = c.get("technique")
+        if "error" in c:
+            check(c["error"] == SWEEP_ERRORS.get(tech),
+                  f"11f {tech} {c['workload']}: {c['error']}")
+        else:
+            check(c.get("gbps") is not None, f"11f {tech}: gbps")
+        print(f"phase 11: 11f {json.dumps(c)}")
+    check(sum("error" in c for c in cells) == 2,
+          "11f: only liberation's two cells soft-fail")
+    sweep_launches = _launched(before)
+    print(f"phase 11: 11f sweep {sweep_s:.1f} s; launches {sweep_launches}")
+    out["11f"] = {"cells": cells, "seconds": sweep_s,
+                  "launches": sweep_launches}
+    check(data_plane() is None, "phase 11 leaves no plane active")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def tune_table_child() -> dict:
     """10d's child: the CLI's r6 encode row under ``--tune-table``, the
     routed kernel and its device time, the bytes against the default
@@ -2587,9 +2968,9 @@ def build_cache_child() -> dict:
 
 
 def child_main(kind: str) -> int:
-    """The child processes of phases 8, 9 and 10: ``oom`` (8c),
-    ``lockcheck`` (8f), ``plane-lockcheck`` (9g), ``tune-table`` (10d)
-    and ``build-cache`` (10e); each prints one JSON line."""
+    """The child processes of phases 8-11: ``oom`` (8c), ``lockcheck``
+    (8f), ``plane-lockcheck`` (9g), ``tune-table`` (10d), ``build-cache``
+    (10e) and ``cluster-host`` (11b); each prints one JSON line."""
     import gc
     import torch
     if kind == "build-cache":
@@ -2597,6 +2978,9 @@ def child_main(kind: str) -> int:
         return 0
     if kind == "tune-table":
         print(json.dumps(tune_table_child()))
+        return 0
+    if kind == "cluster-host":
+        print(json.dumps(cluster_host_child()))
         return 0
     from ceph_tpu_torch.codes.engine import fused_repair_call
     from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
@@ -2705,7 +3089,7 @@ def main(argv=None) -> int:
                     help="seed of the random data (default 0)")
     ap.add_argument("--child", choices=("oom", "lockcheck",
                                         "plane-lockcheck", "tune-table",
-                                        "build-cache"),
+                                        "build-cache", "cluster-host"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     seed = args.seed
@@ -4471,6 +4855,8 @@ def main(argv=None) -> int:
     print(json.dumps({"data_plane": data_plane_phase(seed)}))
     # -- phase 10: the profiler, the tuning table, the registry audit -----
     print(json.dumps({"profiler": profiler_phase(seed)}))
+    # -- phase 11: the cluster plane and the scenarios -------------------
+    print(json.dumps({"cluster_scenario": cluster_scenario_phase(seed)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -116,22 +116,66 @@ def test_device_cuda_is_the_default_and_needs_a_card():
         bench.run()
 
 
-@pytest.mark.parametrize("workload", sorted(port_bench.UNPORTED_WORKLOADS))
-def test_unported_workloads_exit_with_their_item(capsys, workload):
-    """Every workload whose module is not ported is a CLI error naming
-    its ROADMAP item: it never runs in silence or reports a number."""
-    with pytest.raises(SystemExit) as exc:
-        port_bench.main(["--workload", workload, "--device", "host"])
-    assert exc.value.code == 2
-    err = capsys.readouterr()
-    assert err.out == ""
-    assert (f"--workload {workload} is not ported yet (ROADMAP Queue A "
-            f"{port_bench.UNPORTED_WORKLOADS[workload]})") in err.err
+# the cluster, scenario and tenant-week rows at small sizes
+_CLUSTER_ARGS = {
+    "cluster": ["--osds", "60", "--cluster-pgs", "64", "--storm-events",
+                "3", "--size", "4096", "--batch", "4"],
+    "scenario": ["--requests", "32", "--size", "4096", "--batch", "2",
+                 "--storm-events", "2"],
+    "tenant-week": ["--iterations", "2"],
+}
+_REF_ROWS: dict = {}
+
+
+def _ref_host_row(workload):
+    """The reference's ``--device host`` row (run once per workload)."""
+    if workload not in _REF_ROWS:
+        _REF_ROWS[workload] = _run(ref_bench, RS + _CLUSTER_ARGS[workload]
+                                   + ["-w", workload, "--device", "host"])
+    return _REF_ROWS[workload]
+
+
+@pytest.mark.parametrize("workload,device", [
+    ("cluster", "host"), ("cluster", "cpu"),
+    ("scenario", "host"), ("scenario", "cpu"),
+    ("tenant-week", "host"), ("tenant-week", "cpu"),
+])
+def test_cluster_scenario_week_rows_match_the_reference(capsys, workload,
+                                                        device):
+    """-w cluster|scenario|tenant-week run on the host and on CPU
+    tensors: a verified JSON row whose fields are the reference's row's;
+    the deterministic numbers (the storm, the balancer, the rateless
+    schedule, the simulated week) equal the reference's."""
+    assert port_bench.main(RS + _CLUSTER_ARGS[workload]
+                           + ["-w", workload, "--device", device,
+                              "--json"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref = _ref_host_row(workload)
+    assert row["workload"] == workload and row["verified"] is True
+    assert set(row) == set(ref)
+    same = {
+        "cluster": ("osds", "total_pgs", "storm_events",
+                    "remap_convergence_epochs", "remapped_total",
+                    "balancer_iterations", "balancer_moves",
+                    "balancer_converged", "balancer_max_dev_final",
+                    "n_shards", "p99_ratio", "straggler_reassignments"),
+        # the real clock paces the scenario's churn: only its
+        # simulated rateless schedule is deterministic
+        "scenario": ("rateless_p99_ratio", "straggler_reassignments"),
+        "tenant-week": ("dispatch_crc", "dispatched", "requests_offered",
+                        "tenants", "isolation_ok", "isolation_victims",
+                        "disasters", "lat_p99_ms", "deadline_miss_rate"),
+    }[workload]
+    if workload == "cluster" and device == "cpu":
+        # the bulk row measures every epoch, the host row every second
+        same = tuple(k for k in same if not k.startswith("remap"))
+    assert {k: row[k] for k in same} == {k: ref[k] for k in same}
+    if workload == "cluster":
+        assert row["engine"] == ("host" if device == "host" else "bulk")
 
 
 def test_workload_choices_match_the_reference():
-    """--help matches: the same workload choices, the unported ones
-    among them, and the same flags."""
+    """--help matches: the same workload choices and the same flags."""
     import argparse
 
     def flags(module):
@@ -156,21 +200,13 @@ def test_workload_choices_match_the_reference():
     assert port_flags == ref_flags
     assert port_choices["workload"] == ref_choices["workload"]
     assert port_choices["device"] == ["host", "cuda", "cpu"]
-    assert set(port_bench.UNPORTED_WORKLOADS) == (
-        set(ref_choices["workload"]) - {"encode", "decode", "serving",
-                                        "degraded", "repair-batched",
-                                        "recovery-churn", "device-chaos",
-                                        "multichip", "host-chaos",
-                                        "profile", "autotune"})
-    assert set(port_bench.UNPORTED_WORKLOADS) == {"cluster", "scenario",
-                                                  "tenant-week"}
+    assert not hasattr(port_bench, "UNPORTED_WORKLOADS")
 
 
 def test_device_chaos_names_the_supervisor(capsys):
     """device-chaos runs on the supervisor: the CLI prints its line, and
     the row names the supervisor's counter deltas (the reference's, and
     the card's failures)."""
-    assert "device-chaos" not in port_bench.UNPORTED_WORKLOADS
     assert port_bench.main(RS + ["--workload", "device-chaos", "--device",
                                  "host", "--size", "4096", "--batch", "2",
                                  "--json"]) == 0

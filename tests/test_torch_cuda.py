@@ -12,7 +12,10 @@ osdmaptool CLIs on the card against their CPU runs; and the supervised
 dispatch plane (clean launches equal to the unsupervised call's, the
 device-chaos row, a lost card raising and the kernel launching after)
 and the data plane over 4 virtual members of the card (the mesh tier,
-a member quarantine that stays on the card, a width-1 loss raising).
+a member quarantine that stays on the card, a width-1 loss raising);
+and the cluster plane and the scenarios on the card against their CPU
+runs (a churn storm and the balancer on the bulk evaluator against the
+host mapper, the simulated production day and tenant week).
 Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
@@ -1399,7 +1402,8 @@ def test_registry_audit_on_the_card(cuda_device, monkeypatch):
     got = audit_registry(device=cuda_device)
     assert [a.name for a in got if not a.ok] == []
     assert {a.name for a in got if a.sync == "declared"} == {
-        "crush.bulk_rule", "crush.bulk_rule_sharded"}
+        "crush.bulk_rule", "crush.bulk_rule_sharded",
+        "cluster.balancer_round", "cluster.storm_reeval"}
 
 
 def test_timed_sweep_on_the_card_pins_the_r6_encode(cuda_device):
@@ -1425,3 +1429,77 @@ def test_timed_sweep_on_the_card_pins_the_r6_encode(cuda_device):
     assert torch.equal(got, want)
     pinned = row["key"] in rep.table.entries
     assert eng == row["after" if pinned else "before"]["engine"]
+
+
+# -- the cluster plane and the scenarios on the card -----------------------
+
+def test_cluster_storm_and_balance_on_the_card_equal_the_host_mapper(
+        cuda_device):
+    """A churn storm and the balancer on the card's bulk evaluator give
+    the host mapper's reports and upmap items, and the storm
+    equivalence gate holds on the card."""
+    from ceph_tpu_torch.chaos import MapChurn
+    from ceph_tpu_torch.cluster import (ClusterSpec, balance_cluster,
+                                        build_cluster, run_churn_storm,
+                                        verify_storm_equivalence)
+    spec = ClusterSpec.sized(60, seed=7, replicated_pg_num=64,
+                             ec_pg_num=16)
+    card = build_cluster(spec, device=cuda_device)
+    host = build_cluster(spec, device="cpu")
+    churn = MapChurn(seed=3, max_down=4, fire_every=1, max_events=4)
+    s_card = run_churn_storm(card, seed=3, churn=churn, events=4,
+                             engine="bulk")
+    s_host = run_churn_storm(host, seed=3, events=4, max_down=4,
+                             engine="host")
+    want = s_host.to_dict()
+    want["engine"] = "bulk"
+    assert s_card.to_dict() == want
+    verify_storm_equivalence(card, churn,
+                             lambda: build_cluster(spec, device="cuda"),
+                             engine="bulk", scalar_samples=4)
+    b_card = balance_cluster(card, engine="bulk")
+    b_host = balance_cluster(host, engine="host")
+    want = b_host.to_dict()
+    want["engine"] = "bulk"
+    assert b_card.to_dict() == want
+    assert card.pg_upmap_items == host.pg_upmap_items
+
+
+def test_scenario_on_the_card_equals_its_cpu_run(cuda_device):
+    """The simulated production day on the card: the report JSON and
+    the dispatch log equal the same run on CPU tensors, the gates hold,
+    and the kernels launched."""
+    from ceph_tpu_torch.ops.launches import (launch_counts,
+                                             reset_launch_counts)
+    from ceph_tpu_torch.parallel.plane import set_data_plane
+    from ceph_tpu_torch.scenario import default_scenario, run_scenario
+    from ceph_tpu_torch.serve.loadgen import throughput_service_model
+    from ceph_tpu_torch.utils.retry import FakeClock
+    spec = default_scenario(seed=42, n_requests=32, damaged_objects=2,
+                            storm_events=2)
+    prev = set_data_plane(None)
+    reset_launch_counts()
+    try:
+        runs = {dev: run_scenario(spec, clock=FakeClock(), device=dev,
+                                  service_model=throughput_service_model())
+                for dev in ("cpu", "cuda")}
+    finally:
+        set_data_plane(prev)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.report.to_json() == cpu.report.to_json()
+    assert card.serving.batcher.dispatch_log == \
+        cpu.serving.batcher.dispatch_log
+    assert card.report.ok() and card.report.slo["stream_compiles"] == 0
+    assert sum(launch_counts().values()) > 0
+
+
+def test_tenant_week_on_the_card_equals_its_cpu_run(cuda_device):
+    from ceph_tpu_torch.scenario import run_tenant_week, tenant_week_scenario
+    spec = tenant_week_scenario(seed=17, days=2, day_s=6.0,
+                                peak_rates=(40.0, 30.0, 20.0),
+                                burst_factor=80.0)
+    card = run_tenant_week(spec, device=cuda_device).report
+    cpu = run_tenant_week(spec, device="cpu").report
+    assert card.gates["dispatch_crc"] == cpu.gates["dispatch_crc"]
+    assert card.to_json() == cpu.to_json()
+    assert card.gates["converged"] and card.gates["healed"]

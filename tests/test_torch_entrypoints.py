@@ -2,10 +2,8 @@
 (``ceph_tpu_torch.analysis.{entrypoints,audit}``) against the
 reference's registry (``ceph_tpu.analysis.entrypoints``), on the CPU.
 
-- the names are the reference's minus the ``cluster.*`` / ``scenario.*``
-  entries (``PENDING``: their modules come with the cluster and scenario
-  slice), in the reference's order; the families, the representative
-  profiles and the surface names are the reference's;
+- the names are the reference's, in its order; the families, the
+  representative profiles and the surface names are the reference's;
 - ``registry_gaps()`` is empty;
 - every entry audits clean on CPU tensors (warm setups 0, the torch
   tier's bytes equal the numpy ground truth's), and each device entry's
@@ -41,11 +39,10 @@ def virtual_members(monkeypatch):
 
 
 def test_names_are_the_reference_minus_pending():
+    # no entry is pending any more: the names are the reference's
     ref = ref_ep.registry_names()
-    assert port_ep.registry_names() == [
-        n for n in ref if not n.startswith(("cluster.", "scenario."))]
-    assert sorted(port_ep.PENDING) == sorted(
-        n for n in ref if n.startswith(("cluster.", "scenario.")))
+    assert port_ep.registry_names() == ref
+    assert not hasattr(port_ep, "PENDING")
     assert port_ep.FAMILIES == ref_ep.FAMILIES
     assert port_ep.REPRESENTATIVE_PROFILES == ref_ep.REPRESENTATIVE_PROFILES
     assert [port_ep.SURFACE_NAMES[s] for s in port_ep.PLUGIN_SURFACES] == \
@@ -56,6 +53,23 @@ def test_names_are_the_reference_minus_pending():
         r = REF[name]
         assert e.family == r.family
         assert e.kind == ("device" if r.kind == "jit" else "host"), name
+
+
+def test_registry_names_equal_the_reference():
+    """The cluster and scenario entries are in: 59 names, the
+    reference's, each with the reference's family and kind."""
+    names = port_ep.registry_names()
+    assert names == ref_ep.registry_names() and len(names) == 59
+    for name in ("cluster.balancer_round", "cluster.storm_reeval",
+                 "cluster.rateless_dispatch"):
+        assert PORT[name].kind == "device" and REF[name].kind == "jit"
+    for name in ("scenario.runner", "scenario.qos", "scenario.week"):
+        assert PORT[name].kind == "host" == REF[name].kind
+    # the bulk evaluator's entries declare the rung ladder's host syncs
+    assert PORT["cluster.balancer_round"].sync_ok == \
+        PORT["crush.bulk_rule"].sync_ok != ""
+    assert PORT["cluster.storm_reeval"].sync_ok == \
+        PORT["crush.bulk_rule"].sync_ok
 
 
 def test_registry_has_no_gaps():
@@ -115,6 +129,17 @@ def _ref_fn(name: str, built):
         b.add_rule(0, [step_take(root), step_chooseleaf_indep(0, 1),
                        step_emit()])
         return lambda xs: rbulk.bulk_do_rule(b.map, 0, xs, 3)
+    if name in ("cluster.balancer_round", "cluster.storm_reeval"):
+        # the reference's jitted rule takes its own weight vector: its
+        # mapper-equal bulk evaluator over the reference's cluster map
+        from ceph_tpu.cluster.topology import EC_POOL, REPLICATED_POOL
+        from ceph_tpu.crush import bulk as rbulk
+        m = ref_ep._cluster_map()
+        pool = m.pools[REPLICATED_POOL if name.endswith("round")
+                       else EC_POOL]
+        return lambda xs: rbulk.bulk_do_rule(
+            m.crush, pool.crush_rule, xs, pool.size,
+            weight=list(m.osd_weight))
     return REF[name].build().fn
 
 

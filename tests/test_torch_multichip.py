@@ -435,7 +435,6 @@ def test_sharded_vs_scalar_crush_bulk_equivalence(plane):
 @pytest.mark.parametrize("device", ["cpu", "host"])
 def test_bench_multichip_row(device, capsys):
     from ceph_tpu_torch.bench import erasure_code_benchmark as bench
-    assert "multichip" not in bench.UNPORTED_WORKLOADS
     assert bench.main(["-p", "jerasure", "-P", "technique=reed_sol_van",
                        "-P", "k=4", "-P", "m=2", "-s", "65536",
                        "--batch", "12", "--workload", "multichip",
