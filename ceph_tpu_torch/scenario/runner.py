@@ -54,7 +54,8 @@ def run_serving_scenario(spec, clock=None, executor: str = "device",
                          requests=None, offsets=None, *, device=None,
                          sla=None,
                          interleave: Optional[Callable[[], None]] = None,
-                         on_result: Optional[Callable] = None):
+                         on_result: Optional[Callable] = None,
+                         on_stall: Optional[Callable[[], bool]] = None):
     """Drive ``spec``'s stream through queue → batcher → SLO ledger.
 
     ``executor="device"`` runs the batcher's instances on ``device``
@@ -73,12 +74,20 @@ def run_serving_scenario(spec, clock=None, executor: str = "device",
     every EcResult as it lands (the arbiter's SLO feedback tap).
     ``sla`` injects a pre-built SlaRecorder (the scenario keeps the
     burn-rate monitor's trip ledger for its report).
+
+    On the card a fire whose dispatch raises ``DeviceDispatchError``
+    keeps its requests and holds its bucket (the batcher's
+    ``release_holds``): the card's work never leaves the card.  When
+    only held work is left, ``on_stall()`` is asked whether the backend
+    is back; True releases the holds and the loop goes on.  Work still
+    held at the end raises ``DeviceDispatchError``.
     """
     from ..serve.batcher import ContinuousBatcher
     from ..serve.loadgen import LoadGenerator, ServingRun
     from ..serve.queue import AdmissionQueue
     from ..serve.sla import SlaRecorder, SloPolicy
     from ..utils.detcheck import default_clock
+    from ..utils.errors import DeviceDispatchError
     from ..utils.retry import SystemClock
 
     if clock is None:
@@ -124,6 +133,13 @@ def run_serving_scenario(spec, clock=None, executor: str = "device",
                 on_result(res)
         results.extend(batch)
 
+    def _released() -> bool:
+        """Only held work left: release it if the backend is back."""
+        if batcher.held() and on_stall is not None and on_stall():
+            batcher.release_holds()
+            return True
+        return False
+
     if spec.arrival == "open":
         arrivals = [start + off for off in offsets]
         i = 0
@@ -149,6 +165,8 @@ def run_serving_scenario(spec, clock=None, executor: str = "device",
             if wake is not None:
                 nxt.append(wake)
             if not nxt:
+                if _released():
+                    continue
                 _absorb(batcher.flush())
                 break
             now = clock.monotonic()
@@ -171,9 +189,16 @@ def run_serving_scenario(spec, clock=None, executor: str = "device",
                 continue
             wake = batcher.next_wakeup()
             if wake is None:
+                if _released():
+                    continue
                 _absorb(batcher.flush())
                 break
             clock.sleep(max(wake - clock.monotonic(), _TICK))
+    if batcher.held():
+        raise DeviceDispatchError(
+            "serve.batch", "held",
+            f"{batcher.held()} request(s) held by failed fires on the "
+            f"card when the stream ended")
     elapsed = clock.monotonic() - start
     report = sla.report(elapsed, padding=batcher.padding_stats())
     report["admitted"] = queue.admitted
@@ -382,8 +407,12 @@ def run_scenario(spec, *, clock=None, executor: str = "device",
     ``device="cpu"`` (``NoDeviceError`` without a card).  On the card
     the supervisor never demotes: a recovery round its fault raises
     ``DeviceDispatchError`` on is re-queued, as the bench's
-    device-chaos pass is.  ``executor="host"`` is the host arm: CPU
-    instances pinned to the numpy region ops and a host recovery.
+    device-chaos pass is, and a client fire it raises on is held with
+    its requests; once only held client work is left, the faulted
+    backend (or the lost host) comes back — its plan clears, as it
+    does when the stream drains — and the held fires run.
+    ``executor="host"`` is the host arm: CPU instances pinned to the
+    numpy region ops and a host recovery.
     """
     import torch
 
@@ -413,7 +442,6 @@ def run_scenario(spec, *, clock=None, executor: str = "device",
         raise ValueError(f"executor {executor!r} must be device|host")
     dev = (torch.device("cpu") if executor == "host"
            else resolve_device(device))
-    on_card = dev.type == "cuda"
     sim = service_model is not None
     chaos = spec.chaos
     t_start = clock.monotonic()
@@ -574,10 +602,9 @@ def run_scenario(spec, *, clock=None, executor: str = "device",
         try:
             nops = orch.run_round()
         except DeviceDispatchError:
-            if not on_card:
-                raise
-            # the card's work never leaves it: the round's ops stay
-            # planned and the next admitted round re-queues them
+            # raised for a card dispatch only: the card's work never
+            # leaves it, so the round's ops stay planned and the next
+            # admitted round re-queues them
             nops = 0
         state["recovery_rounds"] += 1
         tel.counter("scenario_recovery_rounds")
@@ -621,6 +648,15 @@ def run_scenario(spec, *, clock=None, executor: str = "device",
             _charge("scrub", t0, tick=state["scrub_ticks"],
                     object=i)
 
+    def backend_back() -> bool:
+        """On the card, a client fire that failed is held; once only
+        held work is left, the faulted backend (or lost host) comes
+        back, as it does when the stream drains."""
+        plans = [p for p in (dplan, hplan) if p is not None]
+        for plan in plans:
+            plan.clear()
+        return bool(plans)
+
     # -- the client stream (with background interleaved) -----------------
     from ..serve.sla import SlaRecorder, SloPolicy
     sla = SlaRecorder(SloPolicy(deadlines=dict(spec.traffic.deadlines)))
@@ -628,7 +664,8 @@ def run_scenario(spec, *, clock=None, executor: str = "device",
         serving = run_serving_scenario(
             spec.traffic, clock=clock, executor=executor,
             service_model=service_model, device=dev, sla=sla,
-            interleave=interleave, on_result=on_result)
+            interleave=interleave, on_result=on_result,
+            on_stall=backend_back)
 
         # -- post-stream: drain the storm, heal the device plane,
         # recovery to convergence -------------------------------------

@@ -54,6 +54,7 @@ from ..telemetry import metrics as tel
 from ..telemetry import span
 from ..telemetry import tracing
 from ..utils.detcheck import default_clock
+from ..utils.errors import DeviceDispatchError
 from ..utils.log import dout
 from .pool import (PagedStripePool, PoolExhausted, effective_page_size,
                    tuned_pool_config)
@@ -85,6 +86,24 @@ def tuned_ladder(default: Tuple[int, ...] = LADDER) -> Tuple[int, ...]:
 
 # EWMA smoothing for the per-bucket service-time estimate
 _EWMA_ALPHA = 0.3
+
+# service-time jitter seam (replay_bisect's self-test): when set, each
+# measured service time passes through this hook BEFORE the EWMA
+# update, so the perturbation propagates into slack deadlines and
+# changes downstream batch composition.  Signature:
+# (service_s, dispatch_index) -> service_s.  Never set in production;
+# ``ceph_tpu_torch.tools.replay_bisect`` installs a deterministic
+# jitter on one run only and names the first divergent checkpoint.
+_SERVICE_JITTER: Optional[Callable[[float, int], float]] = None
+
+
+def set_service_jitter(
+        fn: Optional[Callable[[float, int], float]]) -> None:
+    """Install (or clear, with ``None``) the service-time jitter
+    hook.  Test/bisect seam — see ``_SERVICE_JITTER`` above."""
+    global _SERVICE_JITTER
+    _SERVICE_JITTER = fn
+
 
 # floor on the service estimate (seconds): a fresh bucket with no
 # dispatch history must still fire BEFORE its deadline by enough to
@@ -247,6 +266,12 @@ class ContinuousBatcher:
         self.paged_tail_bytes = 0
         self.paged_data_bytes = 0
         self.warmup_dispatches = 0
+        # the card's work never leaves the card: a fire whose supervised
+        # dispatch raised DeviceDispatchError keeps its requests, in
+        # order, and its unit is held (never due) until release_holds()
+        # — the caller's word that the backend is back
+        self._held: set = set()
+        self.card_failures = 0
 
     # -- plugin instance + bucket resolution ----------------------------
 
@@ -390,7 +415,7 @@ class ContinuousBatcher:
         return 2.0 * self.est_service(key) + self.min_slack
 
     def _due(self, b, now: float) -> bool:
-        if not b.requests:
+        if not b.requests or b.key in self._held:
             return False
         return b.oldest_deadline - now - self._margin(b.key) <= 0.0
 
@@ -403,8 +428,33 @@ class ContinuousBatcher:
 
     def _fire_unit(self, b) -> List[EcResult]:
         if isinstance(b, _RaggedQueue):
-            return self._fire_ragged(b)
+            reqs = list(b.requests)
+            try:
+                return self._fire_ragged(b)
+            except DeviceDispatchError as e:
+                return self._hold(b, reqs, e)
         return self._fire(b)
+
+    def _hold(self, unit, reqs: List[EcRequest],
+              err: DeviceDispatchError) -> List[EcResult]:
+        """A fire failed on the card: its requests go back to the front
+        of their unit, in order, and the unit is held."""
+        unit.requests = list(reqs) + unit.requests
+        self._held.add(unit.key)
+        self.card_failures += 1
+        tel.counter("serve_card_holds", op=unit.op)
+        dout("serve", 1, f"fire of {len(reqs)} {unit.op} request(s) "
+                         f"failed on the card; held ({err})")
+        return []
+
+    def held(self) -> int:
+        """Requests held by a fire that failed on the card."""
+        return sum(len(b.requests) for b in self._units()
+                   if b.key in self._held)
+
+    def release_holds(self) -> None:
+        """Make the held units fireable again (the backend is back)."""
+        self._held.clear()
 
     def poll(self, queue: Optional[AdmissionQueue] = None
              ) -> List[EcResult]:
@@ -425,7 +475,8 @@ class ContinuousBatcher:
     def flush(self) -> List[EcResult]:
         """Fire every non-empty bucket/queue (end of stream)."""
         results: List[EcResult] = []
-        for b in sorted((b for b in self._units() if b.requests),
+        for b in sorted((b for b in self._units()
+                         if b.requests and b.key not in self._held),
                         key=lambda b: b.oldest_deadline):
             results += self._fire_unit(b)
         return results
@@ -434,7 +485,8 @@ class ContinuousBatcher:
         """Earliest absolute time any bucket becomes due (the sim
         event loop advances its FakeClock here when idle)."""
         times = [b.oldest_deadline - self._margin(b.key)
-                 for b in self._units() if b.requests]
+                 for b in self._units()
+                 if b.requests and b.key not in self._held]
         return min(times) if times else None
 
     def pending(self) -> int:
@@ -488,7 +540,10 @@ class ContinuousBatcher:
         top = self.ladder[-1]
         while reqs:
             take, reqs = reqs[:top], reqs[top:]
-            results += self._fire_slice(b, take)
+            try:
+                results += self._fire_slice(b, take)
+            except DeviceDispatchError as e:
+                return results + self._hold(b, take + reqs, e)
         return results
 
     def _fire_slice(self, b: _Bucket,
@@ -513,6 +568,8 @@ class ContinuousBatcher:
                 self.clock.sleep(self.service_model(b, rung))
         t1 = self.clock.monotonic()
         service = t1 - t0
+        if _SERVICE_JITTER is not None:
+            service = _SERVICE_JITTER(service, self.dispatches)
         self._est[b.key] = (service if b.key not in self._est else
                             (1 - _EWMA_ALPHA) * self._est[b.key]
                             + _EWMA_ALPHA * service)
@@ -628,6 +685,8 @@ class ContinuousBatcher:
                 self.clock.sleep(self.service_model(q, live))
         t1 = self.clock.monotonic()
         service = t1 - t0
+        if _SERVICE_JITTER is not None:
+            service = _SERVICE_JITTER(service, self.dispatches)
         self._est[q.key] = (service if q.key not in self._est else
                             (1 - _EWMA_ALPHA) * self._est[q.key]
                             + _EWMA_ALPHA * service)
@@ -715,7 +774,7 @@ class ContinuousBatcher:
             b = self._bucket_for(req)
             for rung in self.ladder:
                 zeros = np.zeros((rung, b.rows, b.chunk_size), np.uint8)
-                self._execute(b, zeros)
+                self._warm(lambda: self._execute(b, zeros))
                 fired += 1
             # seed the service estimator with a timed WARM dispatch of
             # the top rung (the first run above paid the setup, so
@@ -730,8 +789,8 @@ class ContinuousBatcher:
                 top = np.zeros((self.ladder[-1], b.rows, b.chunk_size),
                                np.uint8)
                 t0 = self.clock.monotonic()
-                self._execute(b, top)
-                self._est[key] = self.clock.monotonic() - t0
+                if self._warm(lambda: self._execute(b, top)):
+                    self._est[key] = self.clock.monotonic() - t0
                 fired += 1
         self.warmup_dispatches += fired
         if fired:
@@ -740,6 +799,17 @@ class ContinuousBatcher:
                  f"warmed {len(seen)} buckets x {len(self.ladder)} "
                  f"rungs ({fired} dispatches)")
         return fired
+
+    def _warm(self, run: Callable[[], object]) -> bool:
+        """One warm dispatch; one that fails on the card is counted,
+        not held (no request rides it)."""
+        try:
+            run()
+            return True
+        except DeviceDispatchError as e:
+            self.card_failures += 1
+            dout("serve", 1, f"warm dispatch failed on the card ({e})")
+            return False
 
     def _warmup_paged(self, requests: List[EcRequest]) -> int:
         """One zero-mask dispatch per distinct queue pays the setup;
@@ -754,15 +824,16 @@ class ContinuousBatcher:
                 continue
             seen.add(key)
             q = self._queue_for(req)
-            self._execute_ragged(q, np.zeros(q.pool.pages, np.uint8))
+            self._warm(lambda: self._execute_ragged(
+                q, np.zeros(q.pool.pages, np.uint8)))
             fired += 1
             if self.service_model is not None:
                 self._est[key] = self.service_model(q, q.pool.pages)
             else:
                 full = np.ones(q.pool.pages, np.uint8)
                 t0 = self.clock.monotonic()
-                self._execute_ragged(q, full)
-                self._est[key] = self.clock.monotonic() - t0
+                if self._warm(lambda: self._execute_ragged(q, full)):
+                    self._est[key] = self.clock.monotonic() - t0
                 fired += 1
         self.warmup_dispatches += fired
         if fired:

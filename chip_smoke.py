@@ -181,9 +181,10 @@ source, all started together) and then, in order:
    launches and host syncs per block, the card's busy share and the
    peak memory above what was allocated before the sweep; the card's
    rows must equal the host mapper on a seeded sample (1000 x; 500 on
-   row C, whose Python mapper takes ~0.1 s an x) plus every lane the
-   first rung flagged and every lane of the host residue, the CPU
-   evaluator (``device="cpu"``) on x < 16384 and the flagged lanes, and
+   row C, whose Python mapper takes ~0.1 s an x) plus a seeded sample
+   of 8000 of the lanes the first rung flagged and every lane of the
+   host residue, the CPU evaluator (``device="cpu"``) on x < 4096 and
+   every flagged lane, and
    the profiled sweep's per-device counts those of the crushtool sweep.
    The host mapper runs in CRUSH_PROCS spawned processes beside the
    card's later rows; its verdicts are read after the last row.  Then,
@@ -201,13 +202,13 @@ source, all started together) and then, in order:
    probed (``PassProbe``: launches, wall time, span roots, the fused
    calls' device time by CUDA events):
 
-   - 7a ``-w repair-batched --size 4194304 --batch 32 -e 2
-     --corruptions 1 --iterations 1``: 32 objects, 3 bad shards each
+   - 7a ``-w repair-batched --size 4194304 --batch 16 -e 2
+     --corruptions 1 --iterations 1``: 16 objects, 3 bad shards each
      (the whole budget), 4 patterns; one device call per pattern, no
      host batch, the dense kernel in every timed pass, every healed
      store equal to its object and to the host path's heal
      (``device=False`` on a CPU instance pinned to the numpy tier);
-   - 7b ``-w recovery-churn --size 4194304 --batch 16 -e 1
+   - 7b ``-w recovery-churn --size 4194304 --batch 8 -e 1
      --churn-every 2 --iterations 1``: converged, nothing
      unrecoverable, every store healed, the map advanced; replans,
      regroups and rounds printed;
@@ -215,7 +216,7 @@ source, all started together) and then, in order:
      the per-object repair through the stripe layer, healed;
    - 7d each family once (``FAMILIES``: jerasure reed_sol_van and
      cauchy_good, isa k=8 m=3, shec k=6 m=3 c=2, lrc k=4 m=2 l=3, clay
-     k=8 m=4 d=11): ``repair_batched`` on 8 objects of ~1 MiB with 3
+     k=8 m=4 d=11): ``repair_batched`` on 6 objects of ~1 MiB with 3
      decodable patterns, equal to the objects and the host path; the
      kernel ``select_matrix_engine`` names for each pattern's decode and
      for the encode must have launched;
@@ -359,13 +360,13 @@ source, all started together) and then, in order:
    counters read around each run:
 
    - 11a the CLI's ``-w cluster`` at the north star's code (jerasure
-     reed_sol_van k=8 m=3, 1 MiB, batch 16) and the reference's 10k-OSD
+     reed_sol_van k=8 m=3, 1 MiB, batch 8) and the reference's 10k-OSD
      acceptance shape: ``--osds 10000 --cluster-pgs 1024
      --storm-events 12`` (``ClusterSpec.sized(10000)``: 20 racks x 25
      hosts x 20 OSDs, 1024 replicated PGs and 128 EC PGs on the card's
      bulk evaluator, a 12-event storm with ``max_down=8``, the storm
      equivalence gate, the balancer to deviation 1, a rateless recovery
-     of 16 objects under a 10x straggler on shard 0): verified, the
+     of 8 objects under a 10x straggler on shard 0): verified, the
      balancer converged at max deviation <= 1, p99 ratio <= 2, a
      straggler reassignment, the dense kernel launched; prints the
      build, storm, balance and recovery seconds, the bulk evaluator's
@@ -398,9 +399,38 @@ source, all started together) and then, in order:
      reference's text.
 
    The phase prints one ``{"cluster_scenario": {...}}`` line.
+12. the repo-root tools, demos and examples (``ceph_tpu_torch/tools/``)
+   on the card, each at its reference defaults, in-process through its
+   ``main(argv)`` (``TOOL_RUNS``) with a new process's global state
+   (policy, supervisor, flight recorder, pattern cache; no plane, no
+   armed fault plan) and the launch counters read around it:
+   ``bulk_crush_row`` and ``--ec`` at 1M x (the mappings/s beside
+   phase 6's row A); ``perf_dump --scenario both --validate``,
+   ``--profile --validate``, ``--scenario unrecoverable
+   --flight-recorder --validate`` and ``--check-overhead 3`` (rc 0 or
+   3: on the card's host its 3 % verdict is noise, so both series and
+   the verdict are printed, not held);
+   ``trace_view --run-scenario --check``; ``bench_diff`` over phase 5's
+   rows of this run (the same line clean, rc 0; at half its GB/s a
+   regression, rc 4); the eight demos (rc 0) and their arms past the
+   erasure budget (rc 2; ``cluster_demo``'s after a 2-event storm),
+   ``cluster_demo`` at its 400 OSDs and
+   ``host_chaos_demo`` over PLANE_MEMBERS virtual members of the card;
+   ``replay_bisect --days 1``, plain and ``--inject-jitter`` (the
+   divergence localized to a dispatch checkpoint); the two examples;
+   and ``host_chaos_demo --kill-one``, two worker processes on the card
+   started once the overhead gate is done (it times host-paced runs, so
+   nothing of this script runs beside it) and read at the phase's end
+   (the survivor reports its own launches).  Every kernel a tool launched must have
+   been held against its plain version in phases 2-4, and the dense
+   GF(2^8) kernel must be among them.  The phase prints one ``{"tools":
+   {...}}`` line: per tool its rc, seconds and launches.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``,
-after the ``{"kernels": [...]}`` line.
+Every phase prints its own seconds: phases 1-4 a ``{"phase": N,
+"seconds": S}`` line, phases 5-12 a ``seconds`` key in their line; a
+``{"phase_seconds": {...}}`` line follows phase 12.  The last line of
+standard output is ``{"ok": true, "device": {...}}``, after the
+``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
 result.  Without a CUDA device, or without the package beside it, it
 exits non-zero before printing anything to standard output.
@@ -409,6 +439,7 @@ exits non-zero before printing anything to standard output.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -437,11 +468,15 @@ ROOF_MIB, ROOF_LOOP = 64, 64                  # the roofline tool's defaults
 WORDS = 65536                                 # w=16/32 words per chunk
 SRC = "ceph_tpu_torch/ops/csrc/"
 # phase 6: CRUSH rows over x in 0..CRUSH_X-1; seeded host-mapper samples
-# per row (row C's mapper takes ~0.1 s an x on one core), beside every
-# lane the first rung flags (~10 % of row A's lanes at ~7 ms each, ~5 %
-# of row B's at ~23 ms), spread over CRUSH_PROCS processes; the CPU
-# evaluator's x; the EC pool
-CRUSH_X, CRUSH_CPU_X, CRUSH_PROCS = 1_000_000, 16384, 8
+# per row (row C's mapper takes ~0.1 s an x on one core), beside a
+# seeded CRUSH_FLAGGED_SAMPLE of the lanes the first rung flags (~10 %
+# of row A's lanes at ~7 ms each, ~5 % of row B's at ~23 ms: every one
+# of them took the mapper 227 s of the phase's wall time), spread over
+# CRUSH_PROCS processes; the CPU evaluator's x (every flagged lane
+# besides); the EC pool.  The flagged sample and the CPU evaluator's x
+# (16384 before) were cut to make room for the tools' phase
+CRUSH_X, CRUSH_CPU_X, CRUSH_PROCS = 1_000_000, 4096, 8
+CRUSH_FLAGGED_SAMPLE = 8000
 CRUSH_SAMPLE = {"A": 1000, "B": 1000, "C": 500}
 EC_PG_NUM, EC_PG_SAMPLE = 16384, 500
 EC_PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3",
@@ -452,25 +487,25 @@ CRUSH_WORK = "chip_smoke_work"
 # star's code, jerasure reed_sol_van k=8 m=3
 RS_ARGV = ["--plugin", "jerasure", "-P", "technique=reed_sol_van",
            "-P", "k=8", "-P", "m=3"]
-# 32 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
+# 16 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
 # One timed pass each (after the workload's warm pass): the host CRC sets
-# a pass's pace, so --iterations and the object counts (7a 32, 7b 16,
-# 7d 8: halved so the script keeps its time with the data plane's
-# phase) are the cuts that keep the phase's time down; the object size
-# and the fault budget are Ceph's and stay
+# a pass's pace, so --iterations and the object counts (7a 16, 7b 8,
+# 7d 6: halved once for the data plane's phase and again, 7d by a
+# quarter, for the tools' phase) are the cuts that keep the phase's
+# time down; the object size and the fault budget are Ceph's and stay
 REPAIR_ARGV = RS_ARGV + ["--workload", "repair-batched", "--size",
-                         str(4 << 20), "--batch", "32", "-e", "2",
+                         str(4 << 20), "--batch", "16", "-e", "2",
                          "--corruptions", "1", "--iterations", "1",
                          "--device", "cuda"]
 CHURN_ARGV = RS_ARGV + ["--workload", "recovery-churn", "--size",
-                        str(4 << 20), "--batch", "16", "-e", "1",
+                        str(4 << 20), "--batch", "8", "-e", "1",
                         "--churn-every", "2", "--iterations", "1",
                         "--device", "cuda"]
 DEGRADED_ARGV = RS_ARGV + ["--workload", "degraded", "--size",
                            str(1 << 20), "--batch", "4", "-e", "2",
                            "--corruptions", "1", "--device", "cuda"]
-# each family once: 8 objects of about 1 MiB
-FAMILY_OBJECTS, FAMILY_SIZE = 8, 1 << 20
+# each family once: 6 objects of about 1 MiB (two a pattern)
+FAMILY_OBJECTS, FAMILY_SIZE = 6, 1 << 20
 # 8a's fused-repair stack (stripes of FAMILY_SIZE objects)
 REPAIR_STRIPES = 6
 # 9b's stacks over the plane's members: 4 stripes a member, and a batch
@@ -923,9 +958,9 @@ def crush_phase(seed: int, err: "Errors") -> dict:
     print(f"phase 6: {torch.cuda.get_device_name(0)}; x in 0..{CRUSH_X - 1};"
           " host-mapper samples "
           + ", ".join(f"{k} {v}" for k, v in CRUSH_SAMPLE.items())
-          + " x, with every flagged and residue lane; CPU evaluator on x <"
-          f" {CRUSH_CPU_X} and the flagged lanes; {CRUSH_PROCS} host "
-          "processes")
+          + f" x, with {CRUSH_FLAGGED_SAMPLE} flagged lanes and every "
+          f"residue lane; CPU evaluator on x < {CRUSH_CPU_X} and every "
+          f"flagged lane; {CRUSH_PROCS} host processes")
     result, waits = {}, []
     xs = np.arange(CRUSH_X)
     with multiprocessing.get_context("spawn").Pool(CRUSH_PROCS) as pool:
@@ -971,12 +1006,16 @@ def crush_phase(seed: int, err: "Errors") -> dict:
             check({int(d): int(c) for d, c in zip(devs, dcnt)}
                   == tool_counts,
                   f"row {name}: two sweeps give the same per-device counts")
-            # the card against the host mapper: a seeded sample, every
-            # lane the first rung flagged and every lane of the host
-            # residue, mapped in the pool while the card goes on
+            # the card against the host mapper: a seeded sample, a
+            # seeded sample of the lanes the first rung flagged and every
+            # lane of the host residue, mapped in the pool while the
+            # card goes on
+            flag_pick = (flagged if flagged.size <= CRUSH_FLAGGED_SAMPLE
+                         else rng.choice(flagged, CRUSH_FLAGGED_SAMPLE,
+                                         replace=False))
             pick = np.union1d(np.union1d(
                 rng.choice(CRUSH_X, CRUSH_SAMPLE[name], replace=False),
-                flagged), cm.last_residue)
+                flag_pick), cm.last_residue)
             waits.append((name, pick, out[pick], host_rows(
                 pool, _host_rows, lambda p: (cmap, rule, p, nrep), pick)))
             # the card against the CPU evaluator: x < CRUSH_CPU_X and
@@ -1006,7 +1045,9 @@ def crush_phase(seed: int, err: "Errors") -> dict:
                    "host_syncs_per_block": syncs / max(blocks, 1),
                    "peak_bytes": peak, "base_bytes": base,
                    "profiled_host_lanes": n_host,
-                   "flagged": int(flagged.size), "host_sample": int(pick.size),
+                   "flagged": int(flagged.size),
+                   "host_flagged": int(flag_pick.size),
+                   "host_sample": int(pick.size),
                    "cpu_lanes": int(lanes.size), "cpu_s": cpu_s,
                    "device_ms_by_kind": dict(top),
                    "block_lanes": bulk.block_lanes(cm, rule, nrep, t1)}
@@ -1082,6 +1123,7 @@ def crush_phase(seed: int, err: "Errors") -> dict:
             result[name]["host_wait_s"] = time.perf_counter() - t0
             print(f"phase 6: row {name}: equal to the host mapper on "
                   f"{pick.size} x ({CRUSH_SAMPLE[name]} seeded, "
+                  f"{result[name]['host_flagged']} of "
                   f"{result[name]['flagged']} flagged, the residue); waited"
                   f" {time.perf_counter() - t0:.1f} s for it")
         got = pgs()
@@ -2562,7 +2604,7 @@ def profiler_phase(seed: int) -> dict:
 # cluster row at the north star's code and the reference's 10k-OSD
 # acceptance shape (ClusterSpec.sized(10000): 1024 replicated PGs, the
 # EC pool at 1/8, a 12-event storm, the balancer to deviation 1, a
-# rateless recovery of 16 objects of 1 MiB under a 10x straggler on
+# rateless recovery of 8 objects of 1 MiB under a 10x straggler on
 # shard 0); 11b a 120-OSD cluster on the card against the host mapper
 # (run in a child beside 11a); 11c the production day simulated (seed
 # 42, 64 requests, 3 damaged objects, a 4-event storm) and on the real
@@ -2570,7 +2612,7 @@ def profiler_phase(seed: int) -> dict:
 # tenant-week row; 11e the registry's cluster and scenario entries; 11f
 # the sweep of jerasure k=8 m=3 at 1 MiB
 CLUSTER_ARGV = RS_ARGV + ["--workload", "cluster", "--size", str(1 << 20),
-                          "--batch", "16", "--osds", "10000",
+                          "--batch", "8", "--osds", "10000",
                           "--cluster-pgs", "1024", "--storm-events", "12",
                           "--device", "cuda", "--json"]
 CLUSTER_HOST_SPEC = dict(seed=7, replicated_pg_num=128, ec_pg_num=32)
@@ -2894,6 +2936,288 @@ def cluster_scenario_phase(seed: int) -> dict:
     return out
 
 
+# -- phase 12: the repo-root tools and demos on the card ----------------------
+
+# each tool at its reference defaults, in-process through main(argv): (label,
+# module under ceph_tpu_torch/tools, argv, the rc it must give, or a tuple
+# of them); --kill-one alone runs as processes (its own two workers)
+TOOL_RUNS = (
+    ("bulk_crush_row", "bulk_crush_row", [], 0),
+    ("bulk_crush_row --ec", "bulk_crush_row", ["--ec"], 0),
+    ("perf_dump both", "perf_dump", ["--scenario", "both", "--validate"], 0),
+    ("perf_dump profile", "perf_dump", ["--profile", "--validate"], 0),
+    ("perf_dump unrecoverable", "perf_dump",
+     ["--scenario", "unrecoverable", "--flight-recorder", "--validate"], 0),
+    # rc 0 or 3: over 40 interleaved pairs on an H100's host the on/off
+    # ratio read median 0.997 with a standard deviation of 9.1 % (no
+    # overhead), so a min-of-5 verdict on 3 % is noise: 13-28 % of
+    # draws fail (min-of-15 failed too); its series and verdict are kept
+    ("perf_dump check-overhead", "perf_dump", ["--check-overhead", "3"],
+     (0, 3)),
+    ("trace_view", "trace_view", ["--run-scenario", "--check"], 0),
+    ("scrub_demo", "scrub_demo", [], 0),
+    ("scrub_demo over m", "scrub_demo", ["--erasures", "3"], 2),
+    ("recovery_demo", "recovery_demo", [], 0),
+    ("recovery_demo over m", "recovery_demo", ["--erasures", "3"], 2),
+    ("serve_demo", "serve_demo", [], 0),
+    ("serve_demo over m", "serve_demo", ["--erasures", "4"], 2),
+    ("scenario_demo", "scenario_demo", [], 0),
+    ("scenario_demo over m", "scenario_demo", ["--erasures", "4"], 2),
+    ("tenant_week_demo", "tenant_week_demo", [], 0),
+    ("cluster_demo", "cluster_demo", [], 0),
+    # the arm past the budget reaches its heal after a 2-event storm, not
+    # 20: the storm's epochs are the arm's cost, the rc is the heal's
+    ("cluster_demo over m", "cluster_demo", ["--erasures", "3", "--events",
+                                             "2"], 2),
+    ("device_chaos_demo", "device_chaos_demo", [], 0),
+    ("device_chaos_demo over m", "device_chaos_demo", ["--erasures", "4"], 2),
+    ("host_chaos_demo", "host_chaos_demo", [], 0),
+    ("host_chaos_demo over m", "host_chaos_demo", ["--erasures", "4"], 2),
+    ("replay_bisect", "replay_bisect", ["--days", "1"], 0),
+    ("replay_bisect --inject-jitter", "replay_bisect",
+     ["--days", "1", "--inject-jitter"], 0),
+    ("cluster_lifecycle_demo", "cluster_lifecycle_demo", [], 0),
+    ("failure_recovery_demo", "failure_recovery_demo", [], 0),
+)
+# the host-chaos demo's plane: virtual members of the card, as phase 9's
+HOST_CHAOS_TOOLS = ("host_chaos_demo",)
+KILL_ONE_TIMEOUT = 300
+# --kill-one's processes start once this run is done: the overhead gate
+# times host-paced runs, so no process of this script runs beside it
+KILL_ONE_AFTER = "perf_dump check-overhead"
+
+
+def _stop_session(proc) -> None:
+    """Kill a child started with ``start_new_session`` and everything it
+    started, then reap it."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.communicate()
+
+
+@contextlib.contextmanager
+def _fresh_process_state():
+    """Process-global state as a new process of a tool has it (the
+    policy, the supervisor, the flight recorder, the pattern cache, no
+    plane, no armed fault plan), so that no earlier phase's dumps or
+    counters leak into a tool's gates; restored on exit."""
+    from ceph_tpu_torch.chaos.dispatch import arm_plan
+    from ceph_tpu_torch.chaos.hosts import arm_host_plan
+    from ceph_tpu_torch.codes.engine import (PatternCache,
+                                             set_global_pattern_cache)
+    from ceph_tpu_torch.ops.fallback import (FallbackPolicy,
+                                             set_global_policy)
+    from ceph_tpu_torch.ops.supervisor import (DispatchSupervisor,
+                                               set_global_supervisor)
+    from ceph_tpu_torch.parallel.plane import set_data_plane
+    from ceph_tpu_torch.telemetry.recorder import (
+        FlightRecorder, set_global_flight_recorder)
+    prev = (set_global_policy(FallbackPolicy()),
+            set_global_supervisor(DispatchSupervisor()),
+            set_global_flight_recorder(FlightRecorder()),
+            set_global_pattern_cache(PatternCache()),
+            set_data_plane(None))
+    arm_plan(None)
+    arm_host_plan(None)
+    try:
+        yield
+    finally:
+        set_global_policy(prev[0])
+        set_global_supervisor(prev[1])
+        set_global_flight_recorder(prev[2])
+        set_global_pattern_cache(prev[3])
+        set_data_plane(prev[4])
+        arm_plan(None)
+        arm_host_plan(None)
+
+
+def _bench_record(bench: dict, stamp: str, scale: float = 1.0) -> dict:
+    """Phase 5's rows in the bench line's shape (``bench_line.measure``):
+    the headline (the best carry chain), the decode and serving rows."""
+    from ceph_tpu_torch.bench import bench_line
+    rows = bench["rows"]
+    carry = [n for n, _ in bench_line.ENCODE_ROWS if n.endswith("_carry")]
+    return {
+        "metric": bench_line.METRIC, "unit": "GB/s", "git_sha": stamp,
+        "timestamp": stamp,
+        "value": max(rows[n]["gbps"] for n in carry) * scale,
+        "decode_rows": {n: {"gbps": rows[n]["gbps"] * scale}
+                        for n, _ in bench_line.DECODE_ROWS},
+        "serving_rows": {n: {k: rows[n][k] for k in
+                             ("gbps", "gbps_under_slo", "padding_overhead")}
+                         for n, _ in bench_line.SERVING_ROWS},
+    }
+
+
+def tools_phase(seed: int, held: dict, row_a=None, bench=None) -> dict:
+    """Phase 12 (the module docstring): each ported tool, demo and
+    example at its reference defaults on the card, with the launch
+    counters read around it.  ``held``: the wrappers phases 2-4 held
+    against their plain versions (every kernel launched here must be
+    among them); ``row_a``: phase 6's row A, beside bulk_crush_row's
+    mappings/s; ``bench``: phase 5's blob, bench_diff's trajectory."""
+    import importlib
+    import io
+    import tempfile
+    import torch
+    from ceph_tpu_torch.ops.launches import launch_counts
+    from ceph_tpu_torch.parallel.plane import data_plane
+    from ceph_tpu_torch.tools import bench_diff
+
+    t_phase = time.perf_counter()
+    check(data_plane() is None, "phase 12 starts with no plane active")
+    kill = None
+    runs: dict = {}
+    outputs: dict = {}
+    try:
+        for label, name, argv, want in TOOL_RUNS:
+            mod = importlib.import_module(f"ceph_tpu_torch.tools.{name}")
+            before = launch_counts()
+            buf = io.StringIO()
+            prev_env = os.environ.get(PLANE_ENV)
+            if name in HOST_CHAOS_TOOLS:
+                os.environ[PLANE_ENV] = str(PLANE_MEMBERS)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf), \
+                        _fresh_process_state():
+                    try:
+                        rc = mod.main(list(argv))
+                    except SystemExit as e:
+                        rc = e.code
+                    torch.cuda.synchronize()
+            finally:
+                if name in HOST_CHAOS_TOOLS:
+                    if prev_env is None:
+                        os.environ.pop(PLANE_ENV, None)
+                    else:
+                        os.environ[PLANE_ENV] = prev_env
+            row = {"rc": rc, "seconds": time.perf_counter() - t0,
+                   "launched": _launched(before)}
+            runs[label] = row
+            outputs[label] = buf.getvalue()
+            print(f"phase 12: {label}: rc {rc} in {row['seconds']:.2f} s, "
+                  f"launched {row['launched']}")
+            if rc != want:
+                print(f"phase 12: {label}: its output ends "
+                      f"{outputs[label][-2000:]}")
+            check(rc in (want if isinstance(want, tuple) else (want,)),
+                  f"phase 12: {label} gave rc {rc}, not {want}")
+            check(data_plane() is None, f"phase 12: {label} left a plane")
+            if label == KILL_ONE_AFTER:
+                # --kill-one: the demo and its two workers on the card,
+                # in a session of their own (a failed check stops all)
+                t_kill = time.perf_counter()
+                kill = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "ceph_tpu_torch.tools.host_chaos_demo", "--kill-one",
+                     "--json"], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, env=dict(os.environ),
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    start_new_session=True)
+    except BaseException:
+        if kill is not None:
+            _stop_session(kill)
+        raise
+    out: dict = {"runs": runs}
+
+    # bulk_crush_row: its line, beside phase 6's row A of this run
+    crush_rows = {}
+    for label in ("bulk_crush_row", "bulk_crush_row --ec"):
+        line = json.loads(outputs[label].strip().splitlines()[-1])
+        check(line["n"] == 1_000_000 and line["value"] > 0,
+              f"phase 12: {label}: {line}")
+        crush_rows[label] = line
+    if row_a is not None:
+        crush_rows["row_a_mappings_per_s"] = row_a["mappings_per_s"]
+        crush_rows["ratio_to_row_a"] = (
+            crush_rows["bulk_crush_row"]["value"] / row_a["mappings_per_s"])
+    out["bulk_crush_row"] = crush_rows
+    print(f"phase 12: bulk_crush_row " + json.dumps(crush_rows))
+
+    check("check: ok" in outputs["trace_view"], "trace_view --check")
+    overhead = json.loads(outputs["perf_dump check-overhead"])
+    out["check_overhead"] = overhead
+    print(f"phase 12: perf_dump --check-overhead 3: "
+          f"{json.dumps(overhead)}")
+    bisect = outputs["replay_bisect --inject-jitter"]
+    check("DIVERGENCE at checkpoint" in bisect
+          and "run A: dispatch[" in bisect,
+          "replay_bisect localizes the jitter to a dispatch checkpoint")
+    out["replay_bisect"] = [ln.strip() for ln in bisect.splitlines()
+                            if ln.startswith(("replay_bisect", "  run"))]
+
+    # bench_diff over phase 5's rows of this run: the same line again is
+    # clean (rc 0), the line at half its GB/s a regression (rc 4)
+    if bench is not None:
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "BENCH_r01.json"), "w") as f:
+                json.dump(_bench_record(bench, "phase5"), f)
+            diffs = {}
+            for tag, scale, want in (("again", 1.0, 0), ("halved", 0.5, 4)):
+                cand = os.path.join(d, f"{tag}.json")
+                with open(cand, "w") as f:
+                    json.dump(_bench_record(bench, tag, scale), f)
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = bench_diff.main(["--repo", d, "--candidate", cand,
+                                          "--json"])
+                rep = json.loads(buf.getvalue())
+                check(rc == want, f"bench_diff {tag}: rc {rc}, not {want}")
+                diffs[tag] = {"rc": rc, "rows": len(rep["rows"]),
+                              "regressions": rep["regressions"],
+                              "seconds": time.perf_counter() - t0}
+                runs[f"bench_diff {tag}"] = {
+                    "rc": rc, "seconds": diffs[tag]["seconds"],
+                    "launched": {}}
+        out["bench_diff"] = diffs
+        print(f"phase 12: bench_diff over phase 5's rows: "
+              f"{json.dumps(diffs)}")
+
+    # the kill-one processes, started after the overhead gate
+    try:
+        stdout, stderr = kill.communicate(timeout=KILL_ONE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _stop_session(kill)
+        raise RuntimeError("check failed: host_chaos_demo --kill-one "
+                           "outlived its timeout")
+    for line in stderr.splitlines()[-5:]:
+        print(f"phase 12: --kill-one (stderr): {line}")
+    check(kill.returncode == 0, f"--kill-one rc {kill.returncode}")
+    kres = json.loads(stdout)
+    check(all(kres["gates"].values()), f"--kill-one gates {kres['gates']}")
+    runs["host_chaos_demo --kill-one"] = {
+        "rc": kill.returncode, "seconds": time.perf_counter() - t_kill,
+        "launched": kres["survivor"].get("launches", {}),
+        "process": True}
+    out["kill_one"] = {"gates": kres["gates"],
+                       "victim_returncode": kres["victim_returncode"],
+                       "detect": kres["survivor"]["detect"],
+                       "topology": [kres["survivor"]["topology0"],
+                                    kres["survivor"]["topology_end"]]}
+    print(f"phase 12: --kill-one: {json.dumps(out['kill_one'])}, survivor "
+          f"launched {runs['host_chaos_demo --kill-one']['launched']}")
+
+    launched: dict = {}
+    for row in runs.values():
+        for k, v in row["launched"].items():
+            launched[k] = launched.get(k, 0) + v
+    unheld = sorted(set(launched) - set(held))
+    check(not unheld, f"phase 12 launched kernels no earlier phase held "
+                      f"against their plain versions: {unheld}")
+    check(launched.get("apply_matrix_cuda", 0) >= 1,
+          "phase 12 launched the dense GF(2^8) kernel (row 1)")
+    out["launched"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {out['seconds']:.1f} s, launched {launched}")
+    return out
+
+
 def tune_table_child() -> dict:
     """10d's child: the CLI's r6 encode row under ``--tune-table``, the
     routed kernel and its device time, the bytes against the default
@@ -3143,6 +3467,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     err = Errors()
+    phase_s: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def phase_done(n: int) -> None:
+        """Each phase's seconds: phases 1-4 print a line of their own,
+        5-12 carry ``seconds`` in their JSON line."""
+        now = time.perf_counter()
+        phase_s[n] = now - t_mark[0]
+        t_mark[0] = now
+        if n <= 4:
+            print(json.dumps({"phase": n, "seconds": phase_s[n]}))
 
     # -- phase 1: the card and the build ---------------------------------------
     smi = subprocess.run(
@@ -3162,6 +3497,8 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
+    phase_done(1)
 
     # -- phase 2: each kernel against its plain version, on the card --------
     reg = ErasureCodePluginRegistry.instance()
@@ -3670,6 +4007,8 @@ def main(argv=None) -> int:
     print(f"phase 2: copy and fold kernels equal their plain versions on "
           f"{tuple(slab.shape)} and the numpy ground truth")
 
+    phase_done(2)
+
     # -- phase 3: the paths, through the user's entry points ----------------
     counts, reset = launch_counts, reset_launch_counts
     n = K + M
@@ -4169,6 +4508,8 @@ def main(argv=None) -> int:
     for name, cnt in launches.items():
         check(cnt >= 1, f"{name} launched on the driven paths")
     print(f"phase 3: all paths ok; launches {launches}")
+
+    phase_done(3)
 
     # -- phase 4: times at the main shape ----------------------------------------
     words = pack_chunks(data)
@@ -4843,20 +5184,32 @@ def main(argv=None) -> int:
             "max_abs_err": err[name], "ms": t, "plain_ms": tp,
             "bound_ms": b, "bound_by": b_by, "library_ms": lib_t,
             "ok": True})
+    phase_done(4)
+
+    def phase_line(n: int, key: str, blob: dict) -> dict:
+        phase_done(n)
+        blob["seconds"] = phase_s[n]
+        print(json.dumps({key: blob}))
+        return blob
+
     # -- phase 5: the bench line's rows and the corpus, on the card ---------
-    print(json.dumps({"bench": bench_phase(kernel_ms)}))
+    bench = phase_line(5, "bench", bench_phase(kernel_ms))
     # -- phase 6: CRUSH on the card ------------------------------------------
-    print(json.dumps({"crush": crush_phase(seed, err)}))
+    crush = phase_line(6, "crush", crush_phase(seed, err))
     # -- phase 7: scrub -> repair -> recover on the card ---------------------
-    print(json.dumps({"recovery": recovery_phase(seed)}))
+    phase_line(7, "recovery", recovery_phase(seed))
     # -- phase 8: the supervised dispatch plane on the card ------------------
-    print(json.dumps({"supervisor": supervisor_phase(seed)}))
+    phase_line(8, "supervisor", supervisor_phase(seed))
     # -- phase 9: the data plane on the card ---------------------------------
-    print(json.dumps({"data_plane": data_plane_phase(seed)}))
+    phase_line(9, "data_plane", data_plane_phase(seed))
     # -- phase 10: the profiler, the tuning table, the registry audit -----
-    print(json.dumps({"profiler": profiler_phase(seed)}))
+    phase_line(10, "profiler", profiler_phase(seed))
     # -- phase 11: the cluster plane and the scenarios -------------------
-    print(json.dumps({"cluster_scenario": cluster_scenario_phase(seed)}))
+    phase_line(11, "cluster_scenario", cluster_scenario_phase(seed))
+    # -- phase 12: the repo-root tools and demos -------------------------
+    phase_line(12, "tools", tools_phase(seed, err, crush["A"], bench))
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": sum(phase_s.values())}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,12 +11,15 @@ aside), the plan's ``summary()``, the flight recorder's triggers and the
 plane's topology must be equal.  The reference's "xla" tier is the
 port's "torch".
 
-Left out: the scenario runner's host-loss section and the bench_diff
-category (ROADMAP Queue A items 7 and 8).  The audit-registry entries
-(``engine.fused_repair_host_sharded``, ``chaos.host_plane``) are held
-in tests/test_torch_entrypoints.py.  The port's own: the member and host quarantine on the card
-(CPU tensors marked as the card's), where a reshrink keeps the work on
-the plane and a width-1 loss raises DeviceDispatchError.
+Held elsewhere: the scenario runner's host-loss section in
+tests/test_torch_scenario.py, bench_diff's ``host_chaos`` category and
+the host-chaos demo in tests/test_torch_tools.py and
+tests/test_torch_demos.py, the audit-registry entries
+(``engine.fused_repair_host_sharded``, ``chaos.host_plane``) in
+tests/test_torch_entrypoints.py.  The port's own: the member and host
+quarantine on the card (CPU tensors marked as the card's), where a
+reshrink keeps the work on the plane and a width-1 loss raises
+DeviceDispatchError.
 """
 
 from __future__ import annotations

@@ -254,6 +254,52 @@ def test_device_executor_equals_reference(variant, monkeypatch):
         assert hp["topology_at_end"] == hp["topology_armed"]
 
 
+def test_card_failure_holds_client_fires_until_the_backend_returns(
+        monkeypatch):
+    """The card's rule on CPU tensors marked as the card's
+    (``ops.supervisor._on_card``): the persistent backend loss raises
+    ``DeviceDispatchError`` instead of demoting — a warm dispatch is
+    counted, a client fire holds its requests, a recovery round
+    re-queues — and once only held work is left the fault clears, as
+    it does when the stream drains: every request verifies, recovery
+    heals the bytes of the unfaulted control run, nothing demoted."""
+    monkeypatch.setattr(PORT.sup_world.sup, "_on_card", lambda args: True)
+    with isolated(PORT.sup_world):
+        run = sim_run(PORT, _device_spec(PORT, "dispatch_fault"), "device")
+    with isolated(PORT.sup_world):
+        ctrl = sim_run(PORT, _device_spec(PORT, "plain"), "device")
+    rep = run.report
+    assert rep.ok(), rep.gates
+    assert len(run.serving.results) == 24
+    assert run.serving.batcher.card_failures >= 1
+    assert run.serving.batcher.held() == 0
+    counters = rep.supervisor["counters"]
+    assert counters["card_failures"] >= 1
+    assert counters.get("demotions", 0) == 0
+    assert not rep.supervisor["demoted_at_end"]
+    assert rep.supervisor["plan"]["cleared"]
+    assert [sorted(st.shards.items()) for st in run.stores] == \
+        [sorted(st.shards.items()) for st in ctrl.stores]
+
+
+def test_held_work_nobody_releases_raises():
+    """A fire that failed on the card with no ``on_stall`` to bring the
+    backend back: the stream ends with held work, and that raises."""
+    from ceph_tpu_torch.serve import batcher as port_batcher
+    from ceph_tpu_torch.utils.errors import DeviceDispatchError
+    spec = PORT.loadgen.default_spec(seed=3, n_requests=8)
+
+    def lost(self, b, stack):
+        raise DeviceDispatchError("engine.serve-encode", "backend_loss",
+                                  "lost")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_batcher.ContinuousBatcher, "_execute", lost)
+        with pytest.raises(DeviceDispatchError, match="held"):
+            PORT.runner.run_serving_scenario(
+                spec, clock=PORT.retry.FakeClock(), executor="host",
+                service_model=PORT.loadgen.throughput_service_model())
+
+
 def test_scenario_selftest_equals_reference():
     assert PORT.runner.scenario_selftest() == REF.runner.scenario_selftest()
 

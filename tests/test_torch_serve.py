@@ -313,6 +313,43 @@ def test_device_executor_on_cpu_equals_reference_device_seam(paged):
     assert ours.report["stream_compiles"] == 0
 
 
+def _jitter_at(index):
+    def jitter(service, dispatch_index):
+        return service * 10.0 if dispatch_index == index else service
+    return jitter
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_service_jitter_seam_moves_the_same_dispatch(paged):
+    """``serve.batcher.set_service_jitter``, applied where each fire
+    measures its service time (the slice and the ragged fire): the same
+    10x jitter at dispatch 1 moves both packages' dispatch logs, and
+    identically (the first changed batch comes later, once the EWMA has
+    moved a slack deadline); with the hook cleared the logs are the
+    unjittered ones letter for letter."""
+    from ceph_tpu.serve import batcher as ref_batcher
+    from ceph_tpu_torch.serve import batcher as port_batcher
+
+    codecs = ([c for f in (RS4, SHEC4) for c in mixed_codecs(f)] if paged
+              else [RS4, SHEC4])
+    spec = spec_for(codecs, n=40, paged=paged, arrival="closed")
+    clean = port_sim(spec).batcher.dispatch_log
+    assert clean == ref_sim(spec).batcher.dispatch_log
+    logs = []
+    for mod, run in ((port_batcher, port_sim), (ref_batcher, ref_sim)):
+        mod.set_service_jitter(_jitter_at(1))
+        try:
+            logs.append(run(spec).batcher.dispatch_log)
+        finally:
+            mod.set_service_jitter(None)
+    assert logs[0] == logs[1]
+    first = next(i for i, (a, b) in enumerate(zip(clean, logs[0]))
+                 if a != b)
+    assert first > 1
+    assert port_sim(spec).batcher.dispatch_log == clean
+    assert port_batcher._SERVICE_JITTER is None
+
+
 def test_device_executor_without_a_card_raises(monkeypatch):
     """The device executor defaults to the card: with none present it
     raises NoDeviceError instead of running on the CPU."""
