@@ -7,8 +7,9 @@ The intended host-side locking discipline is *written down* here, one
 (utils/locks.py, ``CEPH_TPU_LOCKCHECK=1``) flags any observed
 acquisition that inverts the declared ranks, and
 tests/test_torch_lockcheck.py requires every ``make_lock`` id in
-``ceph_tpu_torch/`` to have a rank here.  (The reference's static pass,
-``analysis/concurrency.py``, comes with ROADMAP Queue A item 8.)
+``ceph_tpu_torch/`` to have a rank here.  The static pass
+(analysis/concurrency.py) raises ``conc-registry-gap`` for any lock
+missing from this table.
 
 Rank semantics: **lower rank = acquired first (outer)**.  A thread
 holding lock A may only acquire lock B when ``rank(A) < rank(B)``.

@@ -30,9 +30,10 @@ with ``--device cuda``:
   fault script fires mid-run (transient error, out of memory, a lost
   backend for two calls), each row with the supervisor's counter
   deltas, the faults fired and whether the tier ended demoted.
-- ``vs_baseline``: against the in-tree C++ AVX2 RS benchmark
-  (``native/build/ceph_erasure_code_benchmark``) run live on this host,
-  or null with ``baseline`` saying it is not built.
+- ``vs_baseline``: against the in-tree C++ AVX2 RS benchmark run live
+  on this host, as the port's native builder
+  (``ceph_tpu_torch/native/build.py``) builds it, built now if absent or
+  stale; or null with ``baseline`` saying why it could not run.
 - ``topology``: platform, device count, mesh shape (the active data
   plane's, null without one), and the card's name and power limit
   (``nvidia-smi``).
@@ -58,8 +59,6 @@ from .erasure_code_benchmark import ErasureCodeBench
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-NATIVE_BENCH = os.path.join(REPO, "native", "build",
-                            "ceph_erasure_code_benchmark")
 
 METRIC = "encode_gbps_jerasure_rs_k8_m3_1MiB_stripes"
 
@@ -204,21 +203,32 @@ def card() -> dict:
         return {"name": None, "power_limit": None}
 
 
+def baseline_bench() -> tuple:
+    """(path of the AVX2 ``rs`` benchmark or None, why not), as the
+    port's native builder builds it (now, if it is absent or stale)."""
+    from ..native import build
+    try:
+        return str(build.build()["ceph_erasure_code_benchmark"]), ""
+    except Exception as e:  # noqa: BLE001 - recorded in the line
+        return None, (f"not built (the port's native build failed: "
+                      f"{type(e).__name__}: {e})")
+
+
 def native_baseline() -> tuple:
     """(GB/s or None, provenance) of the in-tree C++ AVX2 RS benchmark,
     k=8 m=3, 1 MiB stripes, 100 iterations, run live on this host."""
-    if not os.path.exists(NATIVE_BENCH):
-        return None, ("cpp-rs-avx2: not built (native/build/"
-                      "ceph_erasure_code_benchmark is absent)")
+    bench, why = baseline_bench()
+    if bench is None:
+        return None, f"cpp-rs-avx2: {why}"
     try:
         out = subprocess.run(
-            [NATIVE_BENCH, "-p", "rs", "-w", "encode", "-i", "100",
+            [bench, "-p", "rs", "-w", "encode", "-i", "100",
              "-s", str(1 << 20), "-P", "k=8", "-P", "m=3",
-             "-d", os.path.dirname(NATIVE_BENCH)],
+             "-d", os.path.dirname(bench)],
             capture_output=True, text=True, timeout=300, check=True)
         elapsed, kib = out.stdout.split()
         return (float(kib) * 1024 / float(elapsed) / 1e9,
-                "cpp-rs-avx2 (measured live)")
+                f"cpp-rs-avx2 (measured live, {os.path.relpath(bench, REPO)})")
     except Exception as e:  # noqa: BLE001 - recorded in the line
         return None, f"cpp-rs-avx2: run failed ({type(e).__name__}: {e})"
 

@@ -302,9 +302,9 @@ def _survivors_read(ec, available: tuple, erased: tuple) -> float:
     a bitmatrix decode reads."""
     ms = decode_matrix_static(ec, available, erased)
     if ms is None:
-        return float(min(ec.get_data_chunk_count(), len(available)))
+        return float(min(ec.get_data_chunk_count(), len(available)))  # tpu-lint: disable=gf-float -- a cost-model chunk count, not GF math
     cols = int(np.count_nonzero(np.asarray(ms).any(axis=0)))
-    return cols / getattr(ec, "sub_chunk_no", 1)
+    return cols / getattr(ec, "sub_chunk_no", 1)  # tpu-lint: disable=gf-float -- a cost-model fraction of chunks read, not GF math
 
 
 def _matrix_costs(ec, available: tuple, erased: tuple):

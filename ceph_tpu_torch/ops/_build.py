@@ -18,6 +18,8 @@ A failed build raises :class:`KernelBuildError`; nothing falls back to
 the torch tier.
 """
 
+# tpu-lint: scope=host -- the build's paths (pathlib's /), not GF math
+
 from __future__ import annotations
 
 import ctypes

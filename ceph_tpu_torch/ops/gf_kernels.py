@@ -532,9 +532,13 @@ def apply_matrix_cuda(chunks: torch.Tensor, matrix_t) -> torch.Tensor:
     if out.numel() == 0:
         return out
     batch, bstride = _merged_batch(chunks, chunks.dim() - 2, 1)
-    apply_matrix_cuda.launches += _launch(
+    # the launch first, then the count: ``_launch`` releases the GIL
+    # (ctypes), and a count read before it loses another thread's
+    # launches
+    launched = _launch(
         chunks, out, batch, c, (bstride, chunks.stride(-2)), (r * c, c),
         static)
+    apply_matrix_cuda.launches += launched
     return out
 
 
@@ -562,9 +566,10 @@ def apply_matrix_cuda_packed(words: torch.Tensor, matrix_t) -> torch.Tensor:
     if out.numel() == 0:
         return pack_chunks(out)
     batch, bstride = _merged_batch(words, words.dim() - 3, 4)
-    apply_matrix_cuda_packed.launches += _launch(
+    launched = _launch(
         words, out, batch, nbytes, (bstride, words.stride(-3) * 4),
         (r * nbytes, nbytes), static)
+    apply_matrix_cuda_packed.launches += launched
     return pack_chunks(out)
 
 
@@ -593,9 +598,10 @@ def apply_matrix_cuda_words(words: torch.Tensor, matrix_t, w: int
         return out
     el = w // 8
     batch, bstride = _merged_batch(words, words.dim() - 2, el)
-    apply_matrix_cuda_words.launches += _launch(
+    launched = _launch(
         words, out, batch, ce * el, (bstride, words.stride(-2) * el),
         (r * ce * el, ce * el), static, w)
+    apply_matrix_cuda_words.launches += launched
     return out
 
 
@@ -638,9 +644,10 @@ def apply_matrix_cuda_ragged(pool: torch.Tensor, matrix_t,
     out = torch.empty((p, r, c), dtype=torch.uint8, device=pool.device)
     if out.numel() == 0:
         return out
-    apply_matrix_cuda_ragged.launches += _launch(
+    launched = _launch(
         pool, out, p, c, (pool.stride(0), pool.stride(1)), (r * c, c),
         static, mask=mask)
+    apply_matrix_cuda_ragged.launches += launched
     return out
 
 
@@ -668,9 +675,10 @@ def apply_matrix_cuda_packed_ragged(words: torch.Tensor, matrix_t,
     out = torch.empty((p, r, nbytes), dtype=torch.uint8, device=words.device)
     if out.numel() == 0:
         return pack_chunks(out)
-    apply_matrix_cuda_packed_ragged.launches += _launch(
+    launched = _launch(
         words, out, p, nbytes, (words.stride(0) * 4, words.stride(1) * 4),
         (r * nbytes, nbytes), static, mask=mask)
+    apply_matrix_cuda_packed_ragged.launches += launched
     return pack_chunks(out)
 
 

@@ -157,7 +157,7 @@ _ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
 # -> demote(numpy) can never loop
 _MAX_ESCALATIONS = 6
 _MAX_SPLIT_DEPTH = 8
-_DEFAULT_HANG_S = 1.0
+_DEFAULT_HANG_S = 1.0  # tpu-lint: disable=gf-float -- hang deadline seconds, not GF math
 
 _HOST = object()        # _escalate verdict: complete on the host twin
 
@@ -340,11 +340,13 @@ class DispatchSupervisor:
             else default_clock("ops.supervisor.DispatchSupervisor",
                                SystemClock)
         self.retry_policy = retry_policy or RetryPolicy(
-            attempts=3, base_delay=0.002, multiplier=2.0, max_delay=0.05)
+            attempts=3, base_delay=0.002,  # tpu-lint: disable=gf-float -- backoff seconds, not GF math
+            multiplier=2.0,  # tpu-lint: disable=gf-float -- backoff multiplier, not GF math
+            max_delay=0.05)  # tpu-lint: disable=gf-float -- backoff seconds, not GF math
         if deadline_s is None:
             env = os.environ.get("CEPH_TPU_DISPATCH_DEADLINE",
                                  "").strip()
-            deadline_s = float(env) if env else None
+            deadline_s = float(env) if env else None  # tpu-lint: disable=gf-float -- wall-clock seconds, not GF math
         self.deadline_s = deadline_s
         if self_verify is None:
             self_verify = os.environ.get(

@@ -121,6 +121,8 @@ class XorSchedule:
         schedule (pure copies: inf is not valid JSON)."""
         if not self.vpu_ops:
             return None
+        # tpu-lint: disable=gf-float -- reporting-only ratio of two
+        # op COUNTS (cost-model stat), not GF symbol math
         return round(self.dense_vpu_ops / self.vpu_ops, 3)
 
     def stats(self) -> dict:
@@ -766,6 +768,9 @@ def row_program(static: tuple, w: int, outs: Optional[tuple] = None
             need.add(n)
             stack.extend(x for x in ops[n - n_in][1:3] if x >= n_in)
     reads: Dict[int, int] = {}
+    # tpu-lint: disable=det-set-order -- a set of ints: its order is their
+    # hashes' (PYTHONHASHSEED salts only str and bytes), and the counts
+    # it builds do not depend on it
     for n in need:
         for x in ops[n - n_in][1:3]:
             reads[x] = reads.get(x, 0) + 1

@@ -56,7 +56,7 @@ class DetMonitor:
 
     def __init__(self) -> None:
         # monitor-internal; never a make_lock product
-        self._mu = threading.Lock()
+        self._mu = threading.Lock()  # tpu-lint: disable=conc-registry-gap -- monitor bookkeeping lock: instrumenting it would recurse
         self._tls = threading.local()
         self._injected_depth = 0
         self._injected_label: Optional[str] = None
@@ -154,7 +154,7 @@ class _TripwireClock:
 
 
 _monitor_global: Optional[DetMonitor] = None
-_monitor_global_lock = threading.Lock()
+_monitor_global_lock = threading.Lock()  # tpu-lint: disable=conc-registry-gap -- guards monitor construction: instrumenting it would recurse
 
 
 def global_monitor() -> DetMonitor:

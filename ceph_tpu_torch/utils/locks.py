@@ -24,9 +24,8 @@ The gate is creation-time: flipping the env var mid-process does not
 re-instrument existing locks.  ``lockcheck_report()`` exports the
 schema-versioned report (``lockcheck_schema_version``) that
 tests/test_torch_lockcheck.py validates while the seeded
-dispatch-chaos family runs.  The reference's cross-check of runtime
-edges against its static lock graph (``analysis/concurrency.py``) is
-not ported yet (ROADMAP Queue A item 8).
+dispatch-chaos family runs, with every runtime edge predicted by the
+static lock graph (``analysis/concurrency.py::static_lock_graph``).
 """
 
 from __future__ import annotations
@@ -89,7 +88,7 @@ class LockMonitor:
         self.ranks = dict(ranks) if ranks is not None else _declared_ranks()
         self.blocking_threshold = blocking_threshold
         # monitor-internal; never a make_lock product
-        self._mu = threading.Lock()  # monitor bookkeeping: instrumenting it would recurse
+        self._mu = threading.Lock()  # tpu-lint: disable=conc-registry-gap -- monitor bookkeeping lock: instrumenting it would recurse
         self._tls = threading.local()
         self._locks: Dict[str, Dict[str, object]] = {}
         self._edges: Set[Tuple[str, str]] = set()
@@ -304,7 +303,7 @@ class CheckedRLock(_CheckedBase):
 
 
 _monitor_global: Optional[LockMonitor] = None
-_monitor_global_lock = threading.Lock()  # instrumenting it would recurse
+_monitor_global_lock = threading.Lock()  # tpu-lint: disable=conc-registry-gap -- guards monitor construction: instrumenting it would recurse
 
 
 def global_monitor() -> LockMonitor:

@@ -202,8 +202,8 @@ source, all started together) and then, in order:
    probed (``PassProbe``: launches, wall time, span roots, the fused
    calls' device time by CUDA events):
 
-   - 7a ``-w repair-batched --size 4194304 --batch 16 -e 2
-     --corruptions 1 --iterations 1``: 16 objects, 3 bad shards each
+   - 7a ``-w repair-batched --size 4194304 --batch 8 -e 2
+     --corruptions 1 --iterations 1``: 8 objects, 3 bad shards each
      (the whole budget), 4 patterns; one device call per pattern, no
      host batch, the dense kernel in every timed pass, every healed
      store equal to its object and to the host path's heal
@@ -426,9 +426,41 @@ source, all started together) and then, in order:
    GF(2^8) kernel must be among them.  The phase prints one ``{"tools":
    {...}}`` line: per tool its rc, seconds and launches.
 
+13. ``plugin=cuda``, the native bridge (``ceph_tpu_torch/native``):
+   the registry, the AVX2 ``rs`` plugin, ``libec_cuda.so`` and the tools
+   built from the checkout with ``c++`` (``native/build.py``, started in
+   phase 1 beside the ``nvcc`` runs); the corpus's RS k=4 m=2, shec k=6
+   m=3 c=2 and RS k=8 m=3 entries encoded by the unmodified
+   ``ceph_erasure_code`` through ``plugin=cuda``, byte for byte (their
+   stripes are below ``min_xla_bytes``, so the port runs the reference's
+   host rule for them); a seeded 1 MiB RS k=8 m=3 payload encoded by the
+   same tool through ``plugin=cuda`` on the card, whose counters (read
+   in the tool's process, ``CEPH_TPU_BRIDGE_STATS``) must show a
+   device-tier call and a launch of the dense GF(2^8) kernel, and whose
+   11 chunks must equal the same tool's with ``-P device=cpu`` and
+   ``regionops.matrix_encode`` here; ``ceph_erasure_code_benchmark -p
+   cuda`` and ``-p rs`` on the north star's flags (RS k=8 m=3, 1 MiB,
+   500 encodes, 200 decodes ``-e 2`` and 200 on the fixed pattern
+   ``--erased 0 --erased 9``), each GB/s printed, and for ``-p cuda``
+   the bridge's own time per call read inside the tool (taking the GIL,
+   the copies in, the port's call, the copies out; a decode's first use
+   of a pattern apart from its repeats, with the steady-state GB/s);
+   ``bridge_mt`` (init on the main thread, round trips from two more, 1
+   MiB stripes) on the card, whose counter line, read inside the C++
+   process, must show device-tier calls and launches of the dense
+   GF(2^8) kernel (row 1), each kernel held in phases 2-4; the no-card
+   arm (``CUDA_VISIBLE_DEVICES=``) must exit non-zero naming
+   ``NoDeviceError``; and ``python -m ceph_tpu_torch.tools.lint`` with
+   its ``--conc`` and ``--det`` forms must exit 0.  The encodes,
+   ``bridge_mt``, the lint tiers and the arm run side by side, the
+   benchmarks one at a time.  Then where a bridge encode's time goes, in this process (host
+   ms per stripe): the tool's call, the dict API the plugin calls, the
+   batch entry on a host array, the apply on a card tensor.  The phase
+   prints one ``{"bridge": {...}}`` line.
+
 Every phase prints its own seconds: phases 1-4 a ``{"phase": N,
-"seconds": S}`` line, phases 5-12 a ``seconds`` key in their line; a
-``{"phase_seconds": {...}}`` line follows phase 12.  The last line of
+"seconds": S}`` line, phases 5-13 a ``seconds`` key in their line; a
+``{"phase_seconds": {...}}`` line follows phase 13.  The last line of
 standard output is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line.
 Any failed check raises, so the script exits non-zero and prints no
@@ -487,14 +519,15 @@ CRUSH_WORK = "chip_smoke_work"
 # star's code, jerasure reed_sol_van k=8 m=3
 RS_ARGV = ["--plugin", "jerasure", "-P", "technique=reed_sol_van",
            "-P", "k=8", "-P", "m=3"]
-# 16 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
+# 8 objects, 3 bad shards each (the whole budget of m=3), 4 patterns.
 # One timed pass each (after the workload's warm pass): the host CRC sets
-# a pass's pace, so --iterations and the object counts (7a 16, 7b 8,
-# 7d 6: halved once for the data plane's phase and again, 7d by a
-# quarter, for the tools' phase) are the cuts that keep the phase's
-# time down; the object size and the fault budget are Ceph's and stay
+# a pass's pace, so --iterations and the object counts (7a 8, 7b 8, 7d
+# 6: halved once for the data plane's phase and again, 7d by a quarter,
+# for the tools' phase, and 7a once more for the bridge's) are the cuts
+# that keep the phase's time down; the object size and the fault budget
+# are Ceph's and stay
 REPAIR_ARGV = RS_ARGV + ["--workload", "repair-batched", "--size",
-                         str(4 << 20), "--batch", "16", "-e", "2",
+                         str(4 << 20), "--batch", "8", "-e", "2",
                          "--corruptions", "1", "--iterations", "1",
                          "--device", "cuda"]
 CHURN_ARGV = RS_ARGV + ["--workload", "recovery-churn", "--size",
@@ -3218,6 +3251,334 @@ def tools_phase(seed: int, held: dict, row_a=None, bench=None) -> dict:
     return out
 
 
+# -- phase 13: plugin=cuda, the native bridge, and the lint tiers ------------
+
+# the north star's flags (ceph_erasure_code_benchmark's own spelling)
+NATIVE_NORTH_STAR = ["-P", "backend=jerasure", "-P", "technique=reed_sol_van",
+                     "-P", "k=8", "-P", "m=3", "-s", str(1 << 20)]
+# calls per benchmark run: 500 encodes, 200 decodes (a random -e 2
+# pattern's first use sets up its decode matrix: 55 patterns; the fixed
+# pattern, one)
+NATIVE_ITERS = {"encode": 500, "decode": 200}
+NATIVE_WORKLOADS = (["-w", "encode"], ["-w", "decode", "-e", "2"],
+                    ["-w", "decode", "--erased", "0", "--erased", "9"])
+BRIDGE_SEED = 17
+# (corpus entry, chunk count, the bridge's profile)
+BRIDGE_CORPUS = (
+    ("jerasure__k=4__m=2__technique=reed_sol_van", 6,
+     ["-P", "backend=jerasure", "-P", "technique=reed_sol_van",
+      "-P", "k=4", "-P", "m=2"]),
+    ("shec__c=2__k=6__m=3", 9,
+     ["-P", "backend=shec", "-P", "k=6", "-P", "m=3", "-P", "c=2"]),
+    ("jerasure__k=8__m=3__technique=reed_sol_van", 11,
+     NATIVE_NORTH_STAR[:8]),
+)
+LINT_TIERS = ([], ["--conc"], ["--det"])
+
+
+def bridge_phase(held: dict) -> dict:
+    """Phase 13 (the module docstring): the port's native tree built
+    from the checkout, an unmodified C++ consumer on ``plugin=cuda`` (the
+    corpus, the north star's encode and decode beside ``-p rs``, three
+    threads in ``bridge_mt`` with the port's counters read inside that
+    process), the no-card arm, and the three lint tiers over the port.
+    ``held``: the wrappers phases 2-4 held against their plain versions
+    (every kernel the bridge launched must be among them)."""
+    import shutil
+    import tempfile
+    from ceph_tpu_torch.native import build as native_build
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    built = native_build.build()
+    build_s = time.perf_counter() - t0
+    print(f"phase 13: native build {build_s:.2f} s: "
+          + ", ".join(sorted(built)))
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    procs: list = []
+    try:
+        out = _bridge_runs(held, built, root, work, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    out["build_s"] = build_s
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+def _bridge_runs(held: dict, built: dict, root: str, work: str,
+                 procs: list) -> dict:
+    """Phase 13's runs (``bridge_phase``); every process started is
+    added to ``procs``, which the caller stops."""
+    out: dict = {}
+    bdir = str(built["libec_cuda.so"].parent)
+    tool = str(built["ceph_erasure_code"])
+
+    def start(cmd, env=None):
+        proc = subprocess.Popen([str(c) for c in cmd], cwd=root, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        return proc
+
+    def finish(proc, what: str, timeout: float = 600):
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise RuntimeError(f"check failed: phase 13: {what} timed out")
+        return proc.returncode, stdout, stderr
+
+    # 13a: the corpus through plugin=cuda (its stripes run the host
+    # rule), a seeded 1 MiB payload on the card and with device=cpu,
+    # bridge_mt, the lint tiers and the no-card arm, side by side (the
+    # lint is CPU work, the arm sees no device)
+    import numpy as np
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops.regionops import matrix_encode
+    t0 = time.perf_counter()
+    payload = np.random.default_rng(BRIDGE_SEED).integers(
+        0, 256, 1 << 20, dtype=np.uint8)
+    payload_path = os.path.join(work, "payload")
+    payload.tofile(payload_path)
+    stripes = []
+    for label, extra in (("cuda", []), ("cpu", ["-P", "device=cpu"])):
+        d = os.path.join(work, f"stripe_{label}")
+        os.makedirs(d)
+        stats = os.path.join(work, f"stripe_{label}.jsonl")
+        stripes.append((label, d, stats, start(
+            [tool, "encode", "--plugin", "cuda", *NATIVE_NORTH_STAR[:8],
+             *extra, "--input", payload_path, "--output-dir", d, "-d", bdir],
+            env=dict(os.environ, CEPH_TPU_BRIDGE_STATS=stats))))
+    encodes = []
+    for cdir, n, params in BRIDGE_CORPUS:
+        d = os.path.join(work, cdir)
+        os.makedirs(d)
+        src = os.path.join(root, "tests", "corpus", cdir)
+        encodes.append((cdir, n, src, d, start(
+            [tool, "encode", "--plugin", "cuda", *params, "--input",
+             os.path.join(src, "content"), "--output-dir", d, "-d", bdir])))
+    lints = [(tier, start([sys.executable, "-m", "ceph_tpu_torch.tools.lint",
+                           *tier]))
+             for tier in LINT_TIERS]
+    # three threads on the card; the port's counters read inside the C++
+    # process
+    bridge_mt = start([built["bridge_mt"], bdir, "cuda"])
+    no_card = start([tool, "encode", "--plugin", "cuda", *NATIVE_NORTH_STAR[:8],
+                     "--input", os.path.join(root, "tests", "corpus",
+                                             BRIDGE_CORPUS[0][0], "content"),
+                     "--output-dir", work, "-d", bdir],
+                    env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    corpus = {}
+    for cdir, n, src, d, proc in encodes:
+        rc, _, stderr = finish(proc, f"the {cdir} encode")
+        check(rc == 0, f"phase 13: plugin=cuda encode of {cdir}: rc {rc}: "
+                       f"{stderr[-2000:]}")
+        for i in range(n):
+            with open(os.path.join(d, f"chunk.{i}"), "rb") as f, \
+                    open(os.path.join(src, str(i)), "rb") as g:
+                check(f.read() == g.read(),
+                      f"phase 13: {cdir} chunk {i} equals the corpus")
+        corpus[cdir] = n
+    out["corpus"] = corpus
+    # the 1 MiB stripe: the card's chunks, the CPU's and numpy's agree
+    rs83 = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"},
+        device="cpu")
+    data = payload.reshape(8, -1)
+    want = list(data) + list(matrix_encode(data, np.asarray(rs83.matrix)))
+    stripe = {}
+    for label, d, stats, proc in stripes:
+        rc, _, stderr = finish(proc, f"the 1 MiB {label} encode")
+        check(rc == 0, f"phase 13: plugin=cuda 1 MiB encode ({label}): rc "
+                       f"{rc}: {stderr[-2000:]}")
+        for i, chunk in enumerate(want):
+            with open(os.path.join(d, f"chunk.{i}"), "rb") as f:
+                check(f.read() == chunk.tobytes(),
+                      f"phase 13: the 1 MiB stripe's chunk {i} ({label}) "
+                      f"equals regionops.matrix_encode's")
+        with open(stats) as f:
+            port = json.loads(f.read().splitlines()[-1])["port"]
+        launched = {k: v for k, v in port["launches"].items() if v}
+        stripe[label] = {"ec_device_calls": port["ec_device_calls"],
+                         "ec_host_calls": port["ec_host_calls"],
+                         "launched": launched}
+        print(f"phase 13: ceph_erasure_code encode, 1 MiB RS k=8 m=3 "
+              f"({label}): 11 chunks equal; ec_device_calls "
+              f"{port['ec_device_calls']}, launched {launched}")
+        check(port["ec_device_calls"] > 0 and port["ec_host_calls"] == 0,
+              f"phase 13: the 1 MiB stripe ran on the device tier "
+              f"({label})")
+    check(stripe["cuda"]["launched"].get("apply_matrix_cuda", 0) > 0,
+          "phase 13: the 1 MiB stripe's encode launched the dense GF(2^8) "
+          "kernel (row 1) inside ceph_erasure_code")
+    out["stripe_1mib"] = stripe
+    out["lint"] = {}
+    for tier, proc in lints:
+        rc, stdout, stderr = finish(proc, f"lint {tier}")
+        label = " ".join(["lint", *tier])
+        tail = (stdout.strip().splitlines() or [stderr.strip()])[-1]
+        print(f"phase 13: {label}: rc {rc}: {tail}")
+        check(rc == 0, f"phase 13: {label} is clean: {stdout[-2000:]}"
+                       f"{stderr[-2000:]}")
+        out["lint"][label] = {"rc": rc, "summary": tail}
+    rc, _, stderr = finish(no_card, "the no-card arm")
+    line = (stderr.strip().splitlines() or [""])[-1]
+    print(f"phase 13: no card (CUDA_VISIBLE_DEVICES=): rc {rc}: {line}")
+    check(rc != 0 and "NoDeviceError" in stderr,
+          "phase 13: without a card plugin=cuda fails with NoDeviceError")
+    out["no_card"] = {"rc": rc, "stderr": line}
+    rc, stdout, stderr = finish(bridge_mt, "bridge_mt")
+    check(rc == 0, f"phase 13: bridge_mt on the card: rc {rc}: "
+                   f"{stdout[-2000:]}{stderr[-2000:]}")
+    counters = json.loads(stdout.strip().splitlines()[-1])
+    launched = {k: v for k, v in counters["launches"].items() if v}
+    print(f"phase 13: bridge_mt cuda: ec_device_calls "
+          f"{counters['ec_device_calls']}, ec_host_calls "
+          f"{counters['ec_host_calls']}, launched {launched}")
+    check(counters["ec_device_calls"] > 0,
+          "phase 13: the bridge's stripes ran on the device tier")
+    check(launched.get("apply_matrix_cuda", 0) > 0,
+          "phase 13: the dense GF(2^8) kernel (row 1) launched inside the "
+          "C++ process")
+    out["bridge_mt"] = {"ec_device_calls": counters["ec_device_calls"],
+                        "ec_host_calls": counters["ec_host_calls"],
+                        "launched": launched}
+    launched = dict(launched)
+    for label in stripe:
+        for name, n in stripe[label]["launched"].items():
+            launched[name] = launched.get(name, 0) + n
+    out["side_by_side_s"] = time.perf_counter() - t0
+
+    # 13b: the north star through ceph_erasure_code_benchmark, -p cuda
+    # and -p rs on this host, one run at a time; decode -e 2 draws its
+    # patterns at random (the reference's default), --erased fixes one;
+    # -p cuda runs with the bridge's own timing on
+    bench = str(built["ceph_erasure_code_benchmark"])
+    rates = {}
+    for plugin in ("cuda", "rs"):
+        for workload in NATIVE_WORKLOADS:
+            label = f"{plugin} {' '.join(workload[1:])}"
+            iters = NATIVE_ITERS[workload[1]]
+            stats = os.path.join(work, f"bench_{len(rates)}.jsonl")
+            env = dict(os.environ, CEPH_TPU_BRIDGE_STATS=stats)
+            rc, stdout, stderr = finish(start(
+                [bench, "-p", plugin, *NATIVE_NORTH_STAR, *workload,
+                 "-i", str(iters), "-d", bdir], env=env), label)
+            check(rc == 0, f"phase 13: benchmark {label}: rc {rc}: "
+                           f"{stderr[-2000:]}")
+            elapsed, kib = stdout.split()
+            row = {"seconds": float(elapsed), "kib": int(kib),
+                   "gbps": int(kib) * 1024 / float(elapsed) / 1e9}
+            print(f"phase 13: ceph_erasure_code_benchmark -p {plugin} "
+                  f"{' '.join(workload)} -s 1048576 -i {iters}: "
+                  f"{row['gbps']:.6f} GB/s ({elapsed} s, {kib} KiB)")
+            if plugin == "cuda":
+                with open(stats) as f:
+                    line = json.loads(f.read().splitlines()[-1])
+                row["bridge"] = bridge_time(line, workload[1], iters, row)
+                for name, n in line["port"]["launches"].items():
+                    if n:
+                        launched[name] = launched.get(name, 0) + n
+            rates[label] = row
+    out["benchmark"] = rates
+    # the bridge_mt, 1 MiB stripe and benchmark processes' launches
+    out["launched"] = launched
+    unheld = sorted(set(launched) - set(held))
+    check(not unheld, f"phase 13 launched kernels no earlier phase held "
+                      f"against their plain versions: {unheld}")
+    out["anatomy"] = bridge_anatomy(rates["cuda encode"])
+    return out
+
+
+def bridge_time(line: dict, op: str, iters: int, row: dict) -> dict:
+    """13c: a ``-p cuda`` benchmark run's time per call as the bridge
+    timed it inside the tool (``CEPH_TPU_BRIDGE_STATS``'s line), in ms:
+    taking the GIL, the copies into python objects, the port's call, the
+    copies out, their sum (the entry), and the tool's own per-call time
+    around it (its chunk split, its maps and compares).  Decodes split
+    the entry by first use of a pattern (its decode matrix set up) and
+    repeats; the steady-state GB/s takes the first uses' setup out."""
+    b = line["bridge"][op]
+    check(b["calls"] == iters, f"phase 13: the bridge timed {b['calls']} "
+                               f"{op} calls of {iters}")
+    ms = {seg: b[f"{seg}_ns"] / iters / 1e6
+          for seg in ("gil", "in", "call", "out")}
+    ms["entry"] = sum(ms.values())
+    ms["tool"] = row["seconds"] * 1e3 / iters
+    ms["consumer"] = ms["tool"] - ms["entry"]
+    out = {"ms": ms, "first": b["first"],
+           "kernel_setups": line["port"]["kernel_setups"],
+           "ec_device_calls": line["port"]["ec_device_calls"]}
+    check(line["port"]["ec_device_calls"] >= iters,
+          f"phase 13: the benchmark's {op} calls ran on the device tier")
+    repeats = iters - b["first"]
+    if op == "decode" and repeats:
+        first_ms = b["first_ns"] / b["first"] / 1e6
+        repeat_ms = (ms["entry"] * iters - b["first_ns"] / 1e6) / repeats
+        setup_s = b["first"] * max(first_ms - repeat_ms, 0.0) / 1e3
+        out.update(first_ms=first_ms, repeat_ms=repeat_ms, setup_s=setup_s,
+                   steady_gbps=row["kib"] * 1024
+                   / (row["seconds"] - setup_s) / 1e9)
+    print(f"phase 13: the bridge's ms per {op} call inside the tool: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; first uses {b['first']}"
+          + (f" at {out['first_ms']:.4f} ms, repeats {out['repeat_ms']:.4f}"
+             f" ms, setup {out['setup_s']:.4f} s, steady state "
+             f"{out['steady_gbps']:.6f} GB/s" if "first_ms" in out else "")
+          + f"; kernel setups {out['kernel_setups']}")
+    return out
+
+
+ANATOMY_CALLS = 200
+
+
+def bridge_anatomy(tool_rate: dict) -> dict:
+    """13d: where a bridge encode's time goes, layer by layer, in this
+    process on the card (host clock, ms per 1 MiB RS k=8 m=3 stripe):
+    the C++ tool's call (from 13b's rate), the dict API the plugin calls
+    (``encode_chunks``: bytes in, bytes out), the batch entry on a host
+    array (``encode_chunks_batch``), and the matrix apply on a card
+    tensor, synchronized (``apply_matrix_best``)."""
+    import numpy as np
+    import torch
+    from ceph_tpu_torch.codes.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_best
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"})
+    data = np.random.default_rng(13).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    chunks = ec.encode_prepare(data)
+    want = set(range(ec.get_chunk_count()))
+    host = np.stack([np.frombuffer(chunks[i], dtype=np.uint8)
+                     for i in range(ec.get_data_chunk_count())])[None]
+    card = torch.from_numpy(host).to("cuda")
+
+    def apply():
+        apply_matrix_best(card, ec._matrix_static, 8)
+        torch.cuda.synchronize()
+
+    out = {"tool": (1 << 20) / (tool_rate["gbps"] * 1e6)}
+    for name, fn in (("encode_chunks", lambda: ec.encode_chunks(want,
+                                                                 chunks)),
+                     ("encode_chunks_batch",
+                      lambda: ec.encode_chunks_batch(host)),
+                     ("apply_matrix_best", apply)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(ANATOMY_CALLS):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e3 / ANATOMY_CALLS
+    print("phase 13: a bridge encode's host ms per 1 MiB stripe: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
 def tune_table_child() -> dict:
     """10d's child: the CLI's r6 encode row under ``--tune-table``, the
     routed kernel and its device time, the bytes against the default
@@ -3472,7 +3833,7 @@ def main(argv=None) -> int:
 
     def phase_done(n: int) -> None:
         """Each phase's seconds: phases 1-4 print a line of their own,
-        5-12 carry ``seconds`` in their JSON line."""
+        5-13 carry ``seconds`` in their JSON line."""
         now = time.perf_counter()
         phase_s[n] = now - t_mark[0]
         t_mark[0] = now
@@ -3490,9 +3851,17 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"sms {props.multi_processor_count}")
     t0 = time.perf_counter()
-    built = _build.build()
+    # the native tree (phase 13's) compiles with c++ beside the nvcc runs,
+    # before anything is timed
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.native import build as native_build
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_build.build)
+        built = _build.build()
+        native.result()
     print(f"kernel build {time.perf_counter() - t0:.2f} s: "
-          + ", ".join(f"{n} -> {p.name}" for n, p in sorted(built.items())))
+          + ", ".join(f"{n} -> {p.name}" for n, p in sorted(built.items()))
+          + ", and the native tree")
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -5208,6 +5577,8 @@ def main(argv=None) -> int:
     phase_line(11, "cluster_scenario", cluster_scenario_phase(seed))
     # -- phase 12: the repo-root tools and demos -------------------------
     phase_line(12, "tools", tools_phase(seed, err, crush["A"], bench))
+    # -- phase 13: plugin=cuda, the native bridge, and the lint tiers ----
+    phase_line(13, "bridge", bridge_phase(err))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values())}))
     print(json.dumps({"kernels": kernels}))

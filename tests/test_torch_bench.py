@@ -748,9 +748,13 @@ def test_row_launch_count_reads_the_counters(monkeypatch):
     assert res["workload"] == "encode" and launches == 0
 
 
-def test_native_baseline_is_null_when_not_built(monkeypatch, tmp_path):
-    monkeypatch.setattr(bench_line, "NATIVE_BENCH",
-                        str(tmp_path / "ceph_erasure_code_benchmark"))
+def test_native_baseline_is_null_when_not_built(monkeypatch):
+    from ceph_tpu_torch.native import build
+
+    def no_build():
+        raise build.NativeBuildError("no C++ compiler")
+
+    monkeypatch.setattr(build, "build", no_build)
     gbps, src = bench_line.native_baseline()
     assert gbps is None and "not built" in src
 

@@ -6,10 +6,10 @@ clock, and the same case through the reference's classes; the reports
 must be equal.  The acceptance case runs the seeded dispatch-chaos
 family in a subprocess under ``CEPH_TPU_LOCKCHECK=1``: a valid report,
 the supervisor's lock among those recorded, zero order violations, zero
-blocking events, nothing unregistered.  The reference's cross-check
-against its static lock graph (``analysis/concurrency.py``) waits for
-ROADMAP Queue A item 8; in its place every ``make_lock`` id under
-``ceph_tpu_torch/`` must have a rank in the port's table.
+blocking events, nothing unregistered, and every runtime edge predicted
+by the port's static lock graph (``analysis/concurrency.py``).  Every
+``make_lock`` id under ``ceph_tpu_torch/`` must have a rank in the
+port's table.
 """
 
 from __future__ import annotations
@@ -407,3 +407,11 @@ def test_chaos_family_runs_in_declared_order():
     ranks = lockmodel.all_ranks()
     for held, acquired in doc["edges"]:
         assert ranks[held] < ranks[acquired], (held, acquired)
+    # every runtime held->acquired edge is predicted by the port's static
+    # lock graph (analysis/concurrency.py), as the reference's test holds
+    # its own
+    from ceph_tpu_torch.analysis.concurrency import static_lock_graph
+    static = {tuple(e) for e in
+              static_lock_graph([str(REPO_ROOT / "ceph_tpu_torch")])["edges"]}
+    runtime = {tuple(e) for e in doc["edges"]}
+    assert runtime <= static, f"unpredicted edges: {runtime - static}"

@@ -249,12 +249,19 @@ def _norm_dump(dump: dict, drop: tuple = ()) -> dict:
     (["--scenario", "traced-day", "--fake-clock", "--validate",
       "--requests", "24"], "host"),
 ], ids=["recovery_churn", "repair_prom", "unrecoverable", "traced_day"])
-def test_perf_dump_fake_clock_matches_reference(argv, device, capsys):
+def test_perf_dump_fake_clock_matches_reference(argv, device, capsys,
+                                               monkeypatch):
     """Under --fake-clock the dumps are deterministic: the port's equals
     the reference's after the tier-name map (``_norm_dump``); the
     Prometheus text of ``--format both`` is compared series by series
     the same way.  The traced day runs the host executor on both sides
-    (the reference's tool does)."""
+    (the reference's tool does).  The reference's tool runs as in a new
+    process: with no jax compile listener, which its fake-clock run never
+    installs but an earlier test in the same process may have (the
+    reference's device-executor serving runs do)."""
+    from jax._src import monitoring as jax_monitoring
+    monkeypatch.setattr(jax_monitoring, "_event_duration_secs_listeners",
+                        [])
     R, P = ref_tool("tools/perf_dump.py"), port_tool("perf_dump")
     rc_r, out_r, err_r = call(capsys, R.main, argv)
     rc_p, out_p, err_p = call(capsys, P.main, argv + ["--device", device])
