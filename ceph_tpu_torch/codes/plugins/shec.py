@@ -37,6 +37,7 @@ from ...ops.gf_kernels import apply_matrix_best, apply_matrix_best_ragged, \
     apply_matrix_packed_best
 from ...ops.torch_ops import matrix_to_static, torch_bytes_view, \
     torch_words_view
+from ...telemetry import spans
 from ..base import ErasureCode
 from ..engine import global_pattern_cache, pattern_key
 from ..linear import DecodePlan, decode_plan
@@ -243,13 +244,17 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
                             erased: tuple) -> torch.Tensor:
         """(batch, len(available), C) tensor -> (batch, len(erased), C) on
         the code's device: the plan's reads selected by index, one apply
-        of its matrix through the engine table."""
-        self._check_device(chunks)
-        plan, sel, keep = self._plan_indices(tuple(available), tuple(erased))
-        dm_static = self._plan_static(plan)[1]
-        words = torch_words_view(_take(chunks, sel), self.w)
-        out = torch_bytes_view(apply_matrix_best(words, dm_static, self.w))
-        return _take(out, keep)
+        of its matrix through the engine table; one armed root span
+        ``codec.decode`` (telemetry/spans.py) a call."""
+        with spans.root("codec.decode"):
+            self._check_device(chunks)
+            plan, sel, keep = self._plan_indices(tuple(available),
+                                                 tuple(erased))
+            dm_static = self._plan_static(plan)[1]
+            words = torch_words_view(_take(chunks, sel), self.w)
+            out = torch_bytes_view(apply_matrix_best(words, dm_static,
+                                                     self.w))
+            return _take(out, keep)
 
     def decode_chunks_ragged_torch(self, pool: torch.Tensor,
                                    mask: torch.Tensor, available: tuple,

@@ -27,7 +27,9 @@ Surfaces of both:
   regionops ground truth (``utils.debug``).
 - ``encode_chunks_torch`` / ``decode_chunks_torch``: a tensor on the
   code's device in, a tensor on that device out (the counterparts of
-  ``*_jax``).
+  ``*_jax``); each call is an armed root span ``codec.encode`` /
+  ``codec.decode`` (telemetry/spans.py), whose self time is the Python
+  above the engine's dispatch.
 - ``encode_chunks_packed_torch`` / ``decode_chunks_packed_torch``
   (matrix codes): the packed (..., R, 128) uint32 layout, w=8 only.
 - ``page_unit`` and ``encode_chunks_ragged_torch`` /
@@ -58,6 +60,7 @@ from ..ops.torch_ops import bitmatrix_to_static, mask_pages, \
     matrix_to_static, torch_bytes_view, torch_words_view
 from ..ops.xor_schedule import host_matrix_apply, \
     probe_bitmatrix_schedule
+from ..telemetry import spans
 from ..telemetry.metrics import record_dispatch
 from ..utils.debug import DeviceVerificationError, verification_enabled
 from ..utils.perf import global_perf
@@ -166,21 +169,24 @@ class MatrixCodeMixin(_DeviceCode):
     def encode_chunks_torch(self, data: torch.Tensor) -> torch.Tensor:
         """(batch, k, C) uint8 tensor -> (batch, m, C) parity, on the
         code's device."""
-        self._check_device(data)
-        words = torch_words_view(data, self.w)
-        return torch_bytes_view(
-            apply_matrix_best(words, self._matrix_static, self.w))
+        with spans.root("codec.encode"):
+            self._check_device(data)
+            words = torch_words_view(data, self.w)
+            return torch_bytes_view(
+                apply_matrix_best(words, self._matrix_static, self.w))
 
     def decode_chunks_torch(self, chunks: torch.Tensor, available: tuple,
                             erased: tuple) -> torch.Tensor:
         """(batch, len(available), C) tensor -> (batch, len(erased), C)."""
         if len(available) < self.k:
             raise IOError(f"need {self.k} chunks, have {len(available)}")
-        self._check_device(chunks)
-        _, dm_static, ns = self._decode_matrix(tuple(available),
-                                               tuple(erased))
-        words = torch_words_view(chunks[..., :ns, :], self.w)
-        return torch_bytes_view(apply_matrix_best(words, dm_static, self.w))
+        with spans.root("codec.decode"):
+            self._check_device(chunks)
+            _, dm_static, ns = self._decode_matrix(tuple(available),
+                                                   tuple(erased))
+            words = torch_words_view(chunks[..., :ns, :], self.w)
+            return torch_bytes_view(apply_matrix_best(words, dm_static,
+                                                      self.w))
 
     # -- ragged paged surfaces (serve/pool.py page pools) ----------------
 
@@ -321,20 +327,23 @@ class BitmatrixCodeMixin(_DeviceCode):
     def encode_chunks_torch(self, data: torch.Tensor) -> torch.Tensor:
         """(batch, k, C) uint8 tensor -> (batch, m, C) parity, on the
         code's device."""
-        self._check_device(data)
-        return apply_bitmatrix_best(data, self._bitmatrix_static, self.w,
-                                    self.packetsize, self._encode_sched)
+        with spans.root("codec.encode"):
+            self._check_device(data)
+            return apply_bitmatrix_best(data, self._bitmatrix_static,
+                                        self.w, self.packetsize,
+                                        self._encode_sched)
 
     def decode_chunks_torch(self, chunks: torch.Tensor, available: tuple,
                             erased: tuple) -> torch.Tensor:
         """(batch, len(available), C) tensor -> (batch, len(erased), C)."""
         if len(available) < self.k:
             raise IOError(f"need {self.k} chunks, have {len(available)}")
-        self._check_device(chunks)
-        _, dm_static, ns, sched = self._decode_bitmatrix(tuple(available),
-                                                         tuple(erased))
-        return apply_bitmatrix_best(chunks[..., :ns, :], dm_static, self.w,
-                                    self.packetsize, sched)
+        with spans.root("codec.decode"):
+            self._check_device(chunks)
+            _, dm_static, ns, sched = self._decode_bitmatrix(
+                tuple(available), tuple(erased))
+            return apply_bitmatrix_best(chunks[..., :ns, :], dm_static,
+                                        self.w, self.packetsize, sched)
 
     # -- ragged paged surfaces -------------------------------------------
 

@@ -30,8 +30,16 @@ count; each ``lax.while_loop`` fixpoint is a Python loop with the same
 exit condition, tested on the host, that re-runs only the lanes whose
 condition still holds (a lane whose condition is false has a fixed
 state, so this changes where lanes are computed, never the results).
-Each host sync is counted (``crush_bulk_host_syncs`` in
-``utils/perf.py``'s registry).
+Each host sync (a lane mask's indices, a readback, a blocking copy of
+host data to the device, a 0-d index tensor read as an integer) runs
+inside a ``crush.sync`` span (``telemetry/spans.py``) and is counted by
+one function, ``_count_sync``, twice: in ``crush_bulk_host_syncs``
+(``utils/perf.py``'s registry) and, while the span tracer is armed, as
+``host_syncs`` of the open span.  A call's other
+spans: ``crush.rung`` per rung of the ladder (attrs ``tries``,
+``lanes``; its self time is the host's issue of the rung's kernels) and
+``crush.host_residue`` over the host mapper's lanes (counts
+``residue_lanes``).
 
 torch has no uint32 arithmetic: the hash runs over int32 bits
 (``hash.hash32_*_torch``), the tree bucket's (hash * w) >> 32 product is
@@ -60,6 +68,7 @@ import torch
 
 from ..ops.fallback import resolve_device
 from ..ops.supervisor import global_supervisor
+from ..telemetry import spans
 from ..utils.perf import global_perf
 from .hash import as_hash_input, hash32_2_torch, hash32_3_torch, \
     hash32_4_torch
@@ -116,14 +125,51 @@ MAX_BLOCK = 1 << 20
 _NEGLN = (1 << 48) - np.asarray(crush_ln(np.arange(0x10000)))
 
 
-def _count_sync(n: int = 1) -> None:
-    global_perf().inc("crush_bulk_host_syncs", n)
+def _count_sync() -> None:
+    """Count one host sync: ``crush_bulk_host_syncs``, and ``host_syncs``
+    of the open armed span."""
+    global_perf().inc("crush_bulk_host_syncs")
+    spans.note("host_syncs")
 
 
 def _nonzero(mask: torch.Tensor) -> torch.Tensor:
     """Indices of the true lanes of a (N,) mask (a host sync)."""
-    _count_sync()
-    return mask.nonzero().flatten()
+    with spans.child("crush.sync"):
+        _count_sync()
+        return mask.nonzero().flatten()
+
+
+def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host data (a number, a sequence or a numpy array) as a tensor on
+    ``device``: a blocking copy from pageable memory, a host sync on the
+    card (counted on every device, as the other syncs are) unless there
+    is nothing to copy."""
+    if not np.size(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    with spans.child("crush.sync"):
+        _count_sync()
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _at(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
+    """``table[index]``.  torch reads a 0-d index tensor on the host, as
+    an integer (a host sync each): the take bucket's row in a descent's
+    first step is one."""
+    key = index if len(index) > 1 else index[0]
+    held = sum(i.dim() == 0 for i in index)
+    if not held:
+        return table[key]
+    with spans.child("crush.sync"):
+        for _ in range(held):
+            _count_sync()
+        return table[key]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values in host memory (a host sync)."""
+    with spans.child("crush.sync"):
+        _count_sync()
+        return t.cpu().numpy()
 
 
 class CompiledCrushMap:
@@ -229,7 +275,7 @@ class CompiledCrushMap:
         self.max_neg = max_neg
 
         def put(a):
-            return torch.as_tensor(a, device=self.device)
+            return _to_device(a, self.device)
 
         self.items = put(items)
         self.hash_ids = put(hash_ids)
@@ -335,7 +381,8 @@ class CompiledCrushMap:
 
     def row(self, item: torch.Tensor) -> torch.Tensor:
         """Table row of bucket ids (int64; clamped for non-buckets)."""
-        return self.id_to_row[(-1 - item.long()).clamp(0, self.max_neg)]
+        return _at(self.id_to_row,
+                   (-1 - item.long()).clamp(0, self.max_neg))
 
 
 class _Weights(NamedTuple):
@@ -350,8 +397,9 @@ class _Weights(NamedTuple):
     def of(cls, weight_vec: torch.Tensor, all_in: Optional[bool] = None):
         n = int(weight_vec.numel())
         if all_in is None:
-            _count_sync()
-            all_in = bool((weight_vec >= 0x10000).all())
+            with spans.child("crush.sync"):
+                _count_sync()
+                all_in = bool((weight_vec >= 0x10000).all())
         if n == 0:
             weight_vec = torch.zeros(1, dtype=torch.long,
                                      device=weight_vec.device)
@@ -394,15 +442,16 @@ def _straw2(cm: CompiledCrushMap, row, x, r, pos, S: int):
     operands: floor is C's truncation), and the first maximal draw wins;
     that is the first minimal quotient, with S64_MAX where C draws
     S64_MIN (weight 0, or a padding slot)."""
-    items = cm.items[:, :S][row]                       # row.shape + (S,)
-    hash_ids = cm.hash_ids[:, :S][row]
+    items = _at(cm.items[:, :S], row)                  # row.shape + (S,)
+    hash_ids = _at(cm.hash_ids[:, :S], row)
     if cm.n_positions == 1:
-        weights = cm.pos_weights[:, 0, :S][row]
+        weights = _at(cm.pos_weights[:, 0, :S], row)
     else:
-        pos_c = torch.as_tensor(pos, device=row.device).clamp(
-            max=cm.n_positions - 1)
-        weights = cm.pos_weights[:, :, :S][row, pos_c]
-    valid = cm.slot[:S] < cm.sizes[row].unsqueeze(-1)
+        if not isinstance(pos, torch.Tensor):
+            pos = _to_device(pos, row.device)
+        pos_c = pos.clamp(max=cm.n_positions - 1)
+        weights = _at(cm.pos_weights[:, :, :S], row, pos_c)
+    valid = cm.slot[:S] < _at(cm.sizes, row).unsqueeze(-1)
     u = hash32_3_torch(_lanes(x, r.dim() + 1), hash_ids,
                        r.to(torch.int32).unsqueeze(-1)) & 0xFFFF
     q = cm.negln[u.long()] // weights.clamp(min=1)
@@ -415,11 +464,11 @@ def _straw_legacy(cm: CompiledCrushMap, row, x, r, S: int):
     (hash32_3 & 0xffff) * straw, argmax first-wins.  choose_args do not
     apply to legacy straw (crush_bucket_choose passes them to straw2
     only)."""
-    items = cm.items[:, :S][row]
-    valid = cm.slot[:S] < cm.sizes[row].unsqueeze(-1)
+    items = _at(cm.items[:, :S], row)
+    valid = cm.slot[:S] < _at(cm.sizes, row).unsqueeze(-1)
     u = hash32_3_torch(_lanes(x, r.dim() + 1), items,
                        r.to(torch.int32).unsqueeze(-1)) & 0xFFFF
-    draw = torch.where(valid, u.long() * cm.straws[:, :S][row], -1)
+    draw = torch.where(valid, u.long() * _at(cm.straws[:, :S], row), -1)
     return _take_last(items, draw.argmax(-1))
 
 
@@ -427,13 +476,13 @@ def _list_choose(cm: CompiledCrushMap, row, x, r, S: int):
     """mapper.c -> bucket_list_choose: scan items from the tail; the
     first i with (hash32_4(x, item, r, bucket_id) & 0xffff) *
     sum_weights[i] >> 16 < item_weight[i] wins, else items[0]."""
-    items = cm.items[:, :S][row]
-    valid = cm.slot[:S] < cm.sizes[row].unsqueeze(-1)
+    items = _at(cm.items[:, :S], row)
+    valid = cm.slot[:S] < _at(cm.sizes, row).unsqueeze(-1)
     h = hash32_4_torch(_lanes(x, r.dim() + 1), items,
                        r.to(torch.int32).unsqueeze(-1),
-                       cm.bucket_ids[row].unsqueeze(-1)) & 0xFFFF
-    t = (h.long() * cm.sum_weights[:, :S][row]) >> 16
-    cond = valid & (t < cm.raw_weights[:, :S][row])
+                       _at(cm.bucket_ids, row).unsqueeze(-1)) & 0xFFFF
+    t = (h.long() * _at(cm.sum_weights[:, :S], row)) >> 16
+    cond = valid & (t < _at(cm.raw_weights[:, :S], row))
     # highest index with cond true (the C loop runs size-1 .. 0)
     rank = torch.where(cond, cm.slot[:S], -1)
     chosen = _take_last(items, rank.argmax(-1))
@@ -454,10 +503,10 @@ def _tree_choose(cm: CompiledCrushMap, row, x, r, S: int):
     the left child's weight.  Unrolled to the deepest tree in the map;
     terminal (odd) nodes hold their value.  left/right = n -/+ half the
     lowbit (the height-derived stride)."""
-    nw = cm.node_weights[row]                  # row.shape + (NN,)
+    nw = _at(cm.node_weights, row)             # row.shape + (NN,)
     top = nw.shape[-1] - 1
-    n = cm.tree_roots[row]
-    bid = cm.bucket_ids[row]
+    n = _at(cm.tree_roots, row)
+    bid = _at(cm.bucket_ids, row)
     xl = _lanes(x, r.dim())
     r32 = r.to(torch.int32)
     for _ in range(cm.tree_steps):
@@ -470,7 +519,7 @@ def _tree_choose(cm: CompiledCrushMap, row, x, r, S: int):
         wl = _take_last(nw, left.clamp(0, top))
         nxt = torch.where(t < wl, left, n + half)
         n = torch.where((n & 1) == 1, n, nxt)
-    return _take_last(cm.items[:, :S][row], (n >> 1).clamp(0, S - 1))
+    return _take_last(_at(cm.items[:, :S], row), (n >> 1).clamp(0, S - 1))
 
 
 def _uniform_choose(cm: CompiledCrushMap, row, x, r, S: int):
@@ -485,8 +534,8 @@ def _uniform_choose(cm: CompiledCrushMap, row, x, r, S: int):
     walk produces, so statefulness never shows.)  Each lane recomputes
     the prefix; the unroll length is the widest uniform bucket in the
     map."""
-    size = cm.sizes[row]
-    bid = cm.bucket_ids[row]
+    size = _at(cm.sizes, row)
+    bid = _at(cm.bucket_ids, row)
     pr = r % size.clamp(min=1)                    # C: unsigned r
     SU = max(cm.max_uniform_size, 1)
     ar = torch.arange(SU, device=r.device)
@@ -505,7 +554,7 @@ def _uniform_choose(cm: CompiledCrushMap, row, x, r, S: int):
         swapped = torch.where(ar == idx.unsqueeze(-1), pv, swapped)
         perm = torch.where(active.unsqueeze(-1), swapped, perm)
     s = _take_last(perm, pr.clamp(max=SU - 1))
-    return _take_last(cm.items[:, :S][row], s.clamp(max=S - 1))
+    return _take_last(_at(cm.items[:, :S], row), s.clamp(max=S - 1))
 
 
 def _bucket_choose(cm: CompiledCrushMap, row, x, r, pos, S: int):
@@ -520,8 +569,8 @@ def _bucket_choose(cm: CompiledCrushMap, row, x, r, pos, S: int):
                     (CRUSH_BUCKET_UNIFORM, _uniform_choose)):
         if alg in cm.algs_present:
             c = fn(cm, row, x, r, S)
-            res = c if res is None else torch.where(cm.algs[row] == alg,
-                                                    c, res)
+            res = c if res is None else torch.where(
+                _at(cm.algs, row) == alg, c, res)
     return res
 
 
@@ -550,14 +599,14 @@ def _descend(cm: CompiledCrushMap, start_item, x, r, target_type,
     for step in range(steps):
         is_bucket = item < 0
         row = cm.row(item)
-        itype = torch.where(is_bucket, cm.types[row], 0)
+        itype = torch.where(is_bucket, _at(cm.types, row), 0)
         arrived = itype == target_type
         if indep_f is None:
             r_lvl = r
         elif CRUSH_BUCKET_UNIFORM in cm.algs_present:
             stride = torch.where(
-                (cm.algs[row] == CRUSH_BUCKET_UNIFORM)
-                & (cm.sizes[row] % indep_numrep == 0),
+                (_at(cm.algs, row) == CRUSH_BUCKET_UNIFORM)
+                & (_at(cm.sizes, row) % indep_numrep == 0),
                 indep_numrep + 1, indep_numrep)
             r_lvl = r + stride * indep_f
         else:
@@ -569,7 +618,7 @@ def _descend(cm: CompiledCrushMap, start_item, x, r, target_type,
         last_r = torch.where(picking, r_lvl, last_r)
         done = done | arrived | ~is_bucket
     is_bucket = item < 0
-    itype = torch.where(is_bucket, cm.types[cm.row(item)], 0)
+    itype = torch.where(is_bucket, _at(cm.types, cm.row(item)), 0)
     if return_last_r:
         return item, itype == target_type, last_r
     return item, itype == target_type
@@ -641,7 +690,7 @@ def _choose_firstn(cm, take, x, numrep, type_, recurse_to_leaf,
     # outpos == rep for both the domain pick and the leaf recursion
     pos = torch.arange(R, device=dev)[None, :, None]         # (1, R, 1)
     exact_budget = exact_budget and cm.n_positions == 1
-    items, okd = _descend(cm, torch.tensor(take, device=dev), x, rs,
+    items, okd = _descend(cm, _to_device(take, dev), x, rs,
                           type_, cm.descend_steps(take_type, type_), pos,
                           cm.level_of(take_type))
     items = items.to(torch.int32).expand(N, R, T)
@@ -798,7 +847,7 @@ def _choose_indep(cm, take, x, numrep, type_, recurse_to_leaf,
     # (= 0 here, one choose per take) to the domain pick, and rep to
     # the leaf recursion's bucket choose.
     items, okd0, parent_r = _descend(
-        cm, torch.tensor(take, device=dev), x, base, type_,
+        cm, _to_device(take, dev), x, base, type_,
         cm.descend_steps(take_type, type_), 0, cm.level_of(take_type),
         indep_f=fs, indep_numrep=numrep, return_last_r=True)
     items = items.to(torch.int32).expand(N, T, R)
@@ -836,7 +885,7 @@ def _choose_indep(cm, take, x, numrep, type_, recurse_to_leaf,
     ls = torch.arange(L, device=dev)[None, :, None]          # (1, L, 1)
     leaf_steps = cm.descend_steps(type_, 0)
     leaf_level = cm.level_of(type_)
-    take_t = torch.tensor(take, dtype=torch.int32, device=dev)
+    take_t = _to_device(take, dev, torch.int32)
 
     def leaf_eval(x, parent_r, out, sel_f, placed):
         # accepted candidates' parent_r; unplaced slots descend from
@@ -1379,7 +1428,7 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     if weight is None:
         weight = cm.cmap.device_weights()
     w_np = np.asarray(weight, dtype=np.int64).reshape(-1)
-    wv = torch.as_tensor(w_np, device=dev)
+    wv = _to_device(w_np, dev)
     all_in = bool((w_np >= 0x10000).all())
     xs = np.asarray(xs, dtype=np.int64).reshape(-1)
     if bulk_tries is None:
@@ -1388,7 +1437,7 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     rungs = auto_ladder(cm.cmap, ruleno, result_max, bulk_tries)
     perf = global_perf()
     n = len(xs)
-    xs_d = torch.from_numpy(xs).to(dev)
+    xs_d = _to_device(xs, dev)
     out = torch.full((n, result_max), NONE, dtype=torch.int32, device=dev)
     cnt = torch.zeros(n, dtype=torch.long, device=dev)
     need = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -1438,7 +1487,7 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
         return fn(xb)
 
     def host_block(xb: torch.Tensor):
-        xs_h = xb.cpu().numpy()
+        xs_h = _to_host(xb)
         o_h = np.empty((len(xs_h), result_max), np.int32)
         c_h = np.empty(len(xs_h), np.int64)
         for j, x in enumerate(xs_h):
@@ -1446,7 +1495,7 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                               weight=list(weight), choose_args=choose_args)
             o_h[j] = r + [NONE] * (result_max - len(r))
             c_h[j] = len(r)
-        return (torch.from_numpy(o_h).to(dev), torch.from_numpy(c_h).to(dev),
+        return (_to_device(o_h, dev), _to_device(c_h, dev),
                 torch.zeros(len(xs_h), dtype=torch.bool, device=dev))
 
     sup = global_supervisor()
@@ -1468,21 +1517,23 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                      kind="bulk-rule", batch=block,
                      pattern=f"rule{ruleno}x{result_max}",
                      engine="mesh" if nd > 1 else "device", devices=nd)
-    for s in range(0, n, block):
-        e = min(s + block, n)
-        # verifiable=False: the device block legitimately differs from
-        # the host twin (need-host flags feed the residue ladder)
-        if not profiled:
-            out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
-                "crush.bulk_rule", dev_block, (xs_d[s:e],),
-                host_fn=host_block, verifiable=False)
-        else:
-            with prof.timed(prof_key, device=dev):
+    with spans.child("crush.rung", tries=rungs[0][0], lanes=n):
+        for s in range(0, n, block):
+            e = min(s + block, n)
+            # verifiable=False: the device block legitimately differs
+            # from the host twin (need-host flags feed the residue
+            # ladder)
+            if not profiled:
                 out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
                     "crush.bulk_rule", dev_block, (xs_d[s:e],),
                     host_fn=host_block, verifiable=False)
-        perf.inc("crush_bulk_blocks")
-    redo = flagged = _nonzero(need)
+            else:
+                with prof.timed(prof_key, device=dev):
+                    out[s:e], cnt[s:e], need[s:e] = sup.dispatch(
+                        "crush.bulk_rule", dev_block, (xs_d[s:e],),
+                        host_fn=host_block, verifiable=False)
+            perf.inc("crush_bulk_blocks")
+        redo = flagged = _nonzero(need)
 
     # residue-adaptive rungs: each deeper budget re-runs ONLY the lanes
     # the previous rung flagged, so serial host work is bounded by the
@@ -1490,30 +1541,32 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     for tries, lcap, fix in rungs[1:]:
         if not redo.numel():
             break
-        fn2 = rung(tries, lcap, fix)
-        rblock = block_lanes(cm, ruleno, result_max, tries)
-        host_lanes = []
-        for s in range(0, redo.numel(), rblock):
-            idx = redo[s:s + rblock]
-            out[idx], cnt[idx], nh = fn2(xs_d[idx])
-            host_lanes.append(idx[_nonzero(nh)])
-            perf.inc("crush_bulk_blocks")
-        redo = torch.cat(host_lanes)
+        with spans.child("crush.rung", tries=tries, lanes=redo.numel()):
+            fn2 = rung(tries, lcap, fix)
+            rblock = block_lanes(cm, ruleno, result_max, tries)
+            host_lanes = []
+            for s in range(0, redo.numel(), rblock):
+                idx = redo[s:s + rblock]
+                out[idx], cnt[idx], nh = fn2(xs_d[idx])
+                host_lanes.append(idx[_nonzero(nh)])
+                perf.inc("crush_bulk_blocks")
+            redo = torch.cat(host_lanes)
 
-    _count_sync()
-    out_np = out.cpu().numpy()
-    cnt_np = cnt.to(torch.int32).cpu().numpy()
-    redo_np = redo.cpu().numpy()
+    out_np = _to_host(out)
+    cnt_np = _to_host(cnt.to(torch.int32))
+    redo_np = _to_host(redo)
     n_fallback = int(redo_np.size)
     # for checks: the lanes the first rung flagged, and the host residue
-    cm.last_flagged = flagged.cpu().numpy()
+    cm.last_flagged = _to_host(flagged)
     cm.last_residue = redo_np
     perf.inc("crush_bulk_host_lanes", n_fallback)
-    for i in redo_np:
-        r = crush_do_rule(cm.cmap, ruleno, int(xs[i]), result_max,
-                          weight=list(weight), choose_args=choose_args)
-        out_np[i] = r + [NONE] * (result_max - len(r))
-        cnt_np[i] = len(r)
+    with spans.child("crush.host_residue"):
+        spans.note("residue_lanes", n_fallback)
+        for i in redo_np:
+            r = crush_do_rule(cm.cmap, ruleno, int(xs[i]), result_max,
+                              weight=list(weight), choose_args=choose_args)
+            out_np[i] = r + [NONE] * (result_max - len(r))
+            cnt_np[i] = len(r)
     from ..utils.debug import DeviceVerificationError, verification_enabled
     if verification_enabled():
         # sanitizer mode: every lane re-evaluated on the host oracle

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..telemetry import spans
 from .hash import crush_hash32_2
 from .mapper import crush_do_rule
 from .types import CRUSH_ITEM_NONE, CrushMap, RULE_TYPE_REPLICATED
@@ -327,7 +328,8 @@ class OSDMap:
         balancer's move loop — can cache it and re-derive single rows
         host-side (up_row_from_raw) without re-evaluating CRUSH."""
         pool = self.pools[pool_id]
-        pps = pool.pps_all()
+        with spans.child("osdmap.overlay"):
+            pps = pool.pps_all()
         if engine == "sharded":
             # the whole-pool sweep sharded over every visible member of
             # the map's device kind
@@ -384,19 +386,31 @@ class OSDMap:
         here — see pg_to_up_acting_bulk.  ``raw``/``pps``: a cached
         pg_to_raw_bulk result to overlay instead of re-evaluating
         (upmap layers apply AFTER stage 1, so the cache stays valid
-        across upmap edits)."""
-        pool = self.pools[pool_id]
-        if raw is None or pps is None:
-            raw_arr, pps = self.pg_to_raw_bulk(pool_id, engine=engine)
-        else:
-            raw_arr = np.asarray(raw, dtype=np.int64)
+        across upmap edits).
 
+        One armed span ``osdmap.pg_to_up_bulk`` a call
+        (telemetry/spans.py), with ``osdmap.overlay`` over the host
+        stages: the pps seeds, the upmap overrides and the up-set
+        overlay."""
+        with spans.root("osdmap.pg_to_up_bulk"):
+            pool = self.pools[pool_id]
+            if raw is None or pps is None:
+                raw_arr, pps = self.pg_to_raw_bulk(pool_id, engine=engine)
+            else:
+                raw_arr = np.asarray(raw, dtype=np.int64)
+            with spans.child("osdmap.overlay"):
+                return self._overlay(pool, raw_arr, pps)
+
+    def _overlay(self, pool: PGPool, raw_arr: np.ndarray, pps: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """pg_to_up_bulk's stages 2-4 over the pool's raw placements."""
         # sparse layer: the few pgs with upmap entries take the scalar
         # stages (and may widen the arrays past pool.size)
         overrides: Dict[int, Tuple[List[int], int]] = {}
-        touched = {seed for pid, seed in self.pg_upmap if pid == pool_id}
+        touched = {seed for pid, seed in self.pg_upmap
+                   if pid == pool.pool_id}
         touched |= {seed for pid, seed in self.pg_upmap_items
-                    if pid == pool_id}
+                    if pid == pool.pool_id}
         # for ps in [0, pg_num), raw_pg_to_pg(ps) == ps (the stable-mod
         # fold only matters for raw seeds beyond pg_num), so pgs with
         # upmap entries are exactly the entry seeds themselves

@@ -121,6 +121,7 @@ from .xor_schedule import RowProgram, XorSchedule, host_matrix_apply, \
     plain_row_program, preferred_schedule, probe_schedule, row_program, \
     word_program
 from ..telemetry import metrics as tel
+from ..telemetry import spans
 from ..tune import table as _tune
 from ..utils.errors import KernelLaunchError
 from ..utils.shard import shard_batch
@@ -1716,20 +1717,24 @@ def apply_matrix_best(chunks: torch.Tensor, matrix_t, w: int = 8,
     branch.  ``mesh`` overrides the active data plane (a DataPlane, or
     falsy for the single-device tiers).  Each call is timed and counted
     in ``ops_apply_matrix_{seconds,calls}{engine,layout=bytes}``, as the
-    reference's eager dispatch is."""
+    reference's eager dispatch is; an armed span ``engine.dispatch``
+    (telemetry/spans.py) covers the choice, the seam and the launch."""
     if w not in WORD_DTYPE:
         raise ValueError(f"GF(2^w) matrix applies take w in 8, 16, 32, "
                          f"got w={w}")
-    eng = select_matrix_engine(w, chunks.device, shape=tuple(chunks.shape),
-                               matrix_t=matrix_t, mesh=mesh)
-    with tel.record_dispatch("ops_apply_matrix", engine=eng,
-                             layout="bytes"):
-        if _seam_tls.depth:
-            return _run_matrix_bytes(chunks, matrix_t, w, eng, mesh)
-        return global_supervisor().dispatch(
-            "ops.apply_matrix", _run_matrix_bytes,
-            (chunks, matrix_t, w, eng, mesh),
-            host_fn=_bytes_twin if w == 8 else None, rebuild=_bytes_rebuild)
+    with spans.child("engine.dispatch"):
+        eng = select_matrix_engine(w, chunks.device,
+                                   shape=tuple(chunks.shape),
+                                   matrix_t=matrix_t, mesh=mesh)
+        with tel.record_dispatch("ops_apply_matrix", engine=eng,
+                                 layout="bytes"):
+            if _seam_tls.depth:
+                return _run_matrix_bytes(chunks, matrix_t, w, eng, mesh)
+            return global_supervisor().dispatch(
+                "ops.apply_matrix", _run_matrix_bytes,
+                (chunks, matrix_t, w, eng, mesh),
+                host_fn=_bytes_twin if w == 8 else None,
+                rebuild=_bytes_rebuild)
 
 
 def apply_matrix_packed_best(words: torch.Tensor, matrix_t, mesh=None
@@ -1738,17 +1743,21 @@ def apply_matrix_packed_best(words: torch.Tensor, matrix_t, mesh=None
     ``ops.apply_matrix_packed``: (..., s, R, 128) uint32 ->
     (..., r, R, 128); byte-identical in every branch.  ``mesh`` as in
     apply_matrix_best.  Recorded in
-    ``ops_apply_matrix_*{engine,layout=packed}``."""
-    eng = select_matrix_engine(8, words.device, shape=tuple(words.shape),
-                               matrix_t=matrix_t, packed=True, mesh=mesh)
-    with tel.record_dispatch("ops_apply_matrix", engine=eng,
-                             layout="packed"):
-        if _seam_tls.depth:
-            return _run_matrix_packed(words, matrix_t, eng, mesh)
-        return global_supervisor().dispatch(
-            "ops.apply_matrix_packed", _run_matrix_packed,
-            (words, matrix_t, eng, mesh), host_fn=_packed_twin,
-            rebuild=_packed_rebuild)
+    ``ops_apply_matrix_*{engine,layout=packed}``; an armed span
+    ``engine.dispatch``, as in apply_matrix_best."""
+    with spans.child("engine.dispatch"):
+        eng = select_matrix_engine(8, words.device,
+                                   shape=tuple(words.shape),
+                                   matrix_t=matrix_t, packed=True,
+                                   mesh=mesh)
+        with tel.record_dispatch("ops_apply_matrix", engine=eng,
+                                 layout="packed"):
+            if _seam_tls.depth:
+                return _run_matrix_packed(words, matrix_t, eng, mesh)
+            return global_supervisor().dispatch(
+                "ops.apply_matrix_packed", _run_matrix_packed,
+                (words, matrix_t, eng, mesh), host_fn=_packed_twin,
+                rebuild=_packed_rebuild)
 
 
 # -- the ragged (paged) tier ---------------------------------------------------
@@ -1928,20 +1937,21 @@ def apply_bitmatrix_best(chunks: torch.Tensor, bitmatrix_rows, w: int,
     pays; callers cache it per matrix.  Byte-identical in every branch.
     Any packetsize the techniques allow is taken: the reference's
     ``packetsize % 512`` gate is a fact of the TPU's tiling, not of the
-    math."""
-    rows = tuple(int(m) for m in bitmatrix_rows)
-    eng = select_matrix_engine(w, chunks.device)
-    if eng == "cuda":
-        if sched is not None:
-            return apply_bitmatrix_xor_cuda(chunks, sched.static, w,
-                                            packetsize)
-        return apply_bitmatrix_cuda(chunks, rows, w, packetsize)
-    if eng == "torch":
-        if sched is not None:
-            return apply_bitmatrix_xor_torch(chunks, sched.static, w,
-                                             packetsize)
-        return apply_bitmatrix_torch(chunks, rows, w, packetsize)
-    return apply_bitmatrix_numpy(chunks, rows, w, packetsize)
+    math.  An armed span ``engine.dispatch``, as in apply_matrix_best."""
+    with spans.child("engine.dispatch"):
+        rows = tuple(int(m) for m in bitmatrix_rows)
+        eng = select_matrix_engine(w, chunks.device)
+        if eng == "cuda":
+            if sched is not None:
+                return apply_bitmatrix_xor_cuda(chunks, sched.static, w,
+                                                packetsize)
+            return apply_bitmatrix_cuda(chunks, rows, w, packetsize)
+        if eng == "torch":
+            if sched is not None:
+                return apply_bitmatrix_xor_torch(chunks, sched.static, w,
+                                                 packetsize)
+            return apply_bitmatrix_torch(chunks, rows, w, packetsize)
+        return apply_bitmatrix_numpy(chunks, rows, w, packetsize)
 
 
 __all__ = [

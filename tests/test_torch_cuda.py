@@ -15,7 +15,10 @@ and the data plane over 4 virtual members of the card (the mesh tier,
 a member quarantine that stays on the card, a width-1 loss raising);
 and the cluster plane and the scenarios on the card against their CPU
 runs (a churn storm and the balancer on the bulk evaluator against the
-host mapper, the simulated production day and tenant week).
+host mapper, the simulated production day and tenant week); and the
+host syncs the span sites note (telemetry/spans.py) against torch's own
+count of synchronising calls, on an epoch of the remap cell's map and
+on one RS encode and one shec decode.
 Every test here
 is marked ``cuda`` and skips (with a reason) where no CUDA device is
 present: a CUDA kernel has no CPU mode.
@@ -1503,3 +1506,87 @@ def test_tenant_week_on_the_card_equals_its_cpu_run(cuda_device):
     assert card.gates["dispatch_crc"] == cpu.gates["dispatch_crc"]
     assert card.to_json() == cpu.to_json()
     assert card.gates["converged"] and card.gates["healed"]
+
+
+def _sync_warnings(fn):
+    """(fn's result, the synchronising-call warnings it raised under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each as file:line)."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def test_noted_host_syncs_equal_torchs_count_on_the_card(cuda_device):
+    """One epoch of the remap cell's map (1200 OSDs, 16384 PGs): the
+    host syncs the spans note equal the synchronising calls torch
+    counts; an RS encode and a shec decode note none and make none;
+    and the benchmark's CUDA-only profiler session arms the sites."""
+    import collections
+    import json
+    import os
+    import sys
+    from ceph_tpu_torch.telemetry import spans
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks")
+    sys.path.insert(0, bench)
+    from yardstick.kinds.osdmap_churn import build
+    from yardstick.trace import Tracer
+    with open(os.path.join(bench, "configs", "rs_k8_m3.json")) as f:
+        config = json.load(f)
+    osdmap, pid = build(config, cuda_device)
+    osdmap.mark_down(7)
+    osdmap.mark_out(7)
+    osdmap.pg_to_up_bulk(pid)               # warm: tables, rule, events
+    tracer = spans.global_tracer()
+    tracer.reset()
+    with spans.armed():
+        _, caught = _sync_warnings(lambda: osdmap.pg_to_up_bulk(pid))
+    noted = tracer.totals()["osdmap.pg_to_up_bulk"]["counts"]["host_syncs"]
+    assert noted == len(caught), \
+        f"noted {noted}, torch {sorted(collections.Counter(caught).items())}"
+
+    reg = ErasureCodePluginRegistry.instance()
+    rs = reg.factory("jerasure", {"technique": "reed_sol_van", "k": "8",
+                                  "m": "3"}, device=cuda_device)
+    shec = reg.factory("shec", {"k": "6", "m": "3", "c": "2"},
+                       device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    data = torch.randint(0, 256, (64, 8, 131072), dtype=torch.uint8,
+                         device=cuda_device, generator=gen)
+    sdata = torch.randint(0, 256, (64, 6, 174784), dtype=torch.uint8,
+                          device=cuda_device, generator=gen)
+    sfull = torch.cat([sdata, shec.encode_chunks_torch(sdata)], dim=1)
+    avail = tuple(c for c in range(9) if c != 2)
+    survivors = sfull[:, list(avail)].contiguous()
+
+    def codec():
+        rs.encode_chunks_torch(data)
+        return shec.decode_chunks_torch(survivors, avail, (2,))
+
+    codec()                                  # warm: tables, plan, index
+    torch.cuda.synchronize()
+    tracer.reset()
+    with spans.armed():
+        got, caught = _sync_warnings(codec)
+    totals = tracer.totals()
+    assert caught == [], f"{caught}"
+    assert totals["codec.encode"]["count"] == 1
+    assert totals["codec.decode"]["count"] == 1
+    assert "host_syncs" not in totals["codec.encode"]["counts"]
+    assert "host_syncs" not in totals["codec.decode"]["counts"]
+    assert torch.equal(got[:, 0], sdata[:, 2])
+
+    tracer.reset()
+    osdmap.pg_to_up_bulk(pid)                # unarmed: not recorded
+    with Tracer(cuda_device):
+        osdmap.pg_to_up_bulk(pid)
+    osdmap.pg_to_up_bulk(pid)
+    assert tracer.totals()["osdmap.pg_to_up_bulk"]["count"] == 1
