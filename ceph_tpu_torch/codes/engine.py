@@ -295,6 +295,20 @@ def decode_matrix_static(ec, available, erased):
     return None
 
 
+def dispatched_matrix_static(ec, available, erased):
+    """The static matrix a device decode of the pattern hands the engine
+    table, which a per-matrix tuned pin keys on: shec's plan widened
+    over ``available`` (``ErasureCodeShec._plan_wide``), else
+    ``decode_matrix_static``."""
+    wide = getattr(ec, "_plan_wide", None)
+    if wide is None:
+        return decode_matrix_static(ec, available, erased)
+    try:
+        return wide(tuple(available), tuple(erased))
+    except IOError:          # the plan cannot decode the pattern
+        return None
+
+
 def _survivors_read(ec, available: tuple, erased: tuple) -> float:
     """Survivor chunks a decode of the pattern reads: its decode
     matrix's nonzero columns (sub-chunk columns for clay, so a repair's
@@ -638,6 +652,6 @@ def serve_dispatch_ragged(ec, op: str, available: Tuple[int, ...] = (),
 
 
 __all__ = ["DEFAULT_MAX_PATTERNS", "PatternCache", "decode_matrix_static",
-           "fused_repair_call", "global_pattern_cache", "pattern_key",
-           "serve_dispatch_call", "serve_dispatch_ragged",
-           "set_global_pattern_cache"]
+           "dispatched_matrix_static", "fused_repair_call",
+           "global_pattern_cache", "pattern_key", "serve_dispatch_call",
+           "serve_dispatch_ragged", "set_global_pattern_cache"]

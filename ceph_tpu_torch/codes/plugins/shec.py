@@ -19,10 +19,13 @@ minimum-read plan (the mixin's survivor-submatrix inversion is singular
 for shec patterns), and the plan's matrix through the engine table: the
 XOR-schedule kernel for the plans whose schedule the probe prefers
 (single erasures whose plan is a row of 1s), the dense kernel for the
-rest.  The plan caches are two-level, as in the reference: a
-per-instance dict in front of the process-wide ``engine.PatternCache``.
-The paged serving pool decodes through the same plans
-(``decode_chunks_ragged_torch``).
+rest.  The device decodes widen the plan's matrix with zero columns
+over every survivor (``_wide_matrix``), so the kernels read the plan's
+survivors where they lie and write the erased chunks in the caller's
+order: no gather around the apply.  The plan caches are two-level, as
+in the reference: a per-instance dict in front of the process-wide
+``engine.PatternCache``.  The paged serving pool decodes through the
+same plans (``decode_chunks_ragged_torch``).
 """
 
 from __future__ import annotations
@@ -72,22 +75,22 @@ def _shec_coding_matrix(k: int, m: int, c: int, w: int) -> np.ndarray:
     return mat
 
 
-@functools.lru_cache(maxsize=256)
-def _index_on(index: tuple, device: torch.device) -> torch.Tensor:
-    """A plan's chunk index as a tensor on ``device``, copied there once:
-    indexing with a list would copy it to the card on every call, and
-    the copy synchronizes with the host."""
-    return torch.tensor(index, dtype=torch.long, device=device)
-
-
-def _take(x: torch.Tensor, index: list) -> torch.Tensor:
-    """x[:, index] (``index_select`` over a cached index tensor); uint32
-    tensors (the packed layout) through an int32 view, which torch can
-    index on the card."""
-    idx = _index_on(tuple(index), x.device)
-    if x.dtype == torch.uint32:
-        return x.view(torch.int32).index_select(1, idx).view(torch.uint32)
-    return x.index_select(1, idx)
+def _wide_matrix(plan: DecodePlan, available: tuple,
+                 erased: tuple) -> np.ndarray:
+    """A plan's decode matrix over every survivor: (len(erased),
+    len(available)), row t the plan's row for ``erased[t]`` in the
+    columns of ``available`` that the plan reads, zero in the rest.
+    Applied to the survivors as they lie, it gives the erased chunks in
+    ``erased`` order; the kernels never stage or read a zero column
+    (``gf_kernels.dense_program`` lists a row block's nonzero columns
+    only, ``xor_schedule.word_program`` loads only the inputs a row
+    uses)."""
+    col = {c: t for t, c in enumerate(available)}
+    row = {c: t for t, c in enumerate(plan.want_order)}
+    wide = np.zeros((len(erased), len(available)), dtype=plan.matrix.dtype)
+    wide[:, [col[c] for c in plan.reads]] = plan.matrix[
+        [row[c] for c in erased]]
+    return wide
 
 
 class ErasureCodeShecTableCache:
@@ -240,21 +243,34 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
 
     # -- device-resident paths (tensor in, tensor out; no host copy) ------
 
+    def _plan_wide(self, available: tuple, erased: tuple):
+        """The static ``_wide_matrix`` of a pattern, cached per instance
+        and process: once built, one dict lookup a call."""
+        key = ("wide", available, erased)
+        hit = self._decode_cache.get(key)
+        if hit is None:
+            hit = global_pattern_cache().get_or_build(
+                pattern_key(self, "shec-plan-wide", available, erased),
+                lambda: matrix_to_static(_wide_matrix(
+                    self._plan(available, erased), available, erased)))
+            self._decode_cache[key] = hit
+        return hit
+
     def decode_chunks_torch(self, chunks: torch.Tensor, available: tuple,
                             erased: tuple) -> torch.Tensor:
         """(batch, len(available), C) tensor -> (batch, len(erased), C) on
-        the code's device: the plan's reads selected by index, one apply
-        of its matrix through the engine table; one armed root span
-        ``codec.decode`` (telemetry/spans.py) a call."""
+        the code's device: one apply of the plan's matrix widened over
+        ``available`` through the engine table, on the survivors as they
+        lie; one armed root span ``codec.decode`` (telemetry/spans.py) a
+        call, whose count ``survivor_copies`` is the survivor tensors
+        copied around the apply."""
         with spans.root("codec.decode"):
             self._check_device(chunks)
-            plan, sel, keep = self._plan_indices(tuple(available),
-                                                 tuple(erased))
-            dm_static = self._plan_static(plan)[1]
-            words = torch_words_view(_take(chunks, sel), self.w)
-            out = torch_bytes_view(apply_matrix_best(words, dm_static,
-                                                     self.w))
-            return _take(out, keep)
+            wide = self._plan_wide(tuple(available), tuple(erased))
+            words = torch_words_view(chunks, self.w)
+            spans.note("survivor_copies",
+                       int(words.data_ptr() != chunks.data_ptr()))
+            return torch_bytes_view(apply_matrix_best(words, wide, self.w))
 
     def decode_chunks_ragged_torch(self, pool: torch.Tensor,
                                    mask: torch.Tensor, available: tuple,
@@ -264,27 +280,27 @@ class ErasureCodeShec(MatrixCodeMixin, ErasureCode):
         Overrides the mixin's ragged path, as the reference does: the
         plain decode-matrix inversion there is singular for shec
         survivor patterns, so every shec decode, ragged included, goes
-        through the minimum-read plan."""
+        through the minimum-read plan, widened over ``available``."""
         self._check_device(pool)
-        plan, sel, keep = self._plan_indices(tuple(available), tuple(erased))
-        dm_static = self._plan_static(plan)[1]
-        words = torch_words_view(_take(pool, sel), self.w)
-        out = torch_bytes_view(apply_matrix_best_ragged(words, dm_static,
-                                                        mask, self.w))
-        return _take(out, keep)
+        wide = self._plan_wide(tuple(available), tuple(erased))
+        words = torch_words_view(pool, self.w)
+        spans.note("survivor_copies",
+                   int(words.data_ptr() != pool.data_ptr()))
+        return torch_bytes_view(apply_matrix_best_ragged(words, wide, mask,
+                                                         self.w))
 
     def decode_chunks_packed_torch(self, words: torch.Tensor,
                                    available: tuple,
                                    erased: tuple) -> torch.Tensor:
         """Packed-layout minimum-read decode: (batch, n_avail, R, 128)
-        uint32 -> (batch, len(erased), R, 128).  w=8 only."""
+        uint32 -> (batch, len(erased), R, 128), the survivors as they
+        lie.  w=8 only."""
         if self.w != 8:
             raise ValueError("packed layout is w=8 only")
         self._check_device(words)
-        plan, sel, keep = self._plan_indices(tuple(available), tuple(erased))
-        dm_static = self._plan_static(plan)[1]
-        out = apply_matrix_packed_best(_take(words, sel), dm_static)
-        return _take(out, keep)
+        wide = self._plan_wide(tuple(available), tuple(erased))
+        spans.note("survivor_copies", 0)
+        return apply_matrix_packed_best(words, wide)
 
 
 class ErasureCodeShecReedSolomonVandermonde(ErasureCodeShec):

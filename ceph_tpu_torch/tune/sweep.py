@@ -680,16 +680,18 @@ def timed_sweep(plugin: str = "jerasure",
                 device=None) -> SweepReport:
     """Measure the candidate tiers with real dispatches on ``device``
     (default: the card; NoDeviceError without one): for the encode
-    matrix and one decode matrix, every tier the device can dispatch —
-    ``cuda`` (the dense kernel), ``xor`` (where the probe finds a
-    schedule that fits the kernel and the chunk is word-aligned) and
-    ``mxu`` (the column walk) on the card, ``torch`` on a CPU device —
-    each the min of ``repeats`` device times after a warm-up.  Every
-    candidate's bytes must equal the default tier's (AssertionError
-    otherwise); a kernel that fails to build or launch raises."""
+    matrix and the matrix one decode pattern dispatches
+    (``engine.dispatched_matrix_static``, which its pin keys on), every
+    tier the device can dispatch — ``cuda`` (the dense kernel), ``xor``
+    (where the probe finds a schedule that fits the kernel and the chunk
+    is word-aligned) and ``mxu`` (the column walk) on the card, ``torch``
+    on a CPU device — each the min of ``repeats`` device times after a
+    warm-up.  Every candidate's bytes must equal the default tier's
+    (AssertionError otherwise); a kernel that fails to build or launch
+    raises."""
     import torch
 
-    from ..codes.engine import decode_matrix_static
+    from ..codes.engine import dispatched_matrix_static
     from ..codes.registry import ErasureCodePluginRegistry
     from ..ops import gf_kernels
     from ..ops.fallback import resolve_device
@@ -713,7 +715,7 @@ def timed_sweep(plugin: str = "jerasure",
     units = [WorkUnit(f"{plugin}.encode_chunks_jax", pstr,
                       "serve-encode", matrix_to_static(ec.matrix),
                       chunk, batch)]
-    ms = decode_matrix_static(ec, available, (1,))
+    ms = dispatched_matrix_static(ec, available, (1,))
     if ms is not None:
         units.append(WorkUnit(f"{plugin}.decode_chunks_jax", pstr,
                               "serve-decode", ms, chunk, batch))
@@ -727,7 +729,9 @@ def timed_sweep(plugin: str = "jerasure",
         cands = candidate_tiers(unit.matrix, unit.chunk, platform)
         timings: Dict[str, float] = {}
         outputs: Dict[str, bytes] = {}
-        cost = analytic_matrix_cost(unit.batch, len(unit.matrix), s,
+        # the columns read: a widened shec decode's zero columns are not
+        reads = int(np.count_nonzero(np.asarray(unit.matrix).any(axis=0)))
+        cost = analytic_matrix_cost(unit.batch, len(unit.matrix), reads,
                                     unit.chunk)
         for tier in cands:
             def fn(_t=tier, _m=unit.matrix):

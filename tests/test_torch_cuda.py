@@ -4,7 +4,8 @@ wrappers, its table variant above the by-value limit, and a small
 serving stream through them), the w=16/32 word kernel, the two
 packet-layout bitmatrix kernels (plain and scheduled), the XOR-schedule
 kernel (bytes and packed wrappers; the shec, lrc and reed_sol_r6_op
-paths that take it), the "mxu" row's column-walk kernel (bytes and
+paths that take it; shec's decode at its benchmark cell's size, one
+launch and no device op but the GF kernels), the "mxu" row's column-walk kernel (bytes and
 packed, column splits, row tiles; the clay paths that take it)
 and the roofline tool's copy and fold kernels; and the CRUSH bulk
 evaluator (eager torch, no kernel of its own) and the crushtool /
@@ -529,6 +530,44 @@ def test_composite_codes_round_trip_on_card(cuda_device, plugin, profile):
                 before["apply_matrix_xor_cuda_packed"]
             scheduled += ran_xor
     assert scheduled == {"lrc": 29, "shec": 4, "jerasure": 2}[plugin]
+
+
+def test_shec_decode_reads_survivors_where_they_lie_on_card(cuda_device,
+                                                             tmp_path):
+    """The shec cell's decode (k=6 m=3 c=2, 174,784-byte chunks, an
+    8-survivor slab): every single erasure rebuilds the lost chunk in one
+    launch, and the profiler sees no device op but the GF kernels (no
+    gather around the apply)."""
+    import json
+    import re
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "shec", {"k": "6", "m": "3", "c": "2"}, device=cuda_device)
+    chunk = ec.get_chunk_size(1 << 20)
+    assert chunk == 174784
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    data = torch.randint(0, 256, (8, 6, chunk), dtype=torch.uint8,
+                         device=cuda_device, generator=gen)
+    full = torch.cat([data, ec.encode_chunks_torch(data)], dim=1)
+    gf = re.compile(r"^(void\s+)?gf[0-9]*_")
+    for lost in range(9):
+        avail = tuple(c for c in range(9) if c != lost)
+        slab = full[:, list(avail)].contiguous()
+        ec.decode_chunks_torch(slab, avail, (lost,))          # warm
+        torch.cuda.synchronize()
+        before = sum(gf_kernels.launch_counts().values())
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = ec.decode_chunks_torch(slab, avail, (lost,))
+            torch.cuda.synchronize()
+        assert sum(gf_kernels.launch_counts().values()) - before == 1
+        assert torch.equal(got[:, 0], full[:, lost]), lost
+        path = tmp_path / f"decode{lost}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            ops = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset")]
+        assert ops and all(gf.match(n) for n in ops), (lost, ops)
 
 
 # -- the ragged (paged) wrappers -----------------------------------------------
