@@ -27,7 +27,11 @@ dense GF(2^8) kernel, as the reference's table does.
 
 Device surfaces (the reference's ``*_jax``): ``encode_chunks_torch``,
 ``decode_chunks_torch``, the packed ``*_packed_torch`` and the page
-pool's ``*_ragged_torch``.  ``encode_chunks_batch`` /
+pool's ``*_ragged_torch``.  ``decode_chunks_torch(..., chunk_size=C)``
+also takes Ceph's repair branch on the card: the d helpers' repair
+sub-chunks, as ``minimum_to_decode``'s runs deliver them, rebuild one
+lost chunk through the probed (sub, d * sub / q) repair composite, one
+apply.  ``encode_chunks_batch`` /
 ``decode_chunks_batch`` take numpy and follow the matrix codes' host
 rule: the host tier below ``min_xla_bytes``, the code's device above.
 The dict API (``decode`` and the sub-chunk repair) runs the layered
@@ -56,6 +60,7 @@ from ..engine import global_pattern_cache, pattern_key
 from ..interface import ErasureCodeProfile
 from ..registry import ERASURE_CODE_VERSION, ErasureCodePlugin
 from ..techniques import MatrixCodeMixin, _DeviceCode
+from ...telemetry import spans
 
 __erasure_code_version__ = ERASURE_CODE_VERSION
 
@@ -624,21 +629,83 @@ class ErasureCodeClay(_DeviceCode, ErasureCode):
         """(batch, k, chunk) uint8 tensor -> (batch, m, chunk) parity on
         the code's device: ONE composite-matrix apply through the engine
         table (the column-walk kernel on the card for the large
-        composites, the dense kernel otherwise)."""
-        self._check_device(data)
-        _, ms = self._encode_composite()
-        y = apply_matrix_best(self._composite_rows(data, self.k), ms, W)
-        return y.reshape(data.shape[0], self.m, data.shape[-1])
+        composites, the dense kernel otherwise); one armed root span
+        ``codec.encode`` a call."""
+        with spans.root("codec.encode"):
+            self._check_device(data)
+            _, ms = self._encode_composite()
+            y = apply_matrix_best(self._composite_rows(data, self.k), ms, W)
+            return y.reshape(data.shape[0], self.m, data.shape[-1])
 
     def decode_chunks_torch(self, chunks: torch.Tensor, available: tuple,
-                            erased: tuple) -> torch.Tensor:
+                            erased: tuple,
+                            chunk_size: int | None = None) -> torch.Tensor:
         """(batch, len(available), chunk) tensor -> (batch, len(erased),
-        chunk): the pattern's composite decode matrix, one apply."""
-        self._check_device(chunks)
-        _, ms = self._decode_composite(tuple(available), tuple(erased))
-        y = apply_matrix_best(self._composite_rows(chunks, len(available)),
-                              ms, W)
-        return y.reshape(chunks.shape[0], len(erased), chunks.shape[-1])
+        chunk): the pattern's composite decode matrix, one apply.
+
+        With ``chunk_size`` and buffers shorter than it (Ceph's
+        ``decode(want, chunks, chunk_size)``): the single-chunk repair.
+        ``available`` is exactly the d helpers ``minimum_to_decode``
+        names for the one chunk in ``erased``, and ``chunks`` is
+        (batch, d, sub / q * chunk_size / sub): each helper's repair
+        sub-chunks concatenated in plane order.  Returns (batch, 1,
+        chunk_size) from one apply of the repair composite over the
+        helpers' sub-chunks as they lie.  One armed root span
+        ``codec.decode`` (telemetry/spans.py) a call; the repair's plan
+        is its child ``clay.repair_plan``, and its count
+        ``repair_read_bytes`` the helper bytes the apply reads."""
+        with spans.root("codec.decode"):
+            self._check_device(chunks)
+            if chunk_size is not None and chunks.shape[-1] != chunk_size:
+                return self._repair_chunks_torch(chunks, tuple(available),
+                                                 tuple(erased),
+                                                 int(chunk_size))
+            _, ms = self._decode_composite(tuple(available), tuple(erased))
+            y = apply_matrix_best(
+                self._composite_rows(chunks, len(available)), ms, W)
+            return y.reshape(chunks.shape[0], len(erased), chunks.shape[-1])
+
+    def _repair_chunks_torch(self, chunks: torch.Tensor, available: tuple,
+                             erased: tuple,
+                             chunk_size: int) -> torch.Tensor:
+        with spans.child("clay.repair_plan"):
+            ms, n_rp = self._repair_plan(tuple(chunks.shape), available,
+                                         erased, chunk_size)
+        b, d, _ = chunks.shape
+        sc = chunk_size // self.sub_chunk_no
+        spans.note("repair_read_bytes", b * d * n_rp * sc)
+        y = apply_matrix_best(chunks.reshape(b, d * n_rp, sc), ms, W)
+        return y.reshape(b, 1, chunk_size)
+
+    def _repair_plan(self, shape: tuple, available: tuple, erased: tuple,
+                     chunk_size: int):
+        """(the repair composite's static form, repair sub-chunks a
+        helper) of a partial-buffer call, or ValueError naming the input
+        the repair branch takes."""
+        ms = self._linear_cache.get(("repair", available, erased))
+        if ms is None:
+            lost = erased[0] if len(erased) == 1 else None
+            if lost is None or not self.is_repair({lost}, set(available)) \
+                    or self._pick_helpers(self._node(lost), set(available)) \
+                    != sorted(available):
+                raise ValueError(
+                    f"partial chunks (chunk_size {chunk_size}, buffers of "
+                    f"{shape[-1]} bytes) take the single-chunk repair: "
+                    f"one erased chunk and available exactly the "
+                    f"{self.d} helpers minimum_to_decode names for it; "
+                    f"got available {available}, erased {erased}")
+            ms = self._repair_composite(available, lost)[1]
+            self._linear_cache[("repair", available, erased)] = ms
+        sub = self.sub_chunk_no
+        n_rp = sub // self.q
+        if chunk_size % sub or len(shape) != 3 \
+                or tuple(shape[1:]) != (self.d, n_rp * chunk_size // sub):
+            raise ValueError(
+                f"the repair of chunk {erased[0]} takes (batch, {self.d}, "
+                f"{n_rp} * chunk_size / {sub}) helper sub-chunks with "
+                f"chunk_size a multiple of {sub}; got {shape} for "
+                f"chunk_size {chunk_size}")
+        return ms, n_rp
 
     # -- ragged paged surfaces (serve/pool.py page pools) -----------------
     #
@@ -787,6 +854,28 @@ class ErasureCodeClay(_DeviceCode, ErasureCode):
                              erased: Tuple[int, ...]) -> np.ndarray:
         """(len(erased)*sub, len(available)*sub) composite decode matrix."""
         return self._decode_composite(available, erased)[0]
+
+    def _repair_composite(self, available: Tuple[int, ...], lost: int):
+        """(M, static) of the single-chunk repair of ``lost`` from the
+        helpers ``available``: (sub, len(available) * sub / q), column
+        t * (sub / q) + p the p-th repair sub-chunk of helper
+        available[t], probed through ``_repair_lost``."""
+        def build():
+            node = self._node(lost)
+            n_rp = len(self._repair_planes(node))
+            width = len(available) * n_rp
+            bufs = {}
+            for t, h in enumerate(available):
+                arr = np.zeros((n_rp, width), dtype=np.uint8)
+                arr[np.arange(n_rp), t * n_rp + np.arange(n_rp)] = 1
+                bufs[h] = arr.reshape(-1)
+            M = self._repair_lost(node, list(available), bufs,
+                                  width).astype(np.int64)
+            return (M, matrix_to_static(M))
+
+        return global_pattern_cache().get_or_build(
+            pattern_key(self, "clay-composite-repair", available, (lost,)),
+            build)
 
 
 class ErasureCodePluginClay(ErasureCodePlugin):

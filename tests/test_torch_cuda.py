@@ -4,8 +4,9 @@ wrappers, its table variant above the by-value limit, and a small
 serving stream through them), the w=16/32 word kernel, the two
 packet-layout bitmatrix kernels (plain and scheduled), the XOR-schedule
 kernel (bytes and packed wrappers; the shec, lrc and reed_sol_r6_op
-paths that take it; shec's decode at its benchmark cell's size, one
-launch and no device op but the GF kernels), the "mxu" row's column-walk kernel (bytes and
+paths that take it; shec's decode and clay's sub-chunk repair at
+their benchmark cells' sizes, one launch and no device op but the GF
+kernels), the "mxu" row's column-walk kernel (bytes and
 packed, column splits, row tiles; the clay paths that take it)
 and the roofline tool's copy and fold kernels; and the CRUSH bulk
 evaluator (eager torch, no kernel of its own) and the crushtool /
@@ -562,6 +563,48 @@ def test_shec_decode_reads_survivors_where_they_lie_on_card(cuda_device,
         assert sum(gf_kernels.launch_counts().values()) - before == 1
         assert torch.equal(got[:, 0], full[:, lost]), lost
         path = tmp_path / f"decode{lost}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            ops = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset")]
+        assert ops and all(gf.match(n) for n in ops), (lost, ops)
+
+
+def test_clay_repair_reads_the_helpers_sub_chunks_on_card(cuda_device,
+                                                          tmp_path):
+    """The clay cell's repair (k=8 m=4 d=11, 131,072-byte chunks): every
+    single loss is rebuilt from the 11 helpers' 16 repair sub-chunks in
+    one launch, and the profiler sees no device op but the GF kernels
+    (no gather or copy around the apply)."""
+    import json
+    import re
+    ec = ErasureCodePluginRegistry.instance().factory(
+        "clay", {"k": "8", "m": "4", "d": "11"}, device=cuda_device)
+    chunk = ec.get_chunk_size(1 << 20)
+    assert chunk == 131072
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    data = torch.randint(0, 256, (64, 8, chunk), dtype=torch.uint8,
+                         device=cuda_device, generator=gen)
+    full = torch.cat([data, ec.encode_chunks_torch(data)], dim=1)
+    gf = re.compile(r"^(void\s+)?gf[0-9]*_")
+    for lost in range(12):
+        need = ec.minimum_to_decode({lost}, set(range(12)) - {lost})
+        helpers = tuple(sorted(need))
+        planes = ec._repair_planes(ec._node(lost))
+        reads = full[:, list(helpers)].reshape(64, 11, 64, 2048)[
+            :, :, planes].reshape(64, 11, -1).contiguous()
+        ec.decode_chunks_torch(reads, helpers, (lost,), chunk_size=chunk)
+        torch.cuda.synchronize()
+        before = sum(gf_kernels.launch_counts().values())
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = ec.decode_chunks_torch(reads, helpers, (lost,),
+                                         chunk_size=chunk)
+            torch.cuda.synchronize()
+        assert sum(gf_kernels.launch_counts().values()) - before == 1
+        assert torch.equal(got[:, 0], full[:, lost]), lost
+        path = tmp_path / f"repair{lost}.json"
         prof.export_chrome_trace(str(path))
         with open(path) as f:
             ops = [e["name"] for e in json.load(f)["traceEvents"]
