@@ -721,10 +721,10 @@ def registry() -> Tuple[EntryPoint, ...]:
         EntryPoint("ops.apply_matrix_best_sharded", "ops", dev,
                    _build_apply_matrix_best_sharded, setup_budget=4),
         EntryPoint("crush.bulk_rule_sharded", "crush", dev,
-                   _crush_builder(True), setup_budget=0,
+                   _crush_builder(True), setup_budget=1,
                    sync_ok=_CRUSH_SYNC),
         EntryPoint("crush.bulk_rule", "crush", dev,
-                   _crush_builder(False), setup_budget=0,
+                   _crush_builder(False), setup_budget=1,
                    sync_ok=_CRUSH_SYNC),
         EntryPoint("scrub.ceph_crc32c_batch", "scrub", "host",
                    _build_crc_batch, setup_budget=0),
@@ -754,9 +754,9 @@ def registry() -> Tuple[EntryPoint, ...]:
                    _build_serve_batcher, setup_budget=0),
         EntryPoint("cluster.balancer_round", "cluster", dev,
                    _cluster_rule_builder("REPLICATED_POOL"),
-                   setup_budget=0, sync_ok=_CRUSH_SYNC),
+                   setup_budget=1, sync_ok=_CRUSH_SYNC),
         EntryPoint("cluster.storm_reeval", "cluster", dev,
-                   _cluster_rule_builder("EC_POOL"), setup_budget=0,
+                   _cluster_rule_builder("EC_POOL"), setup_budget=1,
                    sync_ok=_CRUSH_SYNC),
         EntryPoint("cluster.rateless_dispatch", "cluster", dev,
                    _build_cluster_rateless_dispatch),

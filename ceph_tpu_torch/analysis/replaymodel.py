@@ -114,6 +114,8 @@ DOMAINS: Tuple[DomainSpec, ...] = (
     DomainSpec("bench_diff", "wallclock", "bench comparison CLI"),
     DomainSpec("bulk_crush_row", "wallclock",
                "bulk-mapping probe: times real device sweeps"),
+    DomainSpec("crush_times", "wallclock",
+               "rule-kernel probe: times real device sweeps"),
     DomainSpec("sharded_bench", "wallclock",
                "mesh throughput driver: wall timers are the payload"),
     DomainSpec("host_chaos_demo", "wallclock",
@@ -126,6 +128,8 @@ DOMAINS: Tuple[DomainSpec, ...] = (
     DomainSpec("tools.bench_diff", "wallclock", "bench comparison CLI"),
     DomainSpec("tools.bulk_crush_row", "wallclock",
                "bulk-mapping probe: times real device sweeps"),
+    DomainSpec("tools.crush_times", "wallclock",
+               "rule-kernel probe: times real device sweeps"),
     DomainSpec("tools.sharded_bench", "wallclock",
                "mesh throughput driver: wall timers are the payload"),
     DomainSpec("tools.host_chaos_demo", "wallclock",

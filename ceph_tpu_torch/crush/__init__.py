@@ -20,7 +20,9 @@ are copies of the reference's, their imports pointing at the port:
 - ``tester``  — CrushTester-style mapping sweeps + statistics.
 
 New in the port: ``bulk`` — the bulk evaluator as a lane-batched eager
-torch program on the card (the reference's is a vmapped XLA program).
+torch program on the card (the reference's is a vmapped XLA program),
+its first rung a CUDA kernel (``ops/crush_kernels.py``) where the map
+and rule are in the kernel's scope.
 It is imported lazily (nothing here pulls in torch).
 
 - ``incremental`` — OSDMap::Incremental / apply_incremental: the mon's

@@ -57,6 +57,14 @@ or profiler seam.  The first rung's block dispatch is the supervised
 seam ``crush.bulk_rule`` (ops/supervisor.py), its host twin the exact
 host mapper (for a map on the CPU; on the card a persistent failure
 raises ``DeviceDispatchError``).
+
+On the card the first rung runs the CUDA rule kernel
+(ops/crush_kernels.py, ``csrc/crush_rule.cu``: one warp a lane, mapper.c's
+tries in order, the rule's own budgets) wherever the compiled map and
+the rule are in its scope (``_rule_kernel``); it notes ``kernel_lanes``
+and ``kernel_flagged`` under the first ``crush.rung``.  The eager program
+below serves the deeper rungs, maps and rules outside that scope, and
+the CPU.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import crush_kernels
 from ..ops.fallback import resolve_device
 from ..ops.supervisor import global_supervisor
 from ..telemetry import spans
@@ -166,7 +175,10 @@ def _at(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values in host memory (a host sync)."""
+    """A tensor's values in host memory (a host sync unless it is
+    empty: torch copies nothing then)."""
+    if not t.numel():
+        return t.cpu().numpy()
     with spans.child("crush.sync"):
         _count_sync()
         return t.cpu().numpy()
@@ -383,6 +395,29 @@ class CompiledCrushMap:
         """Table row of bucket ids (int64; clamped for non-buckets)."""
         return _at(self.id_to_row,
                    (-1 - item.long()).clamp(0, self.max_neg))
+
+    def kernel_tables(self) -> crush_kernels.KernelTables:
+        """These tables as the CUDA rule kernel reads them
+        (ops/crush_kernels.py): the padded rows flattened to their valid
+        slots, on this map's device, built once (one host sync, the
+        valid slots' indices)."""
+        tabs = self.__dict__.get("_kernel_tables")
+        if tabs is None:
+            idx = _nonzero((self.slot < self.sizes[:, None]).flatten())
+            P = self.n_positions
+            weights = self.pos_weights.transpose(0, 1).reshape(P, -1)
+            hdr = torch.stack([self.sizes.cumsum(0) - self.sizes,
+                               self.sizes, self.types], 1)
+            tab = torch.cat([hdr.flatten(), self.id_to_row,
+                             self.items.flatten()[idx].long(),
+                             self.hash_ids.flatten()[idx].long(),
+                             weights[:, idx].flatten()])
+            tabs = self._kernel_tables = crush_kernels.KernelTables(
+                as_hash_input(tab).contiguous(), self.negln,
+                rows=int(self.sizes.shape[0]), max_neg=self.max_neg,
+                items=int(idx.numel()), positions=P, cmap=self.cmap,
+                choose_args=self.choose_args)
+        return tabs
 
 
 class _Weights(NamedTuple):
@@ -1366,14 +1401,33 @@ def _member_map(cm: "CompiledCrushMap", device: torch.device
 def first_rung_cost(cm: "CompiledCrushMap", ruleno: int, result_max: int,
                     tries: int, lanes: int) -> Dict[str, float]:
     """The analytic cost of ``lanes`` x through the first rung
-    (telemetry/profiler.py::analytic_crush_cost): ``tries`` x
-    ``result_max`` straw2 draws a lane over the take bucket level's
-    width."""
+    (telemetry/profiler.py::analytic_crush_cost): on the eager tier
+    ``tries`` x ``result_max`` straw2 draws a lane over the take bucket
+    level's width; on the rule kernel one try a replica, a draw for
+    every slot of each level it descends (the draws these inputs need
+    when nothing collides)."""
     from ..telemetry.profiler import analytic_crush_cost
     take = next(a1 for op, a1, _ in cm.cmap.rules[ruleno].steps
                 if op == CRUSH_RULE_TAKE)
-    width = cm.width_at(cm.level_of(cm.cmap.buckets[take].type))
-    return analytic_crush_cost(lanes, tries, result_max, width, result_max)
+    top = cm.level_of(cm.cmap.buckets[take].type)
+    kernel = _rule_kernel(cm, ruleno, result_max)
+    if kernel is None:
+        return analytic_crush_cost(lanes, tries, result_max,
+                                   cm.width_at(top), result_max)
+    bottom = 0 if kernel.recurse else cm.level_of(kernel.type)
+    width = (cm.max_size * cm.max_depth if top is None or bottom is None
+             else sum(cm.width_at(lv) for lv in range(bottom + 1, top + 1)))
+    return analytic_crush_cost(lanes, 1, kernel.slots, width, result_max)
+
+
+def _rule_kernel(cm: CompiledCrushMap, ruleno: int, result_max: int
+                 ) -> Optional[crush_kernels.KernelRule]:
+    """The CUDA rule kernel's form of the rule for the first rung: a
+    map on the card whose map and rule are in the kernel's scope
+    (ops/crush_kernels.py::kernel_rule), else None (the eager tier)."""
+    if cm.device.type != "cuda":
+        return None
+    return crush_kernels.kernel_rule(cm, ruleno, result_max)
 
 
 def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
@@ -1451,15 +1505,23 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
         tel.counter("engine_mesh_dispatches", tier="crush-bulk",
                     devices=str(nd))
     member_wv = {dev: wv}
+    # the CUDA rule kernel takes the first rung where the map and the
+    # rule are in its scope (ops/crush_kernels.py), at the rule's own
+    # budgets; the eager tier keeps the deeper rungs and the CPU
+    kernel = _rule_kernel(cm, ruleno, result_max)
 
-    def rung(tries, lcap, fix):
+    def rung(tries, lcap, fix, first=False):
         """The rung's evaluator over x lanes on the map's device: the
-        compiled rule, sharded over the plane's members when one is
-        active (each member's tables and weights on its own device)."""
+        rule kernel (the first rung, in its scope) or the compiled rule,
+        sharded over the plane's members when one is active (each
+        member's tables and weights on its own device)."""
         def local(xb: torch.Tensor):
             cm_d = _member_map(cm, xb.device)
             if xb.device not in member_wv:
                 member_wv[xb.device] = wv.to(xb.device)
+            if first and kernel is not None:
+                return crush_kernels.crush_rule_cuda(
+                    cm_d.kernel_tables(), kernel, xb, member_wv[xb.device])
             return _get_fn(cm_d, ruleno, result_max, tries, lcap, fix)(
                 xb, member_wv[xb.device], all_in)
         if plane is None:
@@ -1475,7 +1537,8 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
             return o[:m], c[:m], nh[:m]
         return sharded
 
-    fn = rung(*rungs[0])
+    fn = rung(*rungs[0], first=True)
+    kernel_lanes = [0]
 
     # the supervised dispatch seam (ops/supervisor.py): the first rung's
     # block dispatch classifies transient / out-of-memory / backend-loss
@@ -1484,7 +1547,10 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
     # bit-identical by the same invariant (its lanes answer
     # need_host=False, so they never re-enter the device rungs)
     def dev_block(xb: torch.Tensor):
-        return fn(xb)
+        res = fn(xb)
+        if kernel is not None:
+            kernel_lanes[0] += xb.shape[0]
+        return res
 
     def host_block(xb: torch.Tensor):
         xs_h = _to_host(xb)
@@ -1534,6 +1600,10 @@ def bulk_do_rule(cmap, ruleno: int, xs, result_max: int,
                         host_fn=host_block, verifiable=False)
             perf.inc("crush_bulk_blocks")
         redo = flagged = _nonzero(need)
+        if kernel_lanes[0]:
+            # the lanes the rule kernel placed, and those it flagged
+            spans.note("kernel_lanes", kernel_lanes[0] - flagged.numel())
+            spans.note("kernel_flagged", flagged.numel())
 
     # residue-adaptive rungs: each deeper budget re-runs ONLY the lanes
     # the previous rung flagged, so serial host work is bounded by the

@@ -16,7 +16,7 @@ import importlib
 import torch
 
 # the modules whose wrappers launch CUDA kernels
-KERNEL_MODULES = ("gf_kernels", "probe_kernels")
+KERNEL_MODULES = ("gf_kernels", "probe_kernels", "crush_kernels")
 
 _wrappers: list = []
 

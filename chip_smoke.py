@@ -135,7 +135,8 @@ source, all started together) and then, in order:
    the host-to-device copy of one pool; the serving runs' GB/s, GB/s
    under SLO and p50/p99 per op, and where one fire's time goes (copy
    in, the call, copy out, demux), paged and dense; and prints one JSON
-   line ``{"kernels": [...]}`` (thirteen wrappers; "ms" is the profiler's
+   line ``{"kernels": [...]}`` (thirteen wrappers, and the CRUSH rule
+   kernel from phase 6; "ms" is the profiler's
    device time, the event time where the trace has no kernel); the
    column-walk kernel on the three clay shapes (the encode, the (0,)
    decode and the (8,) repair; the two decodes split their columns at
@@ -165,8 +166,10 @@ source, all started together) and then, in order:
    each row's GB/s; ``non_regression.check`` runs every corpus entry on
    the card with 0 errors.  It prints one ``{"bench": {...}}`` line.
 
-6. CRUSH on the card (``ceph_tpu_torch/crush/bulk.py``, eager torch, no
-   kernel of its own): three rows through ``crushtool.main([...,
+6. CRUSH on the card (``ceph_tpu_torch/crush/bulk.py``; its first rung
+   the rule kernel, ``ops/csrc/crush_rule.cu``, where the map and rule are
+   in its scope, the deeper rungs eager torch): three rows through
+   ``crushtool.main([...,
    "--test", "--engine", "bulk", "--device", "cuda",
    "--show-statistics"])`` over x in 0..999999 — A: ``--build-two-level
    8 4`` (32 OSDs, straw2), rule 0 (``chooseleaf firstn`` host),
@@ -185,9 +188,18 @@ source, all started together) and then, in order:
    of 8000 of the lanes the first rung flagged and every lane of the
    host residue, the CPU evaluator (``device="cpu"``) on x < 4096 and
    every flagged lane, and
-   the profiled sweep's per-device counts those of the crushtool sweep.
-   The host mapper runs in CRUSH_PROCS spawned processes beside the
-   card's later rows; its verdicts are read after the last row.  Then,
+   the profiled sweep's per-device counts those of the crushtool sweep;
+   each row's profiled sweep must launch the rule kernel (its output
+   held as ``crush_rule_cuda`` against the CPU evaluator, so phase 12
+   may launch it; the launch counters are reset before each profiled
+   sweep, and the three sweeps' launches are the kernel's ``launches``
+   in the ``{"kernels": [...]}`` line).  The rule kernel alone at the
+   remap cell's shape (``ceph_tpu_torch/tools/crush_times.py``: 16384
+   pps seeds, 100 hosts x 12, the EC rule, 8 OSDs down and 40
+   reweighted) gives that line's device ms, operations bound and the
+   eager tier's sweep.  The host mapper runs in CRUSH_PROCS
+   spawned processes beside the card's later rows; its verdicts are read
+   after the last row.  Then,
    on row C's map, ``osdmaptool --create-ec-pool`` makes a k=8 m=3 pool
    with ``--pg-num 16384`` (1200 OSDs x 100 PGs per OSD / 11 shards,
    rounded up to a power of two), ``--test-map-pgs`` runs on the card
@@ -943,7 +955,9 @@ def crush_phase(seed: int, err: "Errors") -> dict:
     from ceph_tpu_torch.crush.osdmap import OSDMap
     from ceph_tpu_torch.crush.text_compiler import decompile_text
     from ceph_tpu_torch.crush.types import step_chooseleaf_indep
+    from ceph_tpu_torch.ops.launches import launch_counts, reset_launch_counts
     from ceph_tpu_torch.telemetry.profiler import STRAW2_DRAW_OPS
+    from ceph_tpu_torch.tools import crush_times
     from ceph_tpu_torch.utils.perf import global_perf
 
     perf = global_perf()
@@ -1023,11 +1037,15 @@ def crush_phase(seed: int, err: "Errors") -> dict:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             cm = bulk.CompiledCrushMap(cmap, device="cuda")
+            reset_launch_counts()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 out, cnt, n_host = bulk.bulk_do_rule(cm, rule, xs, nrep,
                                                      return_stats=True)
                 wall = (time.perf_counter() - t0) * 1e3
+            k_launches = launch_counts()["crush_rule_cuda"]
+            check(k_launches >= 1, f"row {name}: the rule kernel placed "
+                                   f"the profiled sweep")
             peak = torch.cuda.max_memory_allocated() - base
             syncs = perf.get("crush_bulk_host_syncs") - syncs0
             blocks = perf.get("crush_bulk_blocks") - blocks0
@@ -1060,10 +1078,13 @@ def crush_phase(seed: int, err: "Errors") -> dict:
             cpu_s = time.perf_counter() - t0
             err.hold(f"crush row {name} cpu", torch.from_numpy(out[lanes]),
                      torch.from_numpy(cpu_out), f"row {name} vs the CPU")
+            err.hold("crush_rule_cuda", torch.from_numpy(out[lanes]),
+                     torch.from_numpy(cpu_out),
+                     f"row {name}: the rule kernel vs the CPU evaluator")
             check(np.array_equal(cnt[lanes], cpu_cnt), f"row {name} counts")
-            # the bound of the first rung's straw2 draws at the domain
-            # level (the profiler's model, bulk.first_rung_cost): lanes x
-            # tries x replicas x the take bucket level's width
+            # the bound of the first rung's straw2 draws (the profiler's
+            # model, bulk.first_rung_cost): on the rule kernel lanes x
+            # replicas x the widths of the levels a replica descends
             t1 = bulk.auto_ladder(cmap, rule, nrep,
                                   bulk.auto_tries(cmap, rule, nrep))[0][0]
             rung_cost = bulk.first_rung_cost(cm, rule, nrep, t1, CRUSH_X)
@@ -1083,7 +1104,8 @@ def crush_phase(seed: int, err: "Errors") -> dict:
                    "host_sample": int(pick.size),
                    "cpu_lanes": int(lanes.size), "cpu_s": cpu_s,
                    "device_ms_by_kind": dict(top),
-                   "block_lanes": bulk.block_lanes(cm, rule, nrep, t1)}
+                   "block_lanes": bulk.block_lanes(cm, rule, nrep, t1),
+                   "kernel_launches": k_launches}
             result[name] = row
             print(f"phase 6: row {name}: {rate:,.0f} mappings/s (crushtool, "
                   f"{tool_s:.1f} s for both sweeps); residue "
@@ -1100,6 +1122,24 @@ def crush_phase(seed: int, err: "Errors") -> dict:
                   f"{bound:.3f} ms ({STRAW2_DRAW_OPS} INT32 ops a draw); "
                   "device ms by kind: "
                   + ", ".join(f"{k} {v:.1f}" for k, v in top))
+
+        # the kernel's launches on the main path: the rows' profiled
+        # sweeps, each counted from 0
+        result["kernel_launches"] = sum(result[name]["kernel_launches"]
+                                        for name, *_ in rows)
+        # -- the rule kernel alone at the remap cell's shape (its times;
+        # its launches are the rows') -----------------------------------
+        kern = crush_times.measure(seed)
+        check(kern["equal"],
+              f"the rule kernel's sweep equals the eager tier's: {kern}")
+        result["kernel"] = kern
+        print(f"phase 6: the rule kernel at the remap cell's shape "
+              f"({kern['lanes']} lanes): {kern['kernel_ms']} ms device "
+              f"({kern['kernel_event_ms']:.4f} ms by events) against an "
+              f"operations bound of {kern['bound_ms']:.4f} ms; a sweep "
+              f"{kern['kernel_sweep_ms']:.3f} ms through the kernel, "
+              f"{kern['eager_sweep_ms']:.1f} ms through the eager rungs "
+              f"({kern['eager_device_ms']:.1f} ms device)")
 
         # -- the OSDMap steps, on row C's map ----------------------------
         plain_map = os.path.join(work, "osdmap_c.json")
@@ -4872,8 +4912,10 @@ def main(argv=None) -> int:
         f"roofline tool (the five probes, {ROOF_MIB} MiB slabs, loop "
         f"{ROOF_LOOP})", counts, reset, roofline_path,
         ("copy_slab_cuda", "fold_slab_cuda", "apply_matrix_cuda_packed"))
+    # every coding kernel; the CRUSH rule kernel is driven and required
+    # in phase 6
     launches = {name: sum(r[name] for r in results.values())
-                for name in counts()}
+                for name in counts() if name != "crush_rule_cuda"}
     for name, cnt in launches.items():
         check(cnt >= 1, f"{name} launched on the driven paths")
     print(f"phase 3: all paths ok; launches {launches}")
@@ -5565,6 +5607,15 @@ def main(argv=None) -> int:
     bench = phase_line(5, "bench", bench_phase(kernel_ms))
     # -- phase 6: CRUSH on the card ------------------------------------------
     crush = phase_line(6, "crush", crush_phase(seed, err))
+    kern = crush["kernel"]
+    kernels.append({
+        "name": "crush_rule_cuda", "route": "cuda",
+        "source": SRC + "crush_rule.cu", "replaces": None,
+        "launches": crush["kernel_launches"],
+        "max_abs_err": err["crush_rule_cuda"],
+        "ms": kern["kernel_ms"] or kern["kernel_event_ms"],
+        "plain_ms": kern["eager_device_ms"], "bound_ms": kern["bound_ms"],
+        "bound_by": "operations", "library_ms": None, "ok": True})
     # -- phase 7: scrub -> repair -> recover on the card ---------------------
     phase_line(7, "recovery", recovery_phase(seed))
     # -- phase 8: the supervised dispatch plane on the card ------------------

@@ -9,8 +9,10 @@ their benchmark cells' sizes, one launch and no device op but the GF
 kernels), the "mxu" row's column-walk kernel (bytes and
 packed, column splits, row tiles; the clay paths that take it)
 and the roofline tool's copy and fold kernels; and the CRUSH bulk
-evaluator (eager torch, no kernel of its own) and the crushtool /
-osdmaptool CLIs on the card against their CPU runs; and the supervised
+evaluator and the crushtool / osdmaptool CLIs on the card against their
+CPU runs, and its first rung's rule kernel against the host mapper (the
+remap cell's map, NONE holes, ties, weight sets, x near 2^32); and the
+supervised
 dispatch plane (clean launches equal to the unsupervised call's, the
 device-chaos row, a lost card raising and the kernel launching after)
 and the data plane over 4 virtual members of the card (the mesh tier,
@@ -1083,6 +1085,136 @@ def test_crush_bulk_ties_on_the_card(cuda_device):
             assert list(got[x][:len(r)]) == r
         root = max(b.map.buckets, key=lambda bid: b.map.buckets[bid].type)
         args[root] = ChooseArg(weight_set=[[0] * 4])
+
+
+# -- CRUSH: the rule kernel against the host mapper -------------------------
+
+def _crush_host_rows(cmap, rule, xs, nrep, weight=None, choose_args=None):
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    rows = [crush_do_rule(cmap, rule, int(x), nrep, weight=weight,
+                          choose_args=choose_args) for x in xs]
+    return (np.asarray([r + [0x7FFFFFFF] * (nrep - len(r)) for r in rows],
+                       np.int32),
+            np.asarray([len(r) for r in rows], np.int32))
+
+
+def _crush_kernel_sweep(cm, rule, xs, nrep, weight=None):
+    """bulk_do_rule on the card: (out, count, the rule kernel's launches);
+    the kernel placed every lane (no flag, no residue)."""
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.ops import crush_kernels
+    assert crush_kernels.kernel_rule(cm, rule, nrep) is not None
+    before = crush_kernels.crush_rule_cuda.launches
+    out, cnt = bulk.bulk_do_rule(cm, rule, xs, nrep, weight=weight)
+    assert cm.last_flagged.size == 0 and cm.last_residue.size == 0
+    return out, cnt, crush_kernels.crush_rule_cuda.launches - before
+
+
+def _crush_weights(n, downs, reweights, seed):
+    rng = np.random.default_rng(seed)
+    w = [0x10000] * n
+    picks = rng.choice(n, downs + reweights, replace=False)
+    for o in picks[:downs]:
+        w[o] = 0
+    for o in picks[downs:]:
+        w[o] = int(rng.integers(0x8000, 0x10000))
+    return w
+
+
+def test_crush_kernel_on_the_remap_cells_map(cuda_device, monkeypatch):
+    """Every PG of the remap cell's pool (16384, 100 hosts x 12, the EC
+    rule 11 wide), 8 OSDs down and 40 reweighted in [0.5, 1.0]: the rule
+    kernel gives the eager tier's up sets (the same sweep with the
+    kernel off: its rungs and host residue are the host mapper's
+    answers) on every lane and crush_do_rule's on a seeded sample; it
+    launched, flagged nothing and left no residue."""
+    import json
+    import os
+    import sys
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.telemetry import spans
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks")
+    sys.path.insert(0, bench)
+    from yardstick.kinds.osdmap_churn import build
+    with open(os.path.join(bench, "configs", "rs_k8_m3.json")) as f:
+        config = json.load(f)
+    osdmap, pid = build(config, cuda_device)
+    pool = osdmap.pools[pid]
+    cm = osdmap._compiled_map()
+    w = _crush_weights(osdmap.max_osd, 8, 40, 23)
+    xs = np.asarray(pool.pps_all(), np.int64)
+    tracer = spans.global_tracer()
+    tracer.reset()
+    with spans.armed(), spans.root("test.sweep"):
+        got, cnt, launches = _crush_kernel_sweep(cm, pool.crush_rule, xs,
+                                                 pool.size, w)
+    assert launches >= 1
+    noted = tracer.totals()["crush.rung"]["counts"]
+    assert noted["kernel_lanes"] == len(xs) and noted["kernel_flagged"] == 0
+    monkeypatch.setattr(bulk, "_rule_kernel", lambda *a: None)
+    want, want_n = bulk.bulk_do_rule(cm, pool.crush_rule, xs, pool.size,
+                                     weight=w)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cnt, want_n)
+    pick = np.random.default_rng(7).choice(len(xs), 48, replace=False)
+    host, host_n = _crush_host_rows(osdmap.crush, pool.crush_rule,
+                                    xs[pick], pool.size, w)
+    np.testing.assert_array_equal(got[pick], host)
+    np.testing.assert_array_equal(cnt[pick], host_n)
+
+
+@pytest.mark.parametrize("hosts,devs,rule,nrep", [
+    (8, 4, "firstn", 3), (8, 4, "ec", 6), (6, 2, "ec", 8)])
+def test_crush_kernel_equals_the_host_mapper_on_the_card(
+        cuda_device, hosts, devs, rule, nrep):
+    """chip_smoke.py phase 6's rows A and B and a rule wider than its
+    hosts (NONE holes), x near 2^32, with and without reweights: every
+    lane the host mapper's."""
+    from ceph_tpu_torch.crush import bulk
+    b = _crush_two_level(hosts, devs, rule)
+    xs = np.arange(1024) + (1 << 32) - 512
+    for weight in (None, _crush_weights(hosts * devs, 2, 4, hosts)):
+        cm = bulk.CompiledCrushMap(b.map)
+        got, cnt, launches = _crush_kernel_sweep(cm, 0, xs, nrep, weight)
+        assert launches >= 1
+        want, want_n = _crush_host_rows(b.map, 0, xs, nrep, weight)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(cnt, want_n)
+
+
+def test_crush_kernel_ties_and_weight_sets_on_the_card(cuda_device):
+    """Weight ties (every draw of a bucket equal, then an all-zero
+    weight set at the root) and choose_args weight sets by position with
+    ids: the kernel keeps C's first slot and reads the position's
+    weights."""
+    from ceph_tpu_torch.crush import bulk
+    from ceph_tpu_torch.crush.types import ChooseArg
+    b = _crush_two_level(4, 3, "firstn")
+    args = {bid: ChooseArg(weight_set=[[0x10000] * bk.size],
+                           ids=[77] * bk.size)
+            for bid, bk in b.map.buckets.items()}
+    xs = np.arange(256)
+    for _ in range(2):
+        cm = bulk.CompiledCrushMap(b.map, args)
+        got, cnt, _ = _crush_kernel_sweep(cm, 0, xs, 3)
+        want, want_n = _crush_host_rows(b.map, 0, xs, 3, None, args)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(cnt, want_n)
+        root = max(b.map.buckets, key=lambda bid: b.map.buckets[bid].type)
+        args[root] = ChooseArg(weight_set=[[0] * 4])
+    b = _crush_two_level(8, 4, "ec")
+    rng = np.random.default_rng(3)
+    args = {bid: ChooseArg(
+        weight_set=[[int(w * rng.uniform(0.5, 1.5))
+                     for w in bk.item_weights] for _ in range(3)],
+        ids=[i + 1000 for i in bk.items])
+        for bid, bk in b.map.buckets.items()}
+    cm = bulk.CompiledCrushMap(b.map, args)
+    got, cnt, _ = _crush_kernel_sweep(cm, 0, xs, 6)
+    want, want_n = _crush_host_rows(b.map, 0, xs, 6, None, args)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cnt, want_n)
 
 
 # -- scrub, repair and recovery on the card ------------------------------------

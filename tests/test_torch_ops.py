@@ -205,18 +205,18 @@ def test_wrappers_on_cpu_take_plain_version_and_count_nothing():
         "apply_matrix_xor_cuda_packed": 0, "apply_matrix_cuda_ragged": 0,
         "apply_matrix_cuda_packed_ragged": 0, "apply_matrix_mxu_cuda": 0,
         "apply_matrix_mxu_cuda_packed": 0, "copy_slab_cuda": 0,
-        "fold_slab_cuda": 0}
+        "fold_slab_cuda": 0, "crush_rule_cuda": 0}
 
 
 def test_one_launch_registry_reads_every_kernel_module():
     """ops/launches.py reads and resets the counts of every wrapper of
     every kernel module, whatever the caller imported."""
-    from ceph_tpu_torch.ops import launches, probe_kernels
+    from ceph_tpu_torch.ops import crush_kernels, launches, probe_kernels
     every = launches.wrappers()
     assert set(every) == set(gf_kernels.WRAPPERS) | set(
-        probe_kernels.WRAPPERS)
+        probe_kernels.WRAPPERS) | set(crush_kernels.WRAPPERS)
     assert len(every) == len(gf_kernels.WRAPPERS) + len(
-        probe_kernels.WRAPPERS) == 13
+        probe_kernels.WRAPPERS) + len(crush_kernels.WRAPPERS) == 14
     assert gf_kernels.launch_counts is launches.launch_counts
     probe_kernels.fold_slab_cuda.launches = 3
     assert launches.launch_counts()["fold_slab_cuda"] == 3
